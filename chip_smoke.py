@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""Smoke run of posfeat_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py        # from the root of a checkout; one card
+
+Phases, one line each (more for the build):
+  1. device: name, count, and nvidia-smi's name and power limit;
+  2. build: nvcc of csrc/*.cu, with each kernel's registers, shared
+     memory and spills from -Xptxas -v;
+  3. kernels: K1 and K2 at the shapes the main path gives them (B=16,
+     h=120, w=160, Cin=192, Cout=128, out_ch=1) against their plain
+     versions on the same bf16 inputs, the fused head's score map with
+     kernels against the plain versions, and each kernel's time per
+     B=16 launch beside its bound, its plain version's and one PyTorch
+     call's (library_ms);
+  4. the fused bf16 head against the f32 reference dataflow at 480x640;
+  5. the main path: an Extractor at the flagship model, bf16, 128 seeded
+     480x640 images (8 batches of 16) after a warm-up batch, 8192
+     points, npz into a temp dir, with the kernels' launch counts read
+     around it;
+then a ``kernels`` JSON line, nvidia-smi's line, and the final
+``{"ok": true, "device": {...}}`` line. Any failed check raises and the
+exit code is non-zero; without a CUDA card it exits 2 and prints no
+result.
+"""
+
+import copy
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# posfeat_tpu's FLAGSHIP_MODEL_CONFIG (__graft_entry__.py:24-41)
+FLAGSHIP_MODEL_CONFIG = {
+    "backbone": "ResUNet",
+    "backbone_config": {
+        "encoder": "resnet50",
+        "pretrained": False,
+        "coarse_out_ch": 128,
+        "fine_out_ch": 128,
+    },
+    "localheader": "KeypointDet",
+    "localheader_config": {"in_channels": 192, "prior": "identity", "act": "Softplus"},
+    "align_local_grad": False,
+    "local_input_elements": ["local_map", "local_map_small"],
+    "local_with_img": True,
+}
+H, W, BATCH, NUM_PTS, N_IMAGES = 480, 640, 16, 8192, 128
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA cores, HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+SEED = 0
+
+
+def _time_ms(fn, n=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def _bound(ops, peak, nbytes):
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _ptxas_summary(log):
+    """{kernel: {'regs', 'static_smem', 'spills'}} from -Xptxas -v."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next(k for k in ("conv_phase_kernel", "head_tail_kernel", m.group(1)) if k in m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {})["spills"] = f"{m.group(1)}/{m.group(2)} B spill st/ld"
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and name:
+            out.setdefault(name, {})["regs"] = int(m.group(1))
+            out[name]["static_smem"] = int(m.group(2) or 0)
+    return out
+
+
+def phase_kernels(torch, fh, rng):
+    """K1/K2 against their plain versions at the main path's shapes, plus
+    times; returns the kernel records (launches filled in later)."""
+    dev = torch.device("cuda")
+    B, h, w, C, cout, out_ch = BATCH, H // 4, W // 4, 192, 128, 1
+    N, KP, kk = 16 * cout, 192, 16
+    bf = torch.bfloat16
+
+    def g(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+
+    tp, kph = g(B, h + 2, w + 2, C).to(bf), g(9, C, N, scale=0.03).to(bf)
+    pat, wm, b2b = g(B, h, w, KP).to(bf), g(B, KP, N, scale=0.03).to(bf), g(B, N, scale=0.1)
+    z, s, q = fh.conv_phase(tp, kph, pat, wm, b2b)
+    torch.cuda.synchronize()
+    zr, sr, qr = fh.conv_phase_plain(tp, kph, pat, wm, b2b)
+    # z at bf16 resolution (one ulp of 2^-8 relative, doubled for ties in rounding)
+    err1 = (z.float() - zr.float()).abs().max().item()
+    torch.testing.assert_close(z.float(), zr.float(), rtol=2 ** -7, atol=1e-2)
+    # f32 moments at rtol 1e-3 (atol covers column sums that cancel toward 0)
+    n_cells = h * w
+    for got, ref in ((s.sum(1), sr.sum(1)), (q.sum(1), qr.sum(1))):
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3 * ref.abs().mean().item())
+    # K2 on K1's z with the pooled IN1 statistics, as the head feeds it
+    s1 = s.sum(1).reshape(B, kk, cout).sum(1)
+    s2 = q.sum(1).reshape(B, kk, cout).sum(1)
+    mu = s1 / (n_cells * kk)
+    sc = torch.rsqrt(torch.clamp(s2 / (n_cells * kk) - mu * mu, min=0.0) + 1e-5)
+    a, w3, b3 = torch.tensor([0.25], device=dev), g(cout, out_ch, scale=0.1), g(out_ch, scale=0.1)
+    u, us, uq = fh.head_tail(z, mu, sc, a, w3, b3)
+    torch.cuda.synchronize()
+    ur, usr, uqr = fh.head_tail_plain(z, mu, sc, a, w3, b3)
+    err2 = (u - ur).abs().max().item()
+    torch.testing.assert_close(u, ur, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(us.sum(1), usr.sum(1), rtol=1e-3, atol=1e-2)
+    torch.testing.assert_close(uq.sum(1), uqr.sum(1), rtol=1e-3, atol=1e-2)
+
+    # the whole fused head: kernels against plain versions, same bf16 inputs
+    trunk = g(B, h, w, C).to(bf)
+    img_s = g(B, 4 * h, 4 * w, 3).to(bf)
+    k1 = g(3, 3, 3, 64, scale=0.2)
+    b1 = g(64, scale=0.1)
+    img_y = (torch.nn.functional.conv2d(img_s.permute(0, 3, 1, 2).float(), k1.permute(3, 2, 0, 1), b1, padding=1)
+             .permute(0, 2, 3, 1).to(bf))
+    head = dict(
+        k1_img=k1, b1_img=b1, k2_trunk=g(3, 3, C, cout, scale=0.03), k2_img=g(3, 3, 64, cout, scale=0.05),
+        b2=g(cout, scale=0.1), w3=g(1, 1, cout, out_ch, scale=0.1), b3=g(out_ch, scale=0.1),
+        prelu_a=torch.tensor([0.25], device=dev), act="Softplus",
+    )
+    score = fh.fused_head_tail(trunk, img_s, img_y, **head)
+    score_plain = fh._fused_head_tail(fh.conv_phase_plain, fh.head_tail_plain, trunk, img_s, img_y, **head)
+    torch.cuda.synchronize()
+    d = (score - score_plain).abs()
+    ref_mean = score_plain.abs().mean().item()
+    assert torch.isfinite(score).all() and score.dtype == torch.float32
+    # bf16 bound of test_pallas_fused_head.py:217-227
+    assert d.max().item() < 2e-2 * ref_mean, (d.max().item(), ref_mean)
+    print(f"[3] kernels at B={B} h={h} w={w} Cin={C} Cout={cout} out_ch={out_ch}: "
+          f"K1 z max|err| {err1:.4g} (max|z| {zr.float().abs().max().item():.4g}), "
+          f"K2 u max|err| {err2:.3g}; fused-head score kernels vs plain max {d.max().item():.3g} "
+          f"mean {d.mean().item():.3g} (mean|score| {ref_mean:.4g})")
+
+    # times (CUDA events, after warm-up)
+    k1_ms = _time_ms(lambda: fh.conv_phase(tp, kph, pat, wm, b2b))
+    k1_plain = _time_ms(lambda: fh.conv_phase_plain(tp, kph, pat, wm, b2b), n=5)
+    kph4 = kph.reshape(3, 3, C, N).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    tp_nchw = tp.permute(0, 3, 1, 2)  # channels_last view
+    k1_lib = _time_ms(lambda: torch.nn.functional.conv2d(tp_nchw, kph4))
+    k2_ms = _time_ms(lambda: fh.head_tail(z, mu, sc, a, w3, b3))
+    k2_plain = _time_ms(lambda: fh.head_tail_plain(z, mu, sc, a, w3, b3), n=5)
+    zb = z.view(B, -1, kk, cout)
+    mu_b, sc_b, w3t = mu[:, None, None].to(bf), sc[:, None, None].to(bf), w3.t().to(bf).contiguous()
+    k2_lib = _time_ms(lambda: torch.nn.functional.linear(
+        torch.nn.functional.prelu((zb - mu_b) * sc_b, a.to(bf)), w3t, b3.to(bf)))
+
+    M = B * h * w
+    k1_bytes = 2 * (tp.numel() + kph.numel() + pat.numel() + wm.numel() + z.numel()) + 4 * (
+        b2b.numel() + s.numel() + q.numel())
+    k1_bound = _bound(2.0 * M * N * (9 * C + KP), PEAK_BF16, k1_bytes)
+    k2_bytes = 2 * z.numel() + 4 * (mu.numel() + sc.numel() + 1 + w3.numel() + b3.numel()
+                                    + u.numel() + us.numel() + uq.numel())
+    k2_bound = _bound(z.numel() * (3.0 + 2 * out_ch), PEAK_F32, k2_bytes)
+    records = [
+        {"name": "K1 conv_phase", "route": "cuda", "source": "posfeat_tpu_torch/csrc/fused_head.cu",
+         "replaces": "posfeat_tpu/ops/pallas/fused_head.py:148", "launches": 0,
+         "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": k1_lib},
+        {"name": "K2 head_tail", "route": "cuda", "source": "posfeat_tpu_torch/csrc/fused_head.cu",
+         "replaces": "posfeat_tpu/ops/pallas/fused_head.py:284", "launches": 0,
+         "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": k2_lib},
+    ]
+    for r in records:
+        print(f"[3] {r['name']}: {r['ms']:.4f} ms per B={B} launch (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)")
+    return records
+
+
+def phase_head_vs_reference(torch, rng):
+    """The fused bf16 head against the f32 reference dataflow, same weights."""
+    from posfeat_tpu_torch.models import KeypointDet, init_parameters
+
+    dev = torch.device("cuda")
+    kw = dict(in_channels=192, out_channels=1, prior="identity", act="Softplus")
+    fused = KeypointDet(**kw, fused_upsample="pallas", dtype=torch.bfloat16)
+    init_parameters(fused, torch.Generator().manual_seed(SEED))
+    ref = KeypointDet(**kw, fused_upsample=False)
+    ref.load_state_dict(fused.state_dict())
+    fused, ref = fused.to(dev), ref.to(dev)
+    B = 2
+    # bf16-representable inputs, so both heads see the same values
+    fm = torch.from_numpy(rng.random((B, H // 4, W // 4, 192), dtype=np.float32)).to(dev)
+    img = torch.from_numpy(rng.standard_normal((B, H, W, 3), dtype=np.float32)).to(dev)
+    fm, img = fm.to(torch.bfloat16).float(), img.to(torch.bfloat16).float()
+    with torch.no_grad():
+        s_f = fused(fm, img)
+        s_r = ref(fm, img)
+    torch.cuda.synchronize()
+    assert s_f.shape == s_r.shape == (B, H, W, 1) and s_f.dtype == torch.float32
+    assert torch.isfinite(s_f).all() and torch.isfinite(s_r).all()
+    d = (s_f - s_r).abs()
+    scale = s_r.abs().mean().item()
+    print(f"[4] fused bf16 head vs f32 reference dataflow at {H}x{W}: max|d| {d.max().item():.4g}, "
+          f"mean|d| {d.mean().item():.4g}, mean|score| {scale:.4g}")
+    # bf16 trunk vs f32: loose bounds; the max one catches an O(1) error
+    # on the 2-px border ring or at a phase-layout corner, which the mean
+    # (ring = 1.5% of the pixels) cannot see
+    assert d.mean().item() < 5e-2 * scale, (d.mean().item(), scale)
+    assert d.max().item() < 1e-1 * scale, (d.max().item(), scale)
+
+
+def _images(rng, n, tag):
+    """Seeded 480x640 uint8 images: smooth blobs plus noise, as dicts of
+    the extraction datasets' sample contract."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    out = []
+    for i in range(n):
+        f = rng.uniform(0.01, 0.08, size=(3, 2))
+        ph = rng.uniform(0, 2 * np.pi, size=(3, 2))
+        base = np.stack([np.sin(f[c, 0] * yy + ph[c, 0]) * np.cos(f[c, 1] * xx + ph[c, 1]) for c in range(3)], -1)
+        im = 127.5 + 80 * base + rng.normal(0, 20, size=(H, W, 3))
+        out.append({
+            "im1": None,
+            "im1_ori": np.clip(im, 0, 255).astype(np.uint8),
+            "coord1": np.zeros((0, 2), np.float32),
+            "name1": f"{tag}/{i:03d}.png",
+            "pad1": (0, 0, 0, 0),
+        })
+    return out
+
+
+def flagship_extractor(tmp, rng, output_root="smoke"):
+    """An Extractor at the flagship model (bf16, batch 16, 8192 points,
+    fused head), writing npz under ``tmp``, after one warm-up batch of
+    seeded images (cuDNN autotuning, allocator). Set ``.dataset`` and
+    call ``.extract()`` to drive the main path."""
+    import torch
+    from posfeat_tpu_torch.extract import Extractor
+
+    cfg = {
+        "output_root": output_root, "postfix": "npz", "load_path": None,
+        "loss_distance": "cos", "output_desc": True, "output_img": False,
+        "compute_dtype": "bfloat16", "model": "PoSFeat",
+        "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
+        "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4},
+        "use_sift": False, "detector": "generate_kpts_single",
+        "detector_config": {"num_pts": NUM_PTS, "stable": True, "use_nms": True,
+                            "nms_radius": 1, "thr": 0.9, "thr_mod": "abs"},
+    }
+    ex = Extractor(cfg, ckpt_root=tmp, dataset=_images(rng, BATCH, "warm"))
+    assert ex.config["model_config"]["localheader_config"]["fused_upsample"] == "pallas"
+    ex.extract()
+    torch.cuda.synchronize()
+    return ex
+
+
+def phase_main_path(torch, fh, rng, records):
+    data = _images(rng, N_IMAGES, "main")
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = flagship_extractor(tmp, rng)
+        ex.dataset = data
+        torch.cuda.reset_peak_memory_stats()
+        fh.conv_phase.launches = 0
+        fh.head_tail.launches = 0
+        t0 = time.perf_counter()
+        n, _ = ex.extract()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"K1 conv_phase": fh.conv_phase.launches, "K2 head_tail": fh.head_tail.launches}
+        peak = torch.cuda.max_memory_allocated()
+        assert n == N_IMAGES
+        counts = []
+        for it in data:
+            f = np.load(f"{ex.desc_root}/{it['name1']}.npz")
+            kp, sc, de = f["keypoints"], f["scores"], f["descriptors"]
+            assert kp.dtype == sc.dtype == de.dtype == np.float32
+            assert kp.ndim == 2 and kp.shape[1] == 2 and 128 <= kp.shape[0] <= NUM_PTS, kp.shape
+            assert sc.shape == (kp.shape[0], 1) and de.shape == (kp.shape[0], 128)
+            assert np.isfinite(kp).all() and np.isfinite(sc).all() and np.isfinite(de).all()
+            assert ((kp >= 0) & (kp <= [W - 1, H - 1])).all()
+            assert np.abs(np.linalg.norm(de, axis=1) - 1).max() < 1e-3
+            counts.append(kp.shape[0])
+    for r in records:
+        r["launches"] = launches[r["name"]]
+        assert r["launches"] > 0, f"{r['name']} was not launched on the main path"
+    print(f"[5] main path: {n} images {H}x{W} bf16 in {n // BATCH} batches of {BATCH} after a warm-up batch, "
+          f"{NUM_PTS} pts: {n / dt:.2f} im/s ({dt:.3f} s, one pipeline fill and drain included), "
+          f"peak memory {peak / 2**30:.2f} GiB, keypoints/image min {min(counts)} max {max(counts)}, "
+          f"launches {launches}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    from posfeat_tpu_torch import resolve_device
+    from posfeat_tpu_torch.ops import _build
+    from posfeat_tpu_torch.ops import fused_head as fh
+
+    resolve_device("cuda")  # f32 work on the card stays out of TF32
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[1] device: {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+
+    info = _build.build(force=True)
+    print(f"[2] build: {info['seconds']:.2f} s nvcc -> {info['path'].name}")
+    for kname, props in _ptxas_summary(info["log"]).items():
+        print(f"[2]   {kname}: {props}")
+
+    rng = np.random.default_rng(SEED)
+    records = phase_kernels(torch, fh, rng)
+    phase_head_vs_reference(torch, rng)
+    phase_main_path(torch, fh, rng, records)
+
+    print(json.dumps({"kernels": records}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,129 @@
+"""PoSFeat composite model: descriptor backbone + keypoint score head
+(posfeat_tpu/models/posfeat.py; reference networks/PoSFeat_model.py:15-147).
+
+Checkpoints use the reference's per-module layout: ``backbone.pth`` and
+``localheader.pth`` in one directory. A missing module keeps its current
+parameters (how stage 2 starts with a fresh head).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import torch
+import torch.nn as nn
+
+from ..core.device import resolve_device
+from .keypoint_det import KeypointDet
+from .resunet import ResUNet
+
+BACKBONES = {"ResUNet": ResUNet}
+HEADS = {"KeypointDet": KeypointDet}
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX modules' init, drawn from ``generator``: LeCun-normal conv
+    kernels, zero biases, identity BatchNorm, PReLU slope 0.25."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.empty(m.weight.shape).normal_(0, fan_in ** -0.5, generator=generator))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+        elif isinstance(m, nn.PReLU):
+            m.weight.fill_(0.25)
+
+
+class PoSFeat(nn.Module):
+    """Composite of ``backbone`` and ``localheader``.
+
+    config keys (reference PoSFeat_model.py:16-46): backbone,
+    backbone_config, localheader, localheader_config, align_local_grad,
+    local_input_elements, local_with_img. The backbone's parameters take
+    ``dtype``; the head keeps f32 parameters and casts per op. Weights
+    are drawn from a ``torch.Generator`` seeded with ``seed`` unless a
+    checkpoint is loaded over them.
+    """
+
+    module_names = ("backbone", "localheader")
+
+    def __init__(self, config: Dict[str, Any], dtype=torch.float32, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = config
+        self.dtype = dtype
+        self.align_local_grad = config["align_local_grad"]
+        self.local_input_elements = list(config["local_input_elements"])
+        self.local_with_img = config["local_with_img"]
+        if not self.local_with_img:
+            raise ValueError(
+                "KeypointDet requires local_with_img=True (reference DeteNet "
+                "forward consumes [feat, image])"
+            )
+        backbone = BACKBONES[config["backbone"]](**(config.get("backbone_config") or {}))
+        head_name = config.get("localheader")
+        if head_name and head_name != "None":
+            head = HEADS[head_name](**(config.get("localheader_config") or {}), dtype=dtype)
+        else:  # default head (PoSFeat_model.py:37-42)
+            head = KeypointDet(in_channels=backbone.out_channels[0], out_channels=2, dtype=dtype)
+        g = torch.Generator().manual_seed(seed)
+        init_parameters(backbone, g)
+        init_parameters(head, g)
+        self.backbone = backbone.to(device=dev, dtype=dtype)
+        self.localheader = head.to(device=dev)
+        self.eval()
+
+    @torch.no_grad()
+    def extract(self, tensor: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Single-image feature extraction (PoSFeat_model.py:91-134) in
+        eval mode: NHWC image [B, H, W, 3] -> the reference output dict
+        (NHWC maps)."""
+        feat_maps = self.backbone(tensor)
+        b, h16, w16, _ = feat_maps["global_map"].shape
+        local_map = feat_maps["local_map"]
+        g_map = torch.ones((b, h16, w16, 1), dtype=local_map.dtype, device=local_map.device)
+        local_input = torch.cat([feat_maps[n] for n in self.local_input_elements], dim=-1)
+        l_map = self.localheader(local_input, tensor)
+        if l_map.shape[-1] == 1:
+            local_thr = torch.zeros_like(l_map)
+        else:
+            local_thr = l_map[..., 1:]
+            l_map = l_map[..., :1]
+        g_desc = g_map * feat_maps["global_map"]
+        g_desc = g_desc / torch.linalg.vector_norm(g_desc, dim=-1, keepdim=True).clamp_min(1e-12)
+        return {
+            "local_map": local_map,
+            "global_map": feat_maps["global_map"],
+            "global_feat": g_desc.mean(dim=(1, 2)),
+            "local_point": l_map,
+            "local_thr": local_thr,
+            "global_point": g_map,
+        }
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        """Two-view forward (PoSFeat_model.py:136-147), eval mode."""
+        return {"preds1": self.extract(inputs["im1"]), "preds2": self.extract(inputs["im2"])}
+
+    def save_checkpoint(self, save_path: str) -> None:
+        os.makedirs(save_path, exist_ok=True)
+        for name in self.module_names:
+            torch.save(getattr(self, name).state_dict(), os.path.join(save_path, f"{name}.pth"))
+
+    def load_checkpoint(self, load_path: str) -> None:
+        """Load per-module ``.pth`` files; missing modules keep their
+        current parameters (PoSFeat_model.py:57-72)."""
+        for name in self.module_names:
+            path = os.path.join(load_path, f"{name}.pth")
+            if os.path.exists(path):
+                sd = torch.load(path, map_location="cpu", weights_only=True)
+                getattr(self, name).load_state_dict(sd)
+                print(f"load {name} from checkpoint")
+            else:
+                print(f"{name} does not exist, skipping load")
+
+
+MODELS = {"PoSFeat": PoSFeat}

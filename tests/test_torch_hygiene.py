@@ -1,0 +1,56 @@
+"""Import hygiene of posfeat_tpu_torch: it imports nothing of JAX (jax,
+flax, optax) or of the JAX package, and reads no environment variable."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+PKG = Path(__file__).resolve().parent.parent / "posfeat_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "posfeat_tpu")
+SOURCES = sorted(PKG.rglob("*.py"))
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _violations(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if _forbidden(alias.name):
+                    yield node.lineno, f"import {alias.name}"
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                yield node.lineno, f"from {node.module} import"
+            if node.module == "os" and any(a.name in ("environ", "getenv", "putenv") for a in node.names):
+                yield node.lineno, "from os import environ/getenv"
+        elif isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv", "environb"):
+            yield node.lineno, f".{node.attr}"
+        elif isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id == "__import__":
+            yield node.lineno, "__import__()"
+
+
+def test_package_has_sources():
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES}
+    assert {"ops/fused_head.py", "ops/detect.py", "extract/extractor.py"} <= names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PKG).as_posix())
+def test_no_jax_and_no_environment(path):
+    assert list(_violations(path)) == []
+
+
+def test_checker_catches_violations(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text(
+        "import jax.numpy as jnp\nfrom posfeat_tpu.ops import nms\nimport os\n"
+        "x = os.environ.get('A')\nfrom os import getenv\nfrom posfeat_tpu_torch import ops\n"
+    )
+    found = [what for _, what in sorted(_violations(bad))]
+    assert found == [
+        "import jax.numpy", "from posfeat_tpu.ops import", ".environ",
+        "from os import environ/getenv",
+    ]

@@ -1,0 +1,71 @@
+"""Shared fixtures of the posfeat_tpu_torch parity tests: a small PoSFeat
+configuration, JAX variables with every parameter and BatchNorm
+statistic drawn from a seed, and the port model carrying them."""
+
+import copy
+
+import numpy as np
+
+SMALL_CONFIG = {
+    "backbone": "ResUNet",
+    "backbone_config": {
+        "encoder": "resnet18",
+        "pretrained": False,
+        "coarse_out_ch": 32,
+        "fine_out_ch": 32,
+    },
+    "localheader": "KeypointDet",
+    "localheader_config": {
+        "in_channels": 96,
+        "out_channels": 2,  # a live local_thr in the output dict
+        "prior": "identity",
+        "act": "Softplus",
+    },
+    "align_local_grad": False,
+    "local_input_elements": ["local_map", "local_map_small"],
+    "local_with_img": True,
+}
+
+
+def randomize(tree, rng):
+    """Numpy copy of a flax variable tree with biases, BatchNorm affine
+    parameters and running statistics redrawn, so a weight mapping that
+    swaps or drops one of them cannot pass."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = randomize(v, rng)
+            continue
+        v = np.asarray(v, np.float32)
+        if k in ("bias",):
+            v = rng.randn(*v.shape).astype(np.float32) * 0.1
+        elif k in ("scale", "var"):
+            v = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        elif k == "mean":
+            v = rng.uniform(-0.5, 0.5, v.shape).astype(np.float32)
+        out[k] = np.array(v)
+    return out
+
+
+def jax_posfeat(config=SMALL_CONFIG, seed=0, im_shape=(1, 64, 96, 3)):
+    """(JAX PoSFeat f32, its randomized numpy variables)."""
+    import jax
+    import jax.numpy as jnp
+
+    from posfeat_tpu.models import PoSFeat
+
+    model = PoSFeat(copy.deepcopy(config), dtype=jnp.float32)
+    variables = model.init(jax.random.PRNGKey(seed), im_shape=im_shape)
+    return model, randomize(jax.tree.map(np.asarray, variables), np.random.RandomState(seed))
+
+
+def port_posfeat(variables, config=SMALL_CONFIG):
+    """The port's PoSFeat on the CPU carrying the same weights."""
+    from posfeat_tpu_torch.core.jax_weights import from_jax_variables
+    from posfeat_tpu_torch.models import PoSFeat
+
+    model = PoSFeat(copy.deepcopy(config), device="cpu")
+    sds = from_jax_variables(variables)
+    model.backbone.load_state_dict(sds["backbone"])
+    model.localheader.load_state_dict(sds["localheader"])
+    return model
