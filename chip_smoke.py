@@ -18,6 +18,22 @@ Phases, one line each (more for the build):
      480x640 images (8 batches of 16) after a warm-up batch, 8192
      points, npz into a temp dir, with the kernels' launch counts read
      around it;
+  6. reduction kernels: the stage-2 REINFORCE lse and reward passes
+     (K4-K6) at the training path's shapes (B=6, m=n=4800, D=128, T=60,
+     thr=2, rewards 1 / -0.25) on seeded unit descriptors with planted
+     matches, half of them on each other's epipolar lines so that the
+     outputs carry the good reward, against their plain versions (rtol
+     2e-4 on all seven outputs, flipped good/bad decisions at most 1e-3
+     of the good pairs), with times, bounds, plain times and one PyTorch
+     logsumexp expression;
+  7. stage-2 training at the flagship width: configs/train_kp.yaml with
+     the flagship model in f32, SyntheticPairs 480x640 in batches of 6
+     through the PrefetchLoader; one step with the kernels against the
+     same step through the dense DiskLoss on the same draws (loss rtol
+     2e-4, head gradient rtol 2e-3), then a Trainer run of a warm-up
+     step and 5 timed steps with the reduction's launch counts read
+     around it: every step finite, the head moved, the backbone
+     bit-identical;
 then a ``kernels`` JSON line, nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
 exit code is non-zero; without a CUDA card it exits 2 and prints no
@@ -26,6 +42,7 @@ result.
 
 import copy
 import json
+import os
 import re
 import subprocess
 import sys
@@ -50,6 +67,8 @@ FLAGSHIP_MODEL_CONFIG = {
     "local_with_img": True,
 }
 H, W, BATCH, NUM_PTS, N_IMAGES = 480, 640, 16, 8192, 128
+# stage 2 (configs/train_kp.yaml): batch 6 pairs, grid 8 -> m = n = 60 * 80
+TRAIN_BATCH, GRID, TRAIN_STEPS = 6, 8, 6
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 SEED = 0
@@ -81,7 +100,8 @@ def _ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next(k for k in ("conv_phase_kernel", "head_tail_kernel", m.group(1)) if k in m.group(1))
+            name = next(k for k in ("conv_phase_kernel", "head_tail_kernel", "lse_pass_kernel",
+                                    "reward_pass_kernel", m.group(1)) if k in m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             out.setdefault(name, {})["spills"] = f"{m.group(1)}/{m.group(2)} B spill st/ld"
@@ -303,6 +323,219 @@ def phase_main_path(torch, fh, rng, records):
           f"launches {launches}")
 
 
+def _unit(torch, x):
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def phase_reduction(torch, rng):
+    """The lse and reward passes against their plain versions at the
+    training path's shapes, plus times; returns their kernel records."""
+    from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.ops.coords import homogenize
+    from posfeat_tpu_torch.ops.epipolar import epipolar_lines
+
+    dev = torch.device("cuda")
+    B, m, D = TRAIN_BATCH, (H // GRID) * (W // GRID), 128
+    n = m
+    kw = dict(temperature=60.0, thr=2.0, good_reward=1.0, bad_reward=-0.25)
+    T = kw["temperature"]
+
+    def g(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    # planted matches: f2[j] is a noisy copy of f1[perm[j]], so p is peaked
+    f1 = _unit(torch, g(B, m, D))
+    perm = torch.from_numpy(rng.permutation(m)).to(dev)
+    f2 = _unit(torch, f1[:, perm] + 0.15 * g(B, n, D)).contiguous()
+    c1, c2 = (torch.from_numpy((rng.uniform(0, 1, (B, k, 2)) * [W - 1, H - 1]).astype(np.float32)).to(dev)
+              for k in (m, n))
+    F1 = []
+    for _ in range(B):  # random rank-2 fundamental matrices
+        u, _, vt = np.linalg.svd(rng.standard_normal((3, 3)))
+        F1.append(u @ np.diag([1.0, rng.uniform(0.3, 1.0), 0.0]) @ vt)
+    F1 = torch.from_numpy(np.stack(F1).astype(np.float32)).to(dev)
+    F2 = F1.mT.contiguous()  # image 2 -> image 1, as for a real pair
+    line1 = epipolar_lines(F1, c1).contiguous()
+    # half of the planted matches are epipolar-good: c2[j] on the line of
+    # c1[perm[j]], up to 200 px from the foot of the image centre
+    lp = line1[:, perm]
+    ctr = torch.tensor([(W - 1) / 2, (H - 1) / 2], device=dev)
+    off = (lp[..., :2] * ctr).sum(-1, keepdim=True) + lp[..., 2:]
+    t = torch.from_numpy(rng.uniform(-200, 200, (B, n, 1)).astype(np.float32)).to(dev)
+    on_line = ctr - off * lp[..., :2] + t * torch.stack([-lp[..., 1], lp[..., 0]], -1)
+    c2 = torch.where(torch.from_numpy(rng.random((B, n, 1)) < 0.5).to(dev), on_line, c2)
+    a1 = (torch.from_numpy(rng.random((B, m))) > 0.5).float().to(dev)
+    a2 = (torch.from_numpy(rng.random((B, n))) > 0.5).float().to(dev)
+    args = (f1, f2, line1, homogenize(c2), epipolar_lines(F2, c2).contiguous(), homogenize(c1), a1, a2)
+
+    # JAX's tolerance (test_pallas_reinforce.py:70) on every output
+    def close(got, ref):
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-5)
+        return (got - ref).abs().max().item()
+
+    rl, cl = rf.lse_pass(f1, f2, T)
+    torch.cuda.synchronize()
+    rlp, clp = rf.lse_pass_plain(f1, f2, T)
+    err_lse = max(close(rl, rlp), close(cl, clp))
+    out = rf.reward_pass(*args, rlp, clp, **kw)
+    torch.cuda.synchronize()
+    ref = rf.reward_pass_plain(*args, rlp, clp, **kw)
+    err_rw = max(close(o, r) for o, r in zip(out[:7], ref[:7]))
+    # pairs at exactly thr may flip good <-> bad between kernel and plain
+    n_good = ref[7].sum().item()
+    flips = (out[7] - ref[7]).abs().sum().item()
+    assert flips <= 1e-3 * n_good, (flips, n_good)
+    # the planted good matches carry the good reward: a column whose
+    # match is good and accepted has colW near good_reward * p
+    assert ref[2].amax().item() > 0.5 * kw["good_reward"], ref[2].amax().item()
+    whole = rf.reinforce_reduction(*args, **kw)
+    torch.cuda.synchronize()
+    whole_ref = rf.reinforce_reduction_plain(*args, **kw)
+    err_whole = max(close(o, r) for o, r in zip(whole, whole_ref))
+    print(f"[6] reduction at B={B} m={m} n={n} D={D} T={T:g} thr={kw['thr']:g}: lse max|err| {err_lse:.3g}, "
+          f"reward outputs max|err| {err_rw:.3g}, whole reduction max|err| {err_whole:.3g}; good pairs "
+          f"{int(n_good)} of {B * m * n}, flipped {flips:g}; max colW {ref[2].amax().item():.4g}, "
+          f"s0 {whole_ref[0].min().item():.5g}..{whole_ref[0].max().item():.5g}, "
+          f"p_max {whole_ref[5].min().item():.4g}..{whole_ref[5].max().item():.4g}, "
+          f"p_sum/m {(whole_ref[6] / m).mean().item():.4g}")
+
+    lse_ms = _time_ms(lambda: rf.lse_pass(f1, f2, T))
+    lse_plain = _time_ms(lambda: rf.lse_pass_plain(f1, f2, T), n=5)
+
+    def lse_library():
+        aff = T * torch.bmm(f1, f2.mT) - T
+        return torch.logsumexp(aff, -1), torch.logsumexp(aff, 1)
+
+    lse_lib = _time_ms(lse_library, n=10)
+    rw_ms = _time_ms(lambda: rf.reward_pass(*args, rl, cl, **kw))
+    rw_plain = _time_ms(lambda: rf.reward_pass_plain(*args, rl, cl, **kw), n=5)
+    pairs, f4 = B * m * n, 4
+    # operations: the 2·D multiply-adds of each pair's product plus its
+    # epilogue (lse: scale, two max, two exp, two adds; reward: scale,
+    # two subtractions, exp, two 3-term distances, compares, W and five sums)
+    lse_bound = _bound(pairs * (2.0 * D + 8), PEAK_F32,
+                       f4 * (f1.numel() + f2.numel() + rl.numel() + cl.numel()))
+    rw_bytes = f4 * (sum(a.numel() for a in args) + rl.numel() + cl.numel() + 2 * m * B + 2 * n * B + 3 * B)
+    rw_bound = _bound(pairs * (2.0 * D + 24), PEAK_F32, rw_bytes)
+    records = [
+        {"name": "K4+K5 lse_pass", "route": "cuda", "source": "posfeat_tpu_torch/csrc/reinforce.cu",
+         "replaces": "posfeat_tpu/ops/pallas/reinforce.py:66", "launches": 0, "max_abs_err": err_lse,
+         "ms": lse_ms, "plain_ms": lse_plain, "bound_ms": lse_bound[0], "bound_by": lse_bound[1],
+         "library_ms": lse_lib},
+        {"name": "K6 reward_pass", "route": "cuda", "source": "posfeat_tpu_torch/csrc/reinforce.cu",
+         "replaces": "posfeat_tpu/ops/pallas/reinforce.py:110", "launches": 0, "max_abs_err": err_rw,
+         "ms": rw_ms, "plain_ms": rw_plain, "bound_ms": rw_bound[0], "bound_by": rw_bound[1],
+         "library_ms": None},
+    ]
+    for r in records:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[6] {r['name']}: {r['ms']:.4f} ms per B={B} launch (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {lib})")
+    return records
+
+
+def train_config():
+    """configs/train_kp.yaml as shipped, with the flagship model in f32,
+    random weights from the seed and SyntheticPairs at 480x640, one epoch
+    of TRAIN_STEPS steps, every step logged."""
+    from posfeat_tpu_torch.core.config import load_config
+
+    cfg = load_config("configs/train_kp.yaml")
+    cfg.update(
+        checkpoint_name="smoke_kp", model_config=copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
+        compute_dtype="float32", load_path=None, epoch=1, epoch_step=TRAIN_STEPS, log_freq=1,
+        data="SyntheticPairs",
+    )
+    cfg["data_config_train"].update(num_pairs=64, height=H, width=W)
+    assert cfg["data_config_train"]["batch_size"] == TRAIN_BATCH
+    assert cfg["DiskLoss_config"]["grid_size"] == GRID
+    return cfg
+
+
+def phase_training(torch, records):
+    """Stage-2 training at the flagship width through Trainer."""
+    from posfeat_tpu_torch.data.loader import collate
+    from posfeat_tpu_torch.losses import DiskLoss
+    from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.train import Trainer
+
+    cfg = train_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, ckpt_root=tmp, device="cuda")
+        assert tr.device.type == "cuda"
+        head, backbone = tr.model.localheader, tr.model.backbone
+        head0 = {k: v.clone() for k, v in head.state_dict().items()}
+        bb0 = {k: v.clone() for k, v in backbone.state_dict().items()}
+
+        # one step's loss and head gradient: kernels against the dense DiskLoss
+        batch = tr.to_device(collate([tr.train_dataset[i] for i in range(TRAIN_BATCH)]))
+        name, weight, loss_k = tr.loss_fns[0]
+        assert loss_k._use_streamed()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with torch.no_grad():
+            out = tr.model(batch)
+            draws = tuple(loss_k.draw(out[p]["local_point"], gen) for p in ("preds1", "preds2"))
+
+        def step_with(loss_fn):
+            tr.loss_fns = [(name, weight, loss_fn)]
+            head.zero_grad(set_to_none=True)
+            total, comps = tr.loss(batch, 1, draws)
+            total.backward()
+            return total.item(), {k: float(v) for k, v in comps.items()}, [p.grad.clone() for p in head.parameters()]
+
+        l_k, c_k, g_k = step_with(loss_k)
+        l_d, c_d, g_d = step_with(DiskLoss({**cfg["DiskLoss_config"], "use_pallas": False}))
+        tr.loss_fns = [(name, weight, loss_k)]
+        head.zero_grad(set_to_none=True)
+        assert np.isfinite(l_k) and abs(l_k - l_d) <= 2e-4 * abs(l_d) + 1e-5, (l_k, l_d)
+        # each head gradient entry is a sum over 12 images and 57,600
+        # samples of terms of both signs, and the biases before an
+        # InstanceNorm have a gradient of exactly 0 up to rounding: hold the
+        # whole head's gradient to rtol 2e-3 in norm, and every entry to
+        # 2e-3 of the largest
+        gk, gd = torch.cat([a.flatten() for a in g_k]), torch.cat([b.flatten() for b in g_d])
+        g_rel = ((gk - gd).norm() / gd.norm()).item()
+        g_err, g_max = (gk - gd).abs().max().item(), gd.abs().max().item()
+        assert g_rel <= 2e-3 and g_err <= 2e-3 * g_max, (g_rel, g_err, g_max)
+        print(f"[7] one step, kernels vs dense DiskLoss on the same draws: loss {l_k:.6g} vs {l_d:.6g}, "
+              f"head grad |d|/|g| {g_rel:.3g}, max|d| {g_err:.3g} (max|grad| {g_max:.4g}); reinforce {c_k['reinforce']:.6g} vs {c_d['reinforce']:.6g}, "
+              f"n_pairs {c_k['n_pairs']:.5g} vs {c_d['n_pairs']:.5g}")
+
+        # the main path: Trainer.train, as the CLI runs it
+        rf.lse_pass.launches = 0
+        rf.reward_pass.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K4+K5 lse_pass": rf.lse_pass.launches, "K6 reward_pass": rf.reward_pass.launches}
+        peak = torch.cuda.max_memory_allocated()
+
+        run = f"{tmp}/{cfg['checkpoint_name']}"
+        steps = [json.loads(x) for x in open(f"{run}/step_times.jsonl")]
+        metrics = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+        assert len(steps) == len(metrics) == TRAIN_STEPS, (len(steps), len(metrics))
+        assert all(np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm/localheader"]) for r in metrics)
+        assert not [f for f in os.listdir(run) if f.startswith("error_step")]
+        assert sorted(os.listdir(f"{run}/001")) == ["backbone.pth", "localheader.pth", "opt_state.pth"]
+        moved = sum(not torch.equal(v, head0[k]) for k, v in head.state_dict().items())
+        assert moved > 0, "the head's parameters did not move"
+        assert all(torch.equal(v, bb0[k]) for k, v in backbone.state_dict().items()), "the backbone moved"
+    for r in records:
+        if r["name"] in launches:
+            r["launches"] = launches[r["name"]]
+            assert r["launches"] > 0, f"{r['name']} was not launched on the training path"
+    timed = [s["step_time_s"] for s in steps[1:]]
+    s_step = float(np.mean(timed))
+    print(f"[7] training: {TRAIN_STEPS} Trainer steps at {H}x{W}, batch {TRAIN_BATCH} pairs, f32, "
+          f"m = n = {(H // GRID) * (W // GRID)}: warm-up {steps[0]['step_time_s']:.4f} s, then "
+          f"{s_step:.4f} s/step over {len(timed)} steps (min {min(timed):.4f}, max {max(timed):.4f}), "
+          f"{TRAIN_BATCH / s_step:.3f} pairs/s; wall {wall:.3f} s with checkpoints; peak memory "
+          f"{peak / 2**30:.2f} GiB; {moved} head tensors moved, backbone unchanged; loss "
+          f"{metrics[0]['total_loss']:.5g} -> {metrics[-1]['total_loss']:.5g}; launches {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -322,7 +555,7 @@ def main() -> int:
     print(f"[1] device: {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
 
     info = _build.build(force=True)
-    print(f"[2] build: {info['seconds']:.2f} s nvcc -> {info['path'].name}")
+    print(f"[2] build: {info['seconds']:.2f} s -> {info['path'].name}")
     for kname, props in _ptxas_summary(info["log"]).items():
         print(f"[2]   {kname}: {props}")
 
@@ -330,6 +563,8 @@ def main() -> int:
     records = phase_kernels(torch, fh, rng)
     phase_head_vs_reference(torch, rng)
     phase_main_path(torch, fh, rng, records)
+    records += phase_reduction(torch, rng)
+    phase_training(torch, records)
 
     print(json.dumps({"kernels": records}))
     print(smi)

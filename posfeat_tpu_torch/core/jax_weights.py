@@ -1,7 +1,8 @@
 """JAX (flax) PoSFeat variables -> the port's torch ``state_dict``s.
 
 The inverse of ``posfeat_tpu/core/torch_import.py``, written again here:
-the port imports nothing of the JAX package. Names follow the reference
+the port imports nothing of the JAX package. ``to_jax_head_params``
+maps a head's ``state_dict`` back to flax params. Names follow the reference
 checkpoints (networks/DescNet.py, DeteNet.py), so the result also loads
 into the reference and ``torch.save`` gives ``backbone.pth`` /
 ``localheader.pth``.
@@ -104,3 +105,21 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, Dict[str, torch.T
         "backbone": backbone_state_dict(variables["backbone"]),
         "localheader": head_state_dict(variables["localheader"]),
     }
+
+
+def to_jax_head_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """KeypointDet state_dict -> flax {'params'} as numpy arrays: the
+    inverse of ``head_state_dict``, so a head trained here can be held
+    against (or loaded into) the JAX head."""
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    P: Dict[str, Any] = {
+        name: {
+            "kernel": np_(state_dict[f"{name}.weight"]).transpose(2, 3, 1, 0),
+            "bias": np_(state_dict[f"{name}.bias"]),
+        }
+        for name in ("conv1", "conv2", "conv3", "convimg")
+    }
+    P["prelu"] = np_(state_dict["relu.weight"])
+    return {"params": P}

@@ -1,9 +1,12 @@
-"""Host-side extraction datasets (numpy + OpenCV)."""
+"""Host-side datasets: extraction image sets (numpy + OpenCV where an
+image is read) and synthetic training pairs (numpy + scipy)."""
 
 from .extraction import Aachen_Day_Night, ETH_LFB, HPatch_SIFT
+from .synthetic import SyntheticPairs
 
 DATASETS = {
     "HPatch_SIFT": HPatch_SIFT,
     "Aachen_Day_Night": Aachen_Day_Night,
     "ETH_LFB": ETH_LFB,
+    "SyntheticPairs": SyntheticPairs,
 }

@@ -77,16 +77,15 @@ class PoSFeat(nn.Module):
         self.localheader = head.to(device=dev)
         self.eval()
 
-    @torch.no_grad()
-    def extract(self, tensor: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Single-image feature extraction (PoSFeat_model.py:91-134) in
-        eval mode: NHWC image [B, H, W, 3] -> the reference output dict
-        (NHWC maps)."""
-        feat_maps = self.backbone(tensor)
+    def _outputs(self, feat_maps, tensor: torch.Tensor, detach_local_input: bool = False):
+        """The head on the backbone's maps -> the reference output dict
+        (PoSFeat_model.py:91-134, NHWC maps)."""
         b, h16, w16, _ = feat_maps["global_map"].shape
         local_map = feat_maps["local_map"]
         g_map = torch.ones((b, h16, w16, 1), dtype=local_map.dtype, device=local_map.device)
         local_input = torch.cat([feat_maps[n] for n in self.local_input_elements], dim=-1)
+        if detach_local_input:
+            local_input = local_input.detach()
         l_map = self.localheader(local_input, tensor)
         if l_map.shape[-1] == 1:
             local_thr = torch.zeros_like(l_map)
@@ -104,9 +103,44 @@ class PoSFeat(nn.Module):
             "global_point": g_map,
         }
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
-        """Two-view forward (PoSFeat_model.py:136-147), eval mode."""
-        return {"preds1": self.extract(inputs["im1"]), "preds2": self.extract(inputs["im2"])}
+    @torch.no_grad()
+    def extract(self, tensor: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Single-image feature extraction in eval mode, without a graph:
+        NHWC image [B, H, W, 3] -> the reference output dict."""
+        return self._outputs(self.backbone(tensor), tensor)
+
+    def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False):
+        """Two-view forward (PoSFeat_model.py:136-147) that keeps autograd
+        through the head: the stage-2 training forward. ``train=False``
+        keeps the backbone's BatchNorm in eval mode, as the JAX trainer
+        runs stage 2 (trainer.py:285-291); the backbone runs without a
+        graph unless one of its parameters requires a gradient, and
+        ``align_local_grad: False`` detaches the head's input as the JAX
+        ``stop_gradient`` does (posfeat.py:100-101). Backbone training
+        (BatchNorm updates) belongs to stage 1, and the head's bf16
+        dataflows and fused kernels have no backward yet."""
+        if train:
+            raise NotImplementedError(
+                "PoSFeat.forward(train=True): backbone training with BatchNorm updates is "
+                "stage 1, not ported yet; see ROADMAP.md slice C"
+            )
+        if torch.is_grad_enabled() and (
+            self.dtype != torch.float32 or self.localheader.fused_upsample == "pallas"
+        ):
+            raise NotImplementedError(
+                "training runs the f32 reference head only: the bf16 head and the fused "
+                "kernels K1/K2 have no backward; see ROADMAP.md"
+            )
+        self.eval()
+        backbone_grad = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.backbone.parameters()
+        )
+        out = {}
+        for key, im in (("preds1", inputs["im1"]), ("preds2", inputs["im2"])):
+            with torch.set_grad_enabled(backbone_grad):
+                feat_maps = self.backbone(im)
+            out[key] = self._outputs(feat_maps, im, detach_local_input=not self.align_local_grad)
+        return out
 
     def save_checkpoint(self, save_path: str) -> None:
         os.makedirs(save_path, exist_ok=True)

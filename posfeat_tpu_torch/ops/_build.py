@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCES = (PKG / "csrc" / "fused_head.cu",)
+SOURCES = (PKG / "csrc" / "fused_head.cu", PKG / "csrc" / "reinforce.cu")
 BUILD_DIR = PKG.parent / "build" / "torch_kernels"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,11 +73,16 @@ def build(force: bool = False) -> dict:
 def load_kernels() -> ctypes.CDLL:
     """The built library with every function's argtypes and restype set."""
     lib = ctypes.CDLL(str(build()["path"]))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.posfeat_conv_phase.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.posfeat_conv_phase.restype = i
     lib.posfeat_head_tail.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.posfeat_head_tail.restype = i
-    lib.posfeat_error_string.argtypes = [i]
-    lib.posfeat_error_string.restype = ctypes.c_char_p
+    lib.posfeat_lse_pass.argtypes = [p] * 5 + [i] * 4 + [f] + [p]
+    lib.posfeat_lse_pass.restype = i
+    lib.posfeat_reward_pass.argtypes = [p] * 15 + [i] * 4 + [f] * 4 + [p]
+    lib.posfeat_reward_pass.restype = i
+    for name in ("posfeat_error_string", "posfeat_reinforce_error_string"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,103 @@
+"""Stochastic keypoint samplers of the stage-2 loss
+(posfeat_tpu/ops/samplers.py:17-96; reference kploss.py:20-48).
+
+Drawing and scoring are split: the ``draw_*`` functions take a
+``torch.Generator`` and return indices or accepts without a graph, and
+the ``*_logp`` functions take those draws and return their log
+probabilities, where the gradient flows. ``jax.random`` and torch give
+different bits from one seed, so a test can hand JAX's draws to the
+scoring functions.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def unfold(x: torch.Tensor, grid_size: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H/g, W/g, C, g·g] cell unfold, row-major over
+    (dy, dx) inside a cell; trailing rows and columns that fill no cell
+    are dropped (torch ``unfold`` semantics)."""
+    B, H, W, C = x.shape
+    g = grid_size
+    hg, wg = H // g, W // g
+    x = x[:, : hg * g, : wg * g, :].reshape(B, hg, g, wg, g, C)
+    return x.permute(0, 1, 3, 5, 2, 4).reshape(B, hg, wg, C, g * g)
+
+
+def draw_categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One Categorical(logits) draw over the trailing axis (Gumbel-max),
+    int64 indices."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log((-torch.log(u.clamp_min(1e-20))).clamp_min(1e-20))
+    return (logits.detach().float() + gumbel).argmax(dim=-1)
+
+
+def categorical_logp(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """log softmax(logits)[idx] over the trailing axis."""
+    return torch.gather(F.log_softmax(logits, dim=-1), -1, idx[..., None].long())[..., 0]
+
+
+def categorical_sample_logp(logits: torch.Tensor, generator: torch.Generator):
+    """Sample the trailing axis of logits; return (idx, log_prob)."""
+    idx = draw_categorical(logits, generator)
+    return idx, categorical_logp(logits, idx)
+
+
+def draw_bernoulli(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Bernoulli(sigmoid(logits)) draws as booleans."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return u < torch.sigmoid(logits.detach().float())
+
+
+def bernoulli_logp(logits: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+    """log p(sample) under Bernoulli(logits), from the logits stably:
+    log sigmoid(l) = -softplus(-l), log(1 - sigmoid(l)) = -softplus(l)."""
+    return torch.where(sample.bool(), -F.softplus(-logits), -F.softplus(logits))
+
+
+def bernoulli_sample_logp(logits: torch.Tensor, generator: torch.Generator):
+    """Bernoulli(logits) sample in {0., 1.} and its log-prob."""
+    sample = draw_bernoulli(logits, generator)
+    return sample.to(logits.dtype), bernoulli_logp(logits, sample)
+
+
+def grid_cells(kp_map: torch.Tensor, grid_size: int) -> torch.Tensor:
+    """kp_map [B, H, W, 1] -> per-cell logits [B, hg, wg, g·g]."""
+    return unfold(kp_map, grid_size)[:, :, :, 0, :]
+
+
+def grid_categorical_sample(kp_map: torch.Tensor, grid_size: int, generator: torch.Generator):
+    """Per-cell Categorical(logits=scores) pixel proposal (kploss.py:20-27):
+    (proposals [B, hg, wg] int64, logp [B, hg, wg], cell logits
+    [B, hg, wg, g·g])."""
+    cells = grid_cells(kp_map, grid_size)
+    idx, logp = categorical_sample_logp(cells, generator)
+    return idx, logp, cells
+
+
+def accept_logits(cells: torch.Tensor, proposals: torch.Tensor) -> torch.Tensor:
+    """The proposed pixel's own logit in each cell, [B, hg, wg]."""
+    return torch.gather(cells, -1, proposals[..., None].long())[..., 0]
+
+
+def grid_bernoulli_accept(cells: torch.Tensor, proposals: torch.Tensor,
+                          generator: torch.Generator):
+    """Bernoulli accept/reject of the proposed pixels (kploss.py:26-31):
+    (accept bool, accept logp)."""
+    logits = accept_logits(cells, proposals)
+    accept = draw_bernoulli(logits, generator)
+    return accept, bernoulli_logp(logits, accept)
+
+
+def cell_coords_pixel(H: int, W: int, grid_size: int, proposals: torch.Tensor) -> torch.Tensor:
+    """Pixel (x, y) of the proposed pixels, [B, hg, wg, 2] f32
+    (kploss.py:42-47). The JAX version gathers from a linspace grid whose
+    values are the integer pixel indices; this computes them."""
+    g = grid_size
+    B, hg, wg = proposals.shape
+    dev = proposals.device
+    cy = torch.arange(hg, device=dev)[None, :, None] * g + proposals // g
+    cx = torch.arange(wg, device=dev)[None, None, :] * g + proposals % g
+    return torch.stack([cx, cy], dim=-1).float()

@@ -35,7 +35,10 @@ def _violations(path: Path):
 
 def test_package_has_sources():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES}
-    assert {"ops/fused_head.py", "ops/detect.py", "extract/extractor.py"} <= names
+    assert {
+        "ops/fused_head.py", "ops/detect.py", "extract/extractor.py",
+        "ops/reinforce.py", "losses/disk_loss.py", "train/trainer.py",
+    } <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PKG).as_posix())

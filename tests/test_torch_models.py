@@ -11,7 +11,7 @@ import jax.numpy as jnp
 from posfeat_tpu import models as jm
 from posfeat_tpu_torch import models as tm
 from posfeat_tpu_torch.core.jax_weights import backbone_state_dict, head_state_dict
-from torch_port_helpers import jax_posfeat, port_posfeat, randomize
+from torch_port_helpers import SMALL_CONFIG, jax_posfeat, port_posfeat, randomize
 
 RTOL, ATOL = 1e-3, 2e-4
 
@@ -79,3 +79,45 @@ def test_posfeat_extract_output_dict(rng):
     for key in ref:
         assert got[key].shape == ref[key].shape, key
         _close(got[key], ref[key], key)
+
+
+def test_keypoint_det_gradient_matches_jax(rng):
+    """The f32 reference dataflow differentiates to JAX's gradient: d of a
+    weighted sum of the score map w.r.t. every head parameter."""
+    kw = dict(in_channels=24, out_channels=1, prior="identity", act="Softplus")
+    fm = rng.rand(1, 16, 20, 24).astype(np.float32)
+    img = rng.rand(1, 64, 80, 3).astype(np.float32)
+    wts = rng.randn(1, 64, 80, 1).astype(np.float32)
+    jmodel = jm.KeypointDet(**kw)
+    variables = jmodel.init(jax.random.PRNGKey(5), jnp.asarray(fm), jnp.asarray(img))
+    variables = randomize(jax.tree.map(np.asarray, variables), rng)
+
+    def f(params):
+        return jnp.sum(jmodel.apply({"params": params}, jnp.asarray(fm), jnp.asarray(img)) * wts)
+
+    g_ref = jax.grad(f)(jax.tree.map(jnp.asarray, variables["params"]))
+    tmodel = tm.KeypointDet(**kw, fused_upsample=False)
+    tmodel.load_state_dict(head_state_dict(variables))
+    (tmodel(torch.from_numpy(fm), torch.from_numpy(img)) * torch.from_numpy(wts)).sum().backward()
+    want = head_state_dict({"params": jax.tree.map(np.asarray, g_ref)})
+    for name, p in tmodel.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_posfeat_training_forward_keeps_the_head_graph(rng):
+    _, variables = jax_posfeat(seed=3)
+    tmodel = port_posfeat(variables)
+    tmodel.backbone.requires_grad_(False)
+    im = torch.from_numpy(rng.rand(1, 64, 96, 3).astype(np.float32))
+    out = tmodel({"im1": im, "im2": im})
+    assert out["preds1"]["local_point"].requires_grad
+    assert not out["preds1"]["local_map"].requires_grad  # frozen backbone: no graph
+    torch.testing.assert_close(out["preds2"]["local_point"], tmodel.extract(im)["local_point"])
+    with pytest.raises(NotImplementedError, match="stage 1"):
+        tmodel({"im1": im, "im2": im}, train=True)
+    # the bf16 head has no backward in the port; extraction still runs
+    bf = tm.PoSFeat(SMALL_CONFIG, dtype=torch.bfloat16, device="cpu")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        bf({"im1": im, "im2": im})
+    with torch.no_grad():
+        assert bf({"im1": im, "im2": im})["preds1"]["local_point"].shape == (1, 64, 96, 1)

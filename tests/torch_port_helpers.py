@@ -69,3 +69,28 @@ def port_posfeat(variables, config=SMALL_CONFIG):
     model.backbone.load_state_dict(sds["backbone"])
     model.localheader.load_state_dict(sds["localheader"])
     return model
+
+
+def jax_disk_draws(kp1, kp2, key, grid_size):
+    """JAX DiskLoss's draws for score maps kp1, kp2 (numpy [B, H, W, 1]),
+    in its key-split order (disk_loss.py:86-90, 256-258): a list of
+    (proposals, accept) numpy arrays, one pair per image."""
+    import jax
+    import jax.numpy as jnp
+
+    from posfeat_tpu.ops.samplers import grid_bernoulli_accept, grid_categorical_sample
+
+    out = []
+    for kp, k in zip((kp1, kp2), jax.random.split(key)):
+        k_cat, k_bern = jax.random.split(k)
+        idx, _, cells = grid_categorical_sample(jnp.asarray(kp), grid_size, k_cat)
+        accept, _ = grid_bernoulli_accept(cells, idx, k_bern)
+        out.append((np.array(idx), np.array(accept)))
+    return out
+
+
+def torch_draws(draws):
+    """jax_disk_draws' numpy pairs as the port's (int64, bool) tensors."""
+    import torch
+
+    return [(torch.from_numpy(p).long(), torch.from_numpy(a)) for p, a in draws]
