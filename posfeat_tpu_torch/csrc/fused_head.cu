@@ -2,9 +2,13 @@
 //
 // K1 posfeat_conv_phase replaces posfeat_tpu/ops/pallas/fused_head.py:148
 // (_conv_kernel_v3). K2 posfeat_head_tail replaces fused_head.py:284
-// (_tail_kernel). The Python wrappers (posfeat_tpu_torch/ops/fused_head.py)
-// check devices, dtypes, shapes and contiguity, allocate every output, pass
-// PyTorch's current stream, and raise on a non-zero return code.
+// (_tail_kernel). posfeat_conv_phase_img carries three more TPU kernels,
+// one per treatment of the image term: K3 (fused_head.py:70 _conv_kernel,
+// the v1 dataflow), T1 (tools/bench_fused_parts.py:105 _conv_kernel_noz)
+// and T2 (bench_fused_parts.py:154 _conv_kernel_prephase). The Python
+// wrappers (posfeat_tpu_torch/ops/fused_head.py) check devices, dtypes,
+// shapes and contiguity, allocate every output, pass PyTorch's current
+// stream, and raise on a non-zero return code.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libposfeat_kernels.so fused_head.cu
@@ -50,6 +54,22 @@ namespace {
 // bias, writes z as bf16 pairs and reduces each column over the tile's
 // valid cells. Each tile writes its own partials row: no atomics, so the
 // moments are deterministic. wgmma, TMA and a pipelined K loop come later.
+//
+// K3, T1 and T2 share the trunk half and differ in the epilogue, where an
+// image term Z is added to the staged f32 accumulator with the bias,
+// before the moments (no patch tile, no image-half MMA):
+//   K3 (kImgFull)  Z = z_img[b, 4y + ry, 4x + rx, c], full-res [B,4h,4w,Cout]
+//                  (the phase reorder the TPU kernel did in VMEM,
+//                  fused_head.py:137-140);
+//   T1 (kImgNone)  Z = 0;
+//   T2 (kImgPhase) Z = z_img_ph[b, y, x, n], already in phase layout.
+// Channel n = (ry*4 + rx)*Cout + c of the block's BN channels. The
+// epilogue maps consecutive threads to consecutive channel pairs of one
+// cell, so a warp reads 64 consecutive channels of one full-res pixel
+// (128 contiguous bytes) and its loads coalesce. Bound: the same tensor
+// work as K1's trunk half, 2.17 TFLOP per B=16 launch at the flagship
+// point, against about 2.65 GB of traffic in K3 (z written, z_img read
+// once): the tensor cores bound it.
 
 constexpr int TH = 4;
 constexpr int TW = 16;
@@ -74,12 +94,19 @@ __device__ __forceinline__ void copy16(void* dst, const void* src) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 }
 
-__global__ void __launch_bounds__(K1_THREADS)
-conv_phase_kernel(const bf16* __restrict__ tp, const bf16* __restrict__ kph,
-                  const bf16* __restrict__ pat, const bf16* __restrict__ wm,
-                  const float* __restrict__ b2b, bf16* __restrict__ z,
-                  float* __restrict__ psum, float* __restrict__ psq, int h,
-                  int w, int C, int KP, int N) {
+// the image term of the conv's epilogue (see above)
+enum ImageTerm { kPatches = 0, kImgFull = 1, kImgNone = 2, kImgPhase = 3 };
+
+// One block: a TH x TW tile of trunk cells of image b against BN output
+// channels. pat/wm feed the image half (kPatches only); img is the image
+// term's tensor (kImgFull, kImgPhase); bias is [B][N] with bias_bstride N,
+// or one [N] row with bias_bstride 0; cout is the full-res channel count.
+template <int MODE>
+__device__ __forceinline__ void conv_phase_body(
+    const bf16* __restrict__ tp, const bf16* __restrict__ kph, const bf16* __restrict__ pat,
+    const bf16* __restrict__ wm, const bf16* __restrict__ img, const float* __restrict__ bias_all,
+    int bias_bstride, bf16* __restrict__ z, float* __restrict__ psum, float* __restrict__ psq,
+    int h, int w, int C, int KP, int N, int cout) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int CS = C + PAD;
   const int PS = KP + PAD;
@@ -111,16 +138,18 @@ conv_phase_kernel(const bf16* __restrict__ tp, const bf16* __restrict__ kph,
       *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
     }
   }
-  // stage the tile's patch rows
-  const int KP8 = KP / 8;
-  for (int i = tid; i < BM * KP8; i += K1_THREADS) {
-    const int cell = i / KP8, k8 = i % KP8;
-    const int gy = y0 + cell / TW, gx = x0 + cell % TW;
-    bf16* dst = ptile + cell * PS + k8 * 8;
-    if (gy < h && gx < w) {
-      copy16(dst, pat + ((size_t(b) * h + gy) * w + gx) * KP + k8 * 8);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  if constexpr (MODE == kPatches) {
+    // stage the tile's patch rows
+    const int KP8 = KP / 8;
+    for (int i = tid; i < BM * KP8; i += K1_THREADS) {
+      const int cell = i / KP8, k8 = i % KP8;
+      const int gy = y0 + cell / TW, gx = x0 + cell % TW;
+      bf16* dst = ptile + cell * PS + k8 * 8;
+      if (gy < h && gx < w) {
+        copy16(dst, pat + ((size_t(b) * h + gy) * w + gx) * KP + k8 * 8);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
     }
   }
 
@@ -169,12 +198,14 @@ conv_phase_kernel(const bf16* __restrict__ tp, const bf16* __restrict__ kph,
       mma_chunk(halo + (dy * (TW + 2) + dx) * CS + k0, (TW + 2) * CS, CS);
     }
   }
-  // image half: the tile's patches against wm[b]
-  for (int k0 = 0; k0 < KP; k0 += KC) {
-    __syncthreads();
-    stage_b(wm + (size_t(b) * KP + k0) * N + n0);
-    __syncthreads();
-    mma_chunk(ptile + k0, TW * PS, PS);
+  if constexpr (MODE == kPatches) {
+    // image half: the tile's patches against wm[b]
+    for (int k0 = 0; k0 < KP; k0 += KC) {
+      __syncthreads();
+      stage_b(wm + (size_t(b) * KP + k0) * N + n0);
+      __syncthreads();
+      mma_chunk(ptile + k0, TW * PS, PS);
+    }
   }
   __syncthreads();  // every warp is done with the operand tiles
 
@@ -186,19 +217,40 @@ conv_phase_kernel(const bf16* __restrict__ tp, const bf16* __restrict__ kph,
                               acc[i][j], CT, wmma::mem_row_major);
   __syncthreads();
 
-  const float* bias = b2b + size_t(b) * N + n0;
+  // epilogue: z = acc + Z + bias. With an image term the sum is written
+  // back to ctile (f32) for the moments; without one (K1, T1) the moments
+  // add the bias themselves and need no write-back or extra barrier.
+  constexpr bool kHasImg = MODE == kImgFull || MODE == kImgPhase;
+  const float* bias = bias_all + size_t(b) * bias_bstride + n0;
   for (int i = tid; i < BM * (BN / 2); i += K1_THREADS) {
     const int r = i / (BN / 2), c = 2 * (i % (BN / 2));
     const int gy = y0 + r / TW, gx = x0 + r % TW;
     if (gy < h && gx < w) {
-      const float v0 = ctile[r * CT + c] + bias[c];
-      const float v1 = ctile[r * CT + c + 1] + bias[c + 1];
+      float v0 = ctile[r * CT + c] + bias[c];
+      float v1 = ctile[r * CT + c + 1] + bias[c + 1];
+      if constexpr (kHasImg) {
+        const bf16* src;
+        if constexpr (MODE == kImgFull) {
+          // channels n, n+1 share a phase: Cout is a multiple of 8
+          const int n = n0 + c, ph = n / cout, cc = n % cout;
+          const size_t fy = 4 * size_t(gy) + ph / 4, fx = 4 * size_t(gx) + ph % 4;
+          src = img + ((size_t(b) * 4 * h + fy) * (4 * size_t(w)) + fx) * cout + cc;
+        } else {
+          src = img + ((size_t(b) * h + gy) * w + gx) * N + n0 + c;
+        }
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+        v0 += f.x;
+        v1 += f.y;
+        ctile[r * CT + c] = v0;
+        ctile[r * CT + c + 1] = v1;
+      }
       *reinterpret_cast<__nv_bfloat162*>(z + ((size_t(b) * h + gy) * w + gx) * N + n0 + c) =
           __floats2bfloat162_rn(v0, v1);
     }
   }
+  if constexpr (kHasImg) __syncthreads();
   if (tid < BN) {
-    const float bc = bias[tid];
+    const float bc = kHasImg ? 0.f : bias[tid];
     float s = 0.f, q = 0.f;
     for (int r = 0; r < BM; ++r) {
       if (y0 + r / TW < h && x0 + r % TW < w) {
@@ -212,6 +264,30 @@ conv_phase_kernel(const bf16* __restrict__ tp, const bf16* __restrict__ kph,
     psq[o] = q;
   }
 }
+
+__global__ void __launch_bounds__(K1_THREADS)
+conv_phase_kernel(const bf16* __restrict__ tp, const bf16* __restrict__ kph,
+                  const bf16* __restrict__ pat, const bf16* __restrict__ wm,
+                  const float* __restrict__ b2b, bf16* __restrict__ z,
+                  float* __restrict__ psum, float* __restrict__ psq, int h,
+                  int w, int C, int KP, int N) {
+  conv_phase_body<kPatches>(tp, kph, pat, wm, nullptr, b2b, N, z, psum, psq, h, w, C, KP, N, 0);
+}
+
+// K3, T1, T2: one kernel name each, so that profiles and -Xptxas -v tell them apart
+#define CONV_PHASE_IMG_KERNEL(NAME, MODE)                                                    \
+  __global__ void __launch_bounds__(K1_THREADS)                                              \
+  NAME(const bf16* __restrict__ tp, const bf16* __restrict__ kph,                           \
+       const bf16* __restrict__ img, const float* __restrict__ b2, bf16* __restrict__ z,    \
+       float* __restrict__ psum, float* __restrict__ psq, int h, int w, int C, int N,       \
+       int cout) {                                                                          \
+    conv_phase_body<MODE>(tp, kph, nullptr, nullptr, img, b2, 0, z, psum, psq, h, w, C, 0, \
+                          N, cout);                                                         \
+  }
+CONV_PHASE_IMG_KERNEL(conv_phase_img_full_kernel, kImgFull)
+CONV_PHASE_IMG_KERNEL(conv_phase_img_none_kernel, kImgNone)
+CONV_PHASE_IMG_KERNEL(conv_phase_img_phase_kernel, kImgPhase)
+#undef CONV_PHASE_IMG_KERNEL
 
 // ------------------------------------------------------------------- K2
 //
@@ -361,6 +437,36 @@ int posfeat_conv_phase(const void* tp, const void* kph, const void* pat,
       static_cast<const bf16*>(pat), static_cast<const bf16*>(wm),
       static_cast<const float*>(b2b), static_cast<bf16*>(z),
       static_cast<float*>(psum), static_cast<float*>(psq), h, w, C, KP, N);
+  return int(cudaGetLastError());
+}
+
+// layout: 0 = full-res z_img (K3), 1 = no image term (T1), 2 = pre-phased
+// z_img (T2). b2 is one [N] row. Returns 0, a cudaError_t value, or a
+// negative ArgError.
+int posfeat_conv_phase_img(const void* tp, const void* kph, const void* img,
+                           const void* b2, void* z, void* psum, void* psq, int B,
+                           int h, int w, int C, int N, int cout, int layout, int th,
+                           int tw, void* stream) {
+  if (th != TH || tw != TW) return kBadTile;
+  if (C % KC || N % BN || cout % 8 || N != 16 * cout || layout < 0 || layout > 2 || B < 1 ||
+      h < 1 || w < 1)
+    return kBadShape;
+  const long tiles = long(B) * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  if (tiles > 65535) return kGridTooLarge;
+  using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const float*, bf16*, float*,
+                          float*, int, int, int, int, int);
+  const Kernel kernels[3] = {conv_phase_img_full_kernel, conv_phase_img_none_kernel,
+                             conv_phase_img_phase_kernel};
+  const Kernel kernel = kernels[layout];
+  const size_t smem = k1_smem_bytes(C, 0);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid(N / BN, unsigned(tiles));
+  kernel<<<grid, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(tp), static_cast<const bf16*>(kph), static_cast<const bf16*>(img),
+      static_cast<const float*>(b2), static_cast<bf16*>(z), static_cast<float*>(psum),
+      static_cast<float*>(psq), h, w, C, N, cout);
   return int(cudaGetLastError());
 }
 

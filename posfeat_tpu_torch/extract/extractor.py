@@ -87,13 +87,19 @@ class Extractor:
         dtype = _DTYPES[self.config.get("compute_dtype", "float32")]
 
         # bf16 extraction on the card takes the fused head (its kernels are
-        # CUDA); head_dataflow overrides. Resolved before config.yaml is
-        # written, so the run records the dataflow it used.
-        head_mode = self.config.get("head_dataflow")
+        # CUDA); head_dataflow overrides with any KeypointDet dataflow
+        # (False, True, "always", "phase", "pallas"), and head_mode picks
+        # the fused head's "v3" or "v1" dataflow (the JAX package's
+        # POSFEAT_HEAD_MODE). Resolved before config.yaml is written, so
+        # the run records the dataflow it used.
+        head_dataflow = self.config.get("head_dataflow")
+        head_mode = self.config.get("head_mode")
         lh_cfg = (self.config.get("model_config") or {}).get("localheader_config")
         if isinstance(lh_cfg, dict):
             if head_mode is not None:
-                lh_cfg["fused_upsample"] = head_mode
+                lh_cfg["fused_head_mode"] = head_mode
+            if head_dataflow is not None:
+                lh_cfg["fused_upsample"] = head_dataflow
             elif (
                 dtype == torch.bfloat16
                 and "fused_upsample" not in lh_cfg

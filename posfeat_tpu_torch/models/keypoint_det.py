@@ -5,18 +5,23 @@ A handcrafted prior modulates [fine_map, image]; trunk convs run at
 feature resolution and the score comes out at full image resolution.
 InstanceNorm is non-affine; the PReLU slope is one shared parameter.
 
-Two dataflows, chosen by ``fused_upsample`` as in the JAX package:
+Dataflows, chosen by ``fused_upsample`` as in the JAX package
+(keypoint_det.py:528-612); all compute the reference's function:
 
-- ``False`` (and the default ``True``, "auto"): the reference dataflow,
-  ×4 upsample + concat + conv2 at full resolution
-  (keypoint_det.py:601-612). The JAX "auto" picks a composite dilated
-  conv at bf16 that equals it up to rounding; that formulation is not
-  ported.
-- ``"pallas"``: the fused head of ``ops/fused_head.py``, whose two
-  kernels run as CUDA on the card (keypoint_det.py:552-581). The config
-  string stays so that existing configs mean the same thing.
-
-``"always"`` and ``"phase"`` raise ``NotImplementedError``.
+- ``False``: the reference dataflow, ×4 upsample + concat + conv2 at
+  full resolution.
+- ``"always"``, and ``True`` ("auto") at bf16/f16: conv2's trunk half as
+  one input-dilated conv of the composite upsample∘conv kernel
+  (``fused_upsample_conv3x3_dilated``), its 1-px border ring rewritten
+  exactly. ``True`` at f32 is the reference dataflow.
+- ``"phase"``: conv2's trunk half as a phase-layout conv
+  (``fused_upsample_conv3x3_phase``) with additive ring strips; the tail
+  stays in phase layout and only the score map goes back to space.
+- ``"pallas"``: the fused head of ``ops/fused_head.py``, whose kernels
+  run as CUDA on the card; ``fused_head_mode`` picks its dataflow, "v3"
+  (K1) or "v1" (cuDNN's full-res image conv, then K3), as the JAX
+  package's POSFEAT_HEAD_MODE does. The config string stays so that
+  existing configs mean the same thing.
 """
 
 from __future__ import annotations
@@ -26,6 +31,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.fused_head import fused_head_tail
+from ..ops.phase import (
+    _bilinear_taps_1d,
+    _edge_pad1,
+    _phase_kernel,
+    phase_to_space,
+    ring_correction_strips,
+    space_to_phase,
+)
 from ..ops.resize import _upsample_axis_int, interpolate_bilinear
 
 
@@ -43,57 +57,57 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, dims=(1, 2)) -> torch.Tens
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def _bilinear_taps_1d(k: int):
-    """1-D bilinear ×k kernel in transposed-conv form: returns (offsets,
-    values) with u[m] = weight of x[j] in output o = k*j + m."""
-    taps = {}
-    for r in range(k):
-        off = (r + 0.5) / k - 0.5
-        i0 = int(np.floor(off))
-        w1 = off - i0
-        taps[r - k * i0] = taps.get(r - k * i0, 0.0) + (1.0 - w1)
-        taps[r - k * (i0 + 1)] = taps.get(r - k * (i0 + 1), 0.0) + w1
-    ms = sorted(taps)
-    return ms, [taps[m] for m in ms]
+def fused_upsample_conv3x3_phase(trunk: torch.Tensor, kernel: torch.Tensor, k: int = 4):
+    """conv3x3(bilinear_upsample_×k(trunk)) in PHASE layout
+    (keypoint_det.py:95-143): each of the k² output phases is a 3×3 conv
+    of the edge-padded trunk, so one VALID conv with the [3, 3, Cin,
+    k²·Cout] phase kernel computes them all without the upsampled map.
+    The conv's zero padding differs from this composite on the outermost
+    output ring only: ``_fix_border_ring_phase`` makes it exact.
+    trunk [B, h, w, Cin], kernel [3, 3, Cin, Cout] -> [B, h, w, k, k, Cout]
+    in trunk's dtype."""
+    B, h, w, _ = trunk.shape
+    cout = kernel.shape[-1]
+    kph = _phase_kernel(kernel, k).to(trunk.dtype)
+    z = _conv(_edge_pad1(trunk), kph.permute(3, 2, 0, 1))
+    return z.reshape(B, h, w, k, k, cout)
 
 
-def _phase_mix_matrix(k: int):
-    """Constant M[r, d, d'] of the phase decomposition of
-    conv3x3 ∘ bilinear_upsample_×k: output phase r at trunk cell q is
-    Σ_{d,d'} M[r,d,d']·K[d']·tp[q + d] per axis, tp = edge-padded trunk.
-    Returns (M [k, D, 3], D)."""
+def fused_upsample_conv3x3_dilated(trunk: torch.Tensor, kernel: torch.Tensor, k: int = 4):
+    """conv3x3(bilinear_upsample_×k(trunk)) as ONE input-dilated conv
+    (keypoint_det.py:159-226): both ops are linear, so their composite
+    is one kernel comp [n, n, Cin, Cout] (n = 2k + 2) applied to the
+    edge-padded trunk dilated by k. Here that is a stride-k transposed
+    conv: y[o] = Σ_j comp[o + n − 1 − pl − k·j]·tp[j], pl = hi + 1 − k.
+    The outermost output ring is rewritten exactly (``_fix_border_ring``).
+    trunk [B, h, w, Cin], kernel [3, 3, Cin, Cout] -> [B, k·h, k·w, Cout]
+    in trunk's dtype."""
     ms, vals = _bilinear_taps_1d(k)
     lo, hi = ms[0], ms[-1]
     n_taps = hi - lo + 3  # composite support incl. the conv's ±1
     u_ext = np.zeros((n_taps + 2,), np.float32)
     for m, v in zip(ms, vals):
         u_ext[m - lo + 2] = v
-    A = np.stack([u_ext[d : d + n_taps] for d in range(3)], axis=1)  # [t, d']
-    pl = hi + 1 - k
-    D = (n_taps + k - 1) // k
-    M = np.zeros((k, D, 3), np.float32)
-    for r in range(k):
-        for d in range(D):
-            t = n_taps - 1 - (k * d + pl - r)
-            if 0 <= t < n_taps:
-                M[r, d] = A[t]
-    return M, D
+    A = torch.from_numpy(np.stack([u_ext[d : d + n_taps] for d in range(3)], axis=1))
+    A = A.to(kernel.device)
+    comp = torch.einsum("yd,xe,decf->yxcf", A, A, kernel.float()).to(trunk.dtype)
+    B, h, w, _ = trunk.shape
+    pad = n_taps - 1 - (hi + 1 - k)
+    out = F.conv_transpose2d(
+        _edge_pad1(trunk).permute(0, 3, 1, 2), comp.permute(2, 3, 0, 1), stride=k, padding=pad
+    ).permute(0, 2, 3, 1)
+    assert out.shape[1] == k * h and out.shape[2] == k * w, out.shape
+    return _fix_border_ring(out, trunk, kernel, k).to(trunk.dtype)
 
 
-def ring_correction_strips(trunk: torch.Tensor, kernel: torch.Tensor, k: int = 4):
-    """Additive border-correction strips for the phase-conv composite
-    (keypoint_det.py:299-350).
-
-    The composite conv sees clamped upsample values where the reference
-    conv2 zero-pads the upsampled map, so it differs from the reference
-    exactly by the padded-tap contributions: on the top output row the
-    excess is conv1d(edge strip, K[0]), and likewise for the other
-    edges; each corner term is counted by both adjacent edges, so it is
-    removed once from the row strips. trunk [B, h, w, Cin], kernel
-    [3, 3, Cin, Cout] -> f32 (T, Bo) [B, k·w, Cout] and (L, R)
-    [B, k·h, Cout]."""
+def _fix_border_ring(out, trunk, kernel, k):
+    """Overwrite the dilated composite's outermost output ring with the
+    reference-exact values (keypoint_det.py:231-283): there the reference
+    conv zero-pads the upsampled map, and for k = 4 the two outer
+    upsampled rows/columns both equal the trunk's edge, so the ring is
+    four 1-D convs of upsampled edge strips."""
     assert k == 4, "exact border fix derived for the head's x4 case"
-    B, h, w, Cin = trunk.shape
+    h, w = trunk.shape[1:3]
     K = kernel.float()
     t32 = trunk.float()
     top_src = _upsample_axis_int(t32[:, 0:1], k, 2)[:, 0]
@@ -101,23 +115,37 @@ def ring_correction_strips(trunk: torch.Tensor, kernel: torch.Tensor, k: int = 4
     left_src = _upsample_axis_int(t32[:, :, 0:1], k, 1)[:, :, 0]
     right_src = _upsample_axis_int(t32[:, :, w - 1 : w], k, 1)[:, :, 0]
 
-    def conv1d_edge(strip, k1d):
-        # strip [B, L, Cin], k1d [3, Cin, Cout]; edge 'same' padding: the
-        # out-of-range taps of the virtual upsampled map clamp to corners
+    def conv1d(strip, k1d):
+        # strip [B, L, Cin], k1d [3, Cin, Cout]; zero 'same' padding
         L = strip.shape[1]
-        sp = torch.cat([strip[:, :1], strip, strip[:, -1:]], dim=1)
+        sp = F.pad(strip, (0, 0, 1, 1))
         return sum(sp[:, t : t + L] @ k1d[t] for t in range(3))
 
-    T = conv1d_edge(top_src, K[0])
-    Bo = conv1d_edge(bot_src, K[2])
-    L = conv1d_edge(left_src, K[:, 0])
-    R = conv1d_edge(right_src, K[:, 2])
-    # corner double-counts (row and column strips both include them)
-    T[:, 0] -= t32[:, 0, 0] @ K[0, 0]
-    T[:, -1] -= t32[:, 0, w - 1] @ K[0, 2]
-    Bo[:, 0] -= t32[:, h - 1, 0] @ K[2, 0]
-    Bo[:, -1] -= t32[:, h - 1, w - 1] @ K[2, 2]
-    return T, Bo, L, R
+    dt = out.dtype
+    z_top = conv1d(top_src, K[1] + K[2]).to(dt)
+    z_bot = conv1d(bot_src, K[0] + K[1]).to(dt)
+    z_left = conv1d(left_src, K[:, 1] + K[:, 2]).to(dt)
+    z_right = conv1d(right_src, K[:, 0] + K[:, 1]).to(dt)
+    mid = torch.cat(
+        [z_left[:, 1:-1, None], out[:, 1:-1, 1:-1], z_right[:, 1:-1, None]], dim=2
+    )
+    return torch.cat([z_top[:, None], mid, z_bot[:, None]], dim=1)
+
+
+def _fix_border_ring_phase(z, trunk, kernel, k):
+    """Subtract ``ring_correction_strips`` from a phase-layout
+    [B, h, w, k, k, Cout] tensor (keypoint_det.py:353-396): the row
+    strips on trunk rows 0 / h−1 at phase rows 0 / k−1, the column
+    strips on trunk columns 0 / w−1 at phase columns 0 / k−1."""
+    T, Bo, L, R = ring_correction_strips(trunk, kernel, k)
+    B, h, w = trunk.shape[:3]
+    C, dt = z.shape[-1], z.dtype
+    z = z.clone()
+    z[:, :, 0, :, 0] -= L.reshape(B, h, k, C).to(dt)
+    z[:, :, w - 1, :, k - 1] -= R.reshape(B, h, k, C).to(dt)
+    z[:, 0, :, 0] -= T.reshape(B, w, k, C).to(dt)
+    z[:, h - 1, :, k - 1] -= Bo.reshape(B, w, k, C).to(dt)
+    return z
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, bias=None, padding: int = 0):
@@ -141,13 +169,13 @@ class KeypointDet(nn.Module):
     the forward casts to ``dtype`` where the JAX head does."""
 
     def __init__(self, in_channels: int, out_channels: int = 1, prior: str = "SSIM",
-                 act: str = "Sigmoid", fused_upsample=True, dtype=torch.float32):
+                 act: str = "Sigmoid", fused_upsample=True, fused_head_mode: str = "v3",
+                 dtype=torch.float32):
         super().__init__()
-        if fused_upsample in ("always", "phase"):
-            raise NotImplementedError(
-                f"fused_upsample={fused_upsample!r} is not ported; see ROADMAP.md "
-                "queue 1, item 4 (the 'pallas' head and the reference dataflow are)"
-            )
+        if fused_upsample not in (True, False, "always", "phase", "pallas"):
+            raise ValueError(f"unknown fused_upsample {fused_upsample!r}")
+        if fused_head_mode not in ("v3", "v1"):
+            raise ValueError(f"fused_head_mode must be 'v3' or 'v1', got {fused_head_mode!r}")
         if prior not in ("SSIM", "D2", "ASL_Peak", "identity"):
             raise ValueError(f"unknown prior {prior}")
         self.in_channels = in_channels
@@ -155,6 +183,7 @@ class KeypointDet(nn.Module):
         self.prior = prior
         self.act = act
         self.fused_upsample = fused_upsample
+        self.fused_head_mode = fused_head_mode
         self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, in_channels, 3, 1, 1)
         self.conv2 = nn.Conv2d(in_channels + 64, 128, 3, 1, 1)
@@ -191,25 +220,47 @@ class KeypointDet(nn.Module):
         s_img = (x_pi * img).to(dt)
         y_img = _conv(s_img, self.convimg.weight.to(dt), None, 1) + self.convimg.bias.to(dt)
 
-        H, W = img.shape[1:3]
+        B, H, W = img.shape[:3]
         h, w = trunk.shape[1:3]
+        cin = self.in_channels
         k2 = self.conv2.weight  # [128, C_in + 64, 3, 3]
-        if self.fused_upsample == "pallas" and H == 4 * h and W == 4 * w:
-            from ..ops.fused_head import fused_head_tail
-
-            hwio = lambda t: t.permute(2, 3, 1, 0)
+        hwio = lambda t: t.permute(2, 3, 1, 0)
+        fu = self.fused_upsample
+        size_ok = H == 4 * h and W == 4 * w
+        if fu == "pallas" and size_ok:
             score = fused_head_tail(
                 trunk, s_img, y_img, hwio(self.convimg.weight), self.convimg.bias,
-                hwio(k2[:, : self.in_channels]), hwio(k2[:, self.in_channels :]),
-                self.conv2.bias, hwio(self.conv3.weight), self.conv3.bias, a,
-                act=self.act,
+                hwio(k2[:, :cin]), hwio(k2[:, cin:]), self.conv2.bias,
+                hwio(self.conv3.weight), self.conv3.bias, a, act=self.act,
+                mode=self.fused_head_mode,
             )
         else:
             img_feat = instance_norm(y_img.float()).to(dt)
-            xu = interpolate_bilinear(trunk, (H, W), align_corners=False)
-            xcat = torch.cat([xu, img_feat], dim=-1)
-            x = _conv(xcat, k2.to(dt), None, 1) + self.conv2.bias.to(dt)
-            x = prelu(instance_norm(x))
+            b2 = self.conv2.bias.to(dt)
+
+            def conv2_img_part():
+                # image half of conv2, shared by the phase and dilated dataflows
+                return _conv(img_feat, k2[:, cin:].to(dt), None, 1).to(dt)
+
+            fuse_ok = fu in ("always", "phase") or (
+                fu is True and dt in (torch.bfloat16, torch.float16)
+            )
+            phase = fu == "phase" and size_ok
+            if phase:
+                kt = hwio(k2[:, :cin])
+                z = fused_upsample_conv3x3_phase(trunk, kt, 4)
+                z = _fix_border_ring_phase(z, trunk, kt, 4)
+                z = z + space_to_phase(conv2_img_part(), 4) + b2
+                x = prelu(instance_norm(z, dims=(1, 2, 3, 4)))
+                x = x.reshape(B, h, w * 16, x.shape[-1])
+            elif fuse_ok and size_ok:
+                z = fused_upsample_conv3x3_dilated(trunk, hwio(k2[:, :cin]), 4)
+                x = prelu(instance_norm(z + conv2_img_part() + b2))
+            else:
+                xu = interpolate_bilinear(trunk, (H, W), align_corners=False)
+                xcat = torch.cat([xu, img_feat], dim=-1)
+                x = _conv(xcat, k2.to(dt), None, 1) + b2
+                x = prelu(instance_norm(x))
             if dt in (torch.bfloat16, torch.float16):
                 # score values in f32 under a low-precision trunk: a bf16
                 # score map collapses to ~133 distinct values in a
@@ -218,6 +269,8 @@ class KeypointDet(nn.Module):
             else:
                 z3 = _conv(x, self.conv3.weight.to(dt), self.conv3.bias.to(dt))
             score = _act(instance_norm(z3), self.act)
+            if phase:
+                score = phase_to_space(score.reshape(B, h, w, 4, 4, self.out_channels))
 
         return (
             interpolate_bilinear(x_pf, (H, W), align_corners=False).mean(dim=-1, keepdim=True)

@@ -76,6 +76,8 @@ def load_kernels() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.posfeat_conv_phase.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.posfeat_conv_phase.restype = i
+    lib.posfeat_conv_phase_img.argtypes = [p] * 7 + [i] * 9 + [p]
+    lib.posfeat_conv_phase_img.restype = i
     lib.posfeat_head_tail.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.posfeat_head_tail.restype = i
     lib.posfeat_lse_pass.argtypes = [p] * 5 + [i] * 4 + [f] + [p]

@@ -1,25 +1,36 @@
 """Fused KeypointDet tail: ×4 upsample + conv2 -> IN -> PReLU -> conv3 ->
 IN -> act, without a full-resolution 128-channel tensor
-(posfeat_tpu/ops/pallas/fused_head.py, mode v3 with the exact border
-ring).
+(posfeat_tpu/ops/pallas/fused_head.py, modes v3 and v1 with the exact
+border ring).
 
 The conv runs in PHASE layout: z [B, h, w, 16·Cout], channel
-(ry·4 + rx)·Cout + c holds full-res pixel (4y + ry, 4x + rx). The image
-branch (convimg 3->64, its IN, conv2's image half 64->Cout) folds into
-one per-image composite 5×5 kernel, applied as a matmul on stride-4
-8×8×3 patches. Two kernels carry the work:
+(ry·4 + rx)·Cout + c holds full-res pixel (4y + ry, 4x + rx). Two
+dataflows differ in how conv2's image half enters z:
+
+- v3 (the default): the image branch (convimg 3->64, its IN, conv2's
+  image half 64->Cout) folds into one per-image composite 5×5 kernel,
+  applied as a matmul on stride-4 8×8×3 patches inside K1.
+- v1: conv2's image half runs at full resolution through cuDNN
+  (``F.conv2d``), and K3 adds that ``z_img`` to the trunk conv,
+  reordering it into phase layout as it reads it.
+
+Kernels (``csrc/fused_head.cu``):
 
 - K1 ``conv_phase``: z = phase conv of the edge-padded trunk + patches @
   Wm[b] + b2b[b], stored in the compute dtype, plus per-tile f32 column
   Σz and Σz² of the accumulator before rounding.
+- K3, T1, T2 ``conv_phase_img``: the same trunk conv + an image term +
+  b2: a full-res z_img (K3, ``layout="full"``), nothing (T1, "none") or
+  a z_img already in phase layout (T2, "phase"). T1 and T2 are the
+  per-stage head bench's variants (tools/bench_fused_parts.py).
 - K2 ``head_tail``: u = PReLU((z − μ)·s) @ w3 + b3 in f32, plus per-tile
   Σu and Σu².
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/fused_head.cu``) or raises; on a CPU tensor it runs the plain
-PyTorch version beside it. Everything else here is plain PyTorch: the
-composite fold, the convimg IN statistics (patch gram form), the
-border-ring corrections, IN statistics and the final activation.
+On a CUDA tensor each wrapper launches its hand-written kernel or
+raises; on a CPU tensor it runs the plain PyTorch version beside it.
+Everything else here is plain PyTorch: the composite fold, the convimg
+IN statistics (patch gram form), v1's full-res conv, the border-ring
+corrections, IN statistics and the final activation.
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from .phase import _edge_pad1, _phase_kernel, ring_correction_strips, space_to_phase
 
 # K1 tile (trunk rows × columns per CUDA block); csrc/fused_head.cu
 # rejects a launch whose tile differs from its compile-time constants
@@ -67,18 +80,28 @@ def _raise_on(rc: int, what: str) -> None:
 # ------------------------------------------------------------------- K1
 
 
+def _trunk_conv_plain(tp, kph):
+    """f32 phase conv of the edge-padded trunk: [B, h+2, w+2, C] ×
+    [9, C, N] -> [B, h, w, N]."""
+    C, N = kph.shape[1:]
+    k4 = kph.float().reshape(3, 3, C, N).permute(3, 2, 0, 1)
+    return F.conv2d(tp.float().permute(0, 3, 1, 2), k4).permute(0, 2, 3, 1)
+
+
+def _with_moments(z, dtype):
+    return z.to(dtype), z.sum(dim=(1, 2))[:, None], (z * z).sum(dim=(1, 2))[:, None]
+
+
 def conv_phase_plain(tp, kph, pat, wm, b2b):
     """Plain version of K1, in f32. tp [B, h+2, w+2, C] edge-padded trunk;
     kph [9, C, N] phase kernel (tap = dy·3 + dx); pat [B, h, w, KP]
     patches; wm [B, KP, N]; b2b [B, N] f32 -> (z [B, h, w, N] in tp's
     dtype, Σz [B, 1, N], Σz² [B, 1, N]) with moments of the f32 values."""
-    B, hp, wp, C = tp.shape
-    h, w, N = hp - 2, wp - 2, kph.shape[-1]
-    k4 = kph.float().reshape(3, 3, C, N).permute(3, 2, 0, 1)
-    z = F.conv2d(tp.float().permute(0, 3, 1, 2), k4).permute(0, 2, 3, 1)
-    z = z + (pat.float().reshape(B, h * w, -1) @ wm.float()).reshape(B, h, w, N)
+    B, h, w = pat.shape[:3]
+    z = _trunk_conv_plain(tp, kph)
+    z = z + (pat.float().reshape(B, h * w, -1) @ wm.float()).reshape(z.shape)
     z = z + b2b.float()[:, None, None, :]
-    return z.to(tp.dtype), z.sum(dim=(1, 2))[:, None], (z * z).sum(dim=(1, 2))[:, None]
+    return _with_moments(z, tp.dtype)
 
 
 def conv_phase(tp, kph, pat, wm, b2b):
@@ -115,6 +138,78 @@ def conv_phase(tp, kph, pat, wm, b2b):
 
 
 conv_phase.launches = 0
+
+
+# --------------------------------------------------------- K3, T1, T2
+
+IMG_LAYOUTS = ("full", "none", "phase")  # K3, T1, T2; the kernel's layout code is the index
+IMG_KERNELS = {"full": "K3", "none": "T1", "phase": "T2"}
+
+
+def conv_phase_img_plain(tp, kph, zimg, b2, layout):
+    """Plain version of K3 (``layout="full"``), T1 ("none") and T2
+    ("phase"), in f32. tp [B, h+2, w+2, C] edge-padded trunk; kph
+    [9, C, N] phase kernel, N = 16·Cout; zimg [B, 4h, 4w, Cout] at full
+    resolution ("full"), unused ("none", may be None) or [B, h, w, N] in
+    phase layout ("phase"); b2 [N] f32 -> (z [B, h, w, N] in tp's dtype,
+    Σz [B, 1, N], Σz² [B, 1, N]) with moments of the f32 values."""
+    if layout not in IMG_LAYOUTS:
+        raise ValueError(f"layout must be one of {IMG_LAYOUTS}, got {layout!r}")
+    z = _trunk_conv_plain(tp, kph)
+    if layout == "full":
+        z = z + space_to_phase(zimg.float(), 4).reshape(z.shape)
+    elif layout == "phase":
+        z = z + zimg.float()
+    z = z + b2.float()
+    return _with_moments(z, tp.dtype)
+
+
+def conv_phase_img(tp, kph, zimg, b2, layout):
+    """K3 (replaces posfeat_tpu/ops/pallas/fused_head.py:70
+    ``_conv_kernel``, ``layout="full"``), T1 (tools/bench_fused_parts.py:105
+    ``_conv_kernel_noz``, "none") and T2 (bench_fused_parts.py:154
+    ``_conv_kernel_prephase``, "phase"). Same contract as
+    ``conv_phase_img_plain``, except that the moments come per tile:
+    [B, T, N]. ``launches`` counts each layout's kernel apart."""
+    if layout not in IMG_LAYOUTS:
+        raise ValueError(f"layout must be one of {IMG_LAYOUTS}, got {layout!r}")
+    if tp.device.type == "cpu":
+        return conv_phase_img_plain(tp, kph, zimg, b2, layout)
+    from ._build import load_kernels
+
+    B, hp, wp, C = tp.shape
+    h, w = hp - 2, wp - 2
+    N = kph.shape[-1]
+    cout = N // 16
+    dev, bf = tp.device, torch.bfloat16
+    _check(tp, "tp", bf, (B, hp, wp, C), dev)
+    _check(kph, "kph", bf, (9, C, N), dev)
+    _check(b2, "b2", torch.float32, (N,), dev)
+    if layout == "full":
+        _check(zimg, "zimg", bf, (B, 4 * h, 4 * w, cout), dev)
+    elif layout == "phase":
+        _check(zimg, "zimg", bf, (B, h, w, N), dev)
+    if C % 32 or N % K1_BN or N != 16 * cout or cout % 8:
+        raise ValueError(
+            f"{IMG_KERNELS[layout]} needs C % 32 == 0, N = 16·Cout, N % {K1_BN} == 0 and "
+            f"Cout % 8 == 0; got C={C}, N={N}"
+        )
+    th, tw = K1_TILE
+    T = -(-h // th) * -(-w // tw)
+    z = torch.empty((B, h, w, N), dtype=bf, device=dev)
+    psum = torch.empty((B, T, N), dtype=torch.float32, device=dev)
+    psq = torch.empty_like(psum)
+    img = ctypes.c_void_p(None) if layout == "none" else _ptr(zimg)
+    rc = load_kernels().posfeat_conv_phase_img(
+        _ptr(tp), _ptr(kph), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
+        B, h, w, C, N, cout, IMG_LAYOUTS.index(layout), th, tw, _stream(),
+    )
+    conv_phase_img.launches[layout] += 1
+    _raise_on(rc, f"{IMG_KERNELS[layout]} conv_phase_img")
+    return z, psum, psq
+
+
+conv_phase_img.launches = dict.fromkeys(IMG_LAYOUTS, 0)
 
 
 # ------------------------------------------------------------------- K2
@@ -178,18 +273,6 @@ head_tail.launches = 0
 # ------------------------------------------------------- the head tail
 
 
-def _phase_kernel(k2_trunk: torch.Tensor, k: int = 4) -> torch.Tensor:
-    """[3, 3, Cin, Cout] -> [3, 3, Cin, k·k·Cout] phase kernel (f32)."""
-    from ..models.keypoint_det import _phase_mix_matrix
-
-    M, D = _phase_mix_matrix(k)
-    assert D == 3
-    M = torch.from_numpy(M).to(k2_trunk.device)
-    kph = torch.einsum("rda,sep,apcf->decrsf", M, M, k2_trunk.float())
-    cin, cout = k2_trunk.shape[2], k2_trunk.shape[3]
-    return kph.reshape(3, 3, cin, k * k * cout)
-
-
 def _patches(x: torch.Tensor, size: int, stride: int = 1, pad: int = 0) -> torch.Tensor:
     """NHWC patches, feature order (c, ky, kx) as
     conv_general_dilated_patches gives: [B, H, W, C] -> [B, h', w', C·size²]."""
@@ -248,10 +331,10 @@ def _img_ring_deltas(s, y, mu, a, K5, k2i, b_z):
 def fused_head_tail(
     trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3, prelu_a,
     act: str = "Softplus", k: int = 4, eps: float = 1e-5,
-    debug_intermediates: bool = False,
+    debug_intermediates: bool = False, mode: str = "v3",
 ):
     """Reference-exact head tail -> full-res score [B, k·h, k·w, out]
-    (posfeat_tpu/ops/pallas/fused_head.py:413-1155, mode v3, ring on).
+    (posfeat_tpu/ops/pallas/fused_head.py:413-1155, ring on).
 
     Equivalent to (DeteNet.py:108-113, identity prior):
         z = conv3x3_zeropad(upsample_x4(trunk))
@@ -261,36 +344,31 @@ def fused_head_tail(
 
     Layouts are the JAX ones: NHWC maps, conv kernels [kh, kw, in, out].
     trunk [B, h, w, Cin] (post conv1 + IN + PReLU); img_s [B, 4h, 4w, 3];
-    img_y [B, 4h, 4w, Cy] unnormalized convimg output, read only on the
-    border ring. The convimg IN statistics come from the patch gram
-    matrix (JAX's default ``img_stats='gram'``), so unlike the JAX
-    signature this one takes no img_mu / img_a. Under a bf16 trunk the
-    score comes out f32.
+    img_y [B, 4h, 4w, Cy] unnormalized convimg output. ``mode`` is the
+    JAX package's POSFEAT_HEAD_MODE: "v3" (K1; img_y is read only on the
+    border ring, and the convimg IN statistics come from the patch gram
+    matrix) or "v1" (cuDNN's full-res conv of img_y normalised by its
+    own f32 IN statistics, then K3). Under a bf16 trunk the score comes
+    out f32.
     """
+    if mode not in ("v3", "v1"):
+        raise ValueError(f"mode must be 'v3' or 'v1', got {mode!r}")
     return _fused_head_tail(
-        conv_phase, head_tail, trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img,
-        b2, w3, b3, prelu_a, act, k, eps, debug_intermediates,
+        conv_phase if mode == "v3" else conv_phase_img, head_tail, trunk, img_s, img_y,
+        k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3, prelu_a, act, k, eps,
+        debug_intermediates, mode,
     )
 
 
-def _fused_head_tail(
-    conv_fn, tail_fn, trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3,
-    prelu_a, act: str = "Softplus", k: int = 4, eps: float = 1e-5,
-    debug_intermediates: bool = False,
-):
-    """``fused_head_tail`` with K1 and K2 given as ``conv_fn`` and
-    ``tail_fn`` (the kernels' wrappers, or their plain versions to hold
-    a card's score map against)."""
-    assert k == 4, "composite image branch derived for the x4 head"
-    B, h, w, cin = trunk.shape
-    cout = k2_trunk.shape[3]
-    cy = k2_img.shape[2]
-    out_ch = w3.shape[-1]
+def _v3_image_operands(img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt):
+    """v3's composite image branch (fused_head.py:571-659): the stride-4
+    patches P [B, h, w, 192], the per-image weights Wm [B, 192, kk·Cout]
+    and bias b2b [B, kk·Cout] of K1, and (mu32, a32, K5, b_z) for the
+    ring deltas."""
+    B = img_s.shape[0]
+    cy, cout = k2_img.shape[2], k2_img.shape[3]
     kk = k * k
-    dt = trunk.dtype
-    dev = trunk.device
-    Hf, Wf = k * h, k * w
-
+    dev = img_s.device
     C1 = k1_img.float()
     C2 = k2_img.float()
 
@@ -312,7 +390,7 @@ def _fused_head_tail(
     G = Pf.transpose(1, 2) @ Pf  # [B, 192, 192]
     lin = Pf.sum(dim=1) @ Wy
     quad = ((G @ Wy) * Wy).sum(dim=1)
-    n_full = Hf * Wf
+    n_full = kk * h * w
     b1f = b1_img.float().repeat(kk)[None, :]
     s1 = (lin + (n_full / kk) * b1f).reshape(B, kk, cy).sum(dim=1)
     s2 = (quad + 2.0 * b1f * lin + (n_full / kk) * b1f * b1f).reshape(B, kk, cy).sum(dim=1)
@@ -333,28 +411,80 @@ def _fused_head_tail(
             Wt[:, ry : ry + 5, rx : rx + 5, :, ry * k + rx] = K5
     Wm = Wt.permute(0, 3, 1, 2, 4, 5).reshape(B, 192, kk * cout).to(dt)
     b2b = (b2.float().repeat(kk)[None, :] + b_z.repeat(1, kk)).contiguous()  # [B, kk·Cout]
+    return P.contiguous(), Wm.contiguous(), b2b, mu32, a32, K5, b_z
 
-    # K1 operands: channels padded to a multiple of 32 (zeros add nothing)
+
+def _v1_z_img(img_y, k2_img, eps, dt):
+    """v1's image half of conv2 at full resolution (fused_head.py:661-674):
+    z_img = conv3x3_zeropad((img_y − μ)·a, k2_img) in the compute dtype,
+    with μ and a = rsqrt(var + eps) img_y's f32 IN statistics, through
+    cuDNN on the card. Returns z_img [B, 4h, 4w, Cout], contiguous."""
+    y = img_y.float()
+    n = y.shape[1] * y.shape[2]
+    mu = y.sum(dim=(1, 2)) / n
+    var = torch.clamp((y * y).sum(dim=(1, 2)) / n - mu * mu, min=0.0)
+    a = torch.rsqrt(var + eps)
+    img_feat = ((y - mu[:, None, None, :]) * a[:, None, None, :]).to(dt)
+    z_img = F.conv2d(img_feat.permute(0, 3, 1, 2), k2_img.to(dt).permute(3, 2, 0, 1), padding=1)
+    return z_img.permute(0, 2, 3, 1).to(dt).contiguous()
+
+
+def _fused_head_tail(
+    conv_fn, tail_fn, trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3,
+    prelu_a, act: str = "Softplus", k: int = 4, eps: float = 1e-5,
+    debug_intermediates: bool = False, mode: str = "v3",
+):
+    """``fused_head_tail`` with its kernels given as ``conv_fn`` and
+    ``tail_fn``: the wrappers, or their plain versions to hold a card's
+    score map against. ``conv_fn`` has K1's signature in mode "v3"
+    (``conv_phase``) and K3's in mode "v1" (``conv_phase_img``)."""
+    assert k == 4, "phase-layout head derived for the x4 upsample"
+    B, h, w, cin = trunk.shape
+    cout = k2_trunk.shape[3]
+    out_ch = w3.shape[-1]
+    kk = k * k
+    dt = trunk.dtype
+    Hf, Wf = k * h, k * w
+
+    # the trunk operands of K1/K3: channels padded to a multiple of 32
+    # (zeros add nothing), edge pad = the upsample's clamp
     cin_p = -(-cin // 32) * 32
     kph = F.pad(_phase_kernel(k2_trunk, k), (0, 0, 0, cin_p - cin)).to(dt)
     kph = kph.reshape(9, cin_p, kk * cout).contiguous()
-    tp = torch.cat([trunk[:, :1], trunk, trunk[:, -1:]], dim=1)  # edge pad = upsample clamp
-    tp = torch.cat([tp[:, :, :1], tp, tp[:, :, -1:]], dim=2)
-    tp = F.pad(tp, (0, cin_p - cin)).contiguous()
-    z, ssum, ssq = conv_fn(tp, kph, P.contiguous(), Wm.contiguous(), b2b)
+    tp = F.pad(_edge_pad1(trunk), (0, cin_p - cin)).contiguous()
 
     # ---- thin-strip border corrections (O(perimeter) work) ----
     # z carries the clamped-composite trunk values (ring width 1: strips
-    # T/Bo/L/R) and the composite image-branch values (ring width 2:
-    # strips G_*). Compute the exact ring values, correct the IN1
-    # statistics, and later rewrite u's ring: conv3 is 1×1, so interior
-    # pixels never see ring errors.
-    from ..models.keypoint_det import ring_correction_strips
+    # T/Bo/L/R) and, in v3, the composite image-branch values (ring width
+    # 2: strips G_*); v1's z_img is exact. Compute the exact ring values,
+    # correct the IN1 statistics, and later rewrite u's ring: conv3 is
+    # 1×1, so interior pixels never see ring errors.
 
     T, Bo, L, R = ring_correction_strips(trunk, k2_trunk, k)
-    G_top, G_bot, G_left, G_right = _img_ring_deltas(img_s, img_y, mu32, a32, K5, k2_img, b_z)
-    ids = [0, 1, k - 2, k - 1]
-    margin = 2
+    if mode == "v3":
+        P, Wm, b2b, mu32, a32, K5, b_z = _v3_image_operands(
+            img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt
+        )
+        z, ssum, ssq = conv_fn(tp, kph, P, Wm, b2b)
+        G_top, G_bot, G_left, G_right = _img_ring_deltas(img_s, img_y, mu32, a32, K5, k2_img, b_z)
+        ids, margin = [0, 1, k - 2, k - 1], 2
+
+        def G_row(ry):
+            return G_top[:, ry] if ry < k // 2 else G_bot[:, ry - (k - 2)]
+
+        def G_col(rx):
+            return G_left[:, :, rx] if rx < k // 2 else G_right[:, :, rx - (k - 2)]
+
+    elif mode == "v1":
+        z_img = _v1_z_img(img_y, k2_img, eps, dt)
+        b2ph = b2.float().repeat(kk).contiguous()  # [kk·Cout]
+        z, ssum, ssq = conv_fn(tp, kph, z_img, b2ph, "full")
+        ids, margin = [0, k - 1], 1
+        G_row = G_col = lambda r: 0.0
+    else:
+        raise ValueError(f"mode must be 'v3' or 'v1', got {mode!r}")
+    lo_ids = [i for i in ids if i < k // 2]  # ring phases at trunk row/column 0
+    hi_ids = [i for i in ids if i >= k // 2]  # ... and at row h-1 / column w-1
 
     def z_row_raw(ry):
         hrow = 0 if ry < k // 2 else h - 1
@@ -374,14 +504,8 @@ def _fused_head_tail(
         d[:, -1] += R[:, fr]
         return d
 
-    def G_row(ry):
-        return G_top[:, ry] if ry < k // 2 else G_bot[:, ry - (k - 2)]
-
     def D_col(rx):
         return L if rx == 0 else (R if rx == k - 1 else 0.0)
-
-    def G_col(rx):
-        return G_left[:, :, rx] if rx < k // 2 else G_right[:, :, rx - (k - 2)]
 
     row_raw = {ry: z_row_raw(ry) for ry in ids}
     col_raw = {rx: z_col_raw(rx) for rx in ids}
@@ -445,7 +569,7 @@ def _fused_head_tail(
 
     # overwrite the ring in place in K2's output (columns first; rows
     # then own the corners)
-    for wcol, cols in ((0, ids[:2]), (w - 1, ids[2:])):
+    for wcol, cols in ((0, lo_ids), (w - 1, hi_ids)):
         uw = u[:, :, wcol, :].reshape(B, h, kk, out_ch).clone()
         for rx in cols:
             uw[:, :, rx::k, :] = u_col_e[rx].reshape(B, h, k, out_ch)

@@ -13,6 +13,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import yaml
 import jax
 import jax.numpy as jnp
 
@@ -95,7 +96,6 @@ def test_device_program_matches_jax(tmp_path, rng, weights):
 
 def test_extractors_write_matching_npz(tmp_path, rng, weights, monkeypatch):
     import cv2
-    import yaml
 
     from posfeat_tpu.data.synthetic import _texture
     from posfeat_tpu.extract import Extractor as JaxExtractor
@@ -149,3 +149,25 @@ def test_bf16_selects_fused_head_only_on_the_card(tmp_path):
     ex = Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu", dataset=[])
     assert ex.config["model_config"]["localheader_config"]["fused_upsample"] == "pallas"
     assert "fused_upsample" not in cfg["model_config"]["localheader_config"]
+
+
+@pytest.mark.parametrize(
+    "dataflow, mode", [("pallas", "v1"), ("phase", None), ("always", None), (False, None)]
+)
+def test_head_choice_reaches_the_model_and_config_yaml(tmp_path, dataflow, mode):
+    """head_dataflow (any KeypointDet dataflow) and head_mode (the fused
+    head's v3/v1) land in localheader_config, in the model and in the
+    run's config.yaml; the caller's dict is left unchanged."""
+    cfg = _config(tmp_path, f"head_{dataflow}", tmp_path / "none")
+    cfg["head_dataflow"] = dataflow
+    if mode is not None:
+        cfg["head_mode"] = mode
+    before = copy.deepcopy(cfg)
+    ex = Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu", dataset=[])
+    assert cfg == before
+    head = ex.model.localheader
+    assert head.fused_upsample == dataflow and head.fused_head_mode == (mode or "v3")
+    saved = yaml.safe_load((tmp_path / "out" / cfg["output_root"] / "config.yaml").read_text())
+    lh = saved["model_config"]["localheader_config"]
+    assert lh["fused_upsample"] == dataflow
+    assert lh.get("fused_head_mode") == mode

@@ -1,5 +1,7 @@
-"""Import hygiene of posfeat_tpu_torch: it imports nothing of JAX (jax,
-flax, optax) or of the JAX package, and reads no environment variable."""
+"""Import hygiene of posfeat_tpu_torch, and of the scripts that drive it
+on the card (chip_smoke.py and the port's tools): they import nothing of
+JAX (jax, flax, optax) or of the JAX package, and read no environment
+variable."""
 
 import ast
 from pathlib import Path
@@ -9,6 +11,11 @@ import pytest
 PKG = Path(__file__).resolve().parent.parent / "posfeat_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "posfeat_tpu")
 SOURCES = sorted(PKG.rglob("*.py"))
+ROOT = PKG.parent
+SCRIPTS = [ROOT / "chip_smoke.py"] + [
+    ROOT / "tools" / f"{name}.py"
+    for name in ("bench_torch_fused_parts", "profile_torch_extract", "profile_torch_train")
+]
 
 
 def _forbidden(module: str) -> bool:
@@ -43,6 +50,11 @@ def test_package_has_sources():
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PKG).as_posix())
 def test_no_jax_and_no_environment(path):
+    assert list(_violations(path)) == []
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_card_scripts_have_no_jax_and_no_environment(path):
     assert list(_violations(path)) == []
 
 

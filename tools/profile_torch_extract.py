@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes in posfeat_tpu_torch's extraction, on one CUDA card.
 
-    python3 tools/profile_torch_extract.py [--batches 8] [--trace PATH]
+    python3 tools/profile_torch_extract.py [--batches 8] [--head-mode v3|v1] [--trace PATH]
 
 Runs chip_smoke.py's main path (``chip_smoke.flagship_extractor``:
-flagship model, bf16, 480x640, batch 16, 8192 points, fused head, after
-a warm-up batch) with torch.profiler around ``Extractor.extract``. From the Kineto trace it prints the device time
+flagship model, bf16, 480x640, batch 16, 8192 points, fused head in its
+v3 dataflow or, with ``--head-mode v1``, its v1 dataflow, after a
+warm-up batch) with torch.profiler around ``Extractor.extract``. From the Kineto trace it prints the device time
 of every kernel class, the device's busy and idle share of the window
 (host clock), and the top kernels by time. ``--trace`` keeps the
 Chrome trace at PATH.
@@ -27,6 +28,7 @@ from chip_smoke import BATCH, SEED, _images, flagship_extractor  # noqa: E402
 CLASSES = (
     ("K1 conv_phase", ("conv_phase_kernel",)),
     ("K2 head_tail", ("head_tail_kernel",)),
+    ("K3 conv_phase_img", ("conv_phase_img_full_kernel",)),
     ("conv / gemm (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "implicit")),
     ("sort / top-k", ("sort", "radix", "topk")),
     ("grid_sample", ("grid_sampler",)),
@@ -63,6 +65,7 @@ def main() -> int:
 
     p = argparse.ArgumentParser()
     p.add_argument("--batches", type=int, default=8)
+    p.add_argument("--head-mode", choices=("v3", "v1"), default="v3")
     p.add_argument("--trace", default=None, help="keep the Chrome trace here")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -71,7 +74,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     data = _images(rng, BATCH * args.batches, "main")
     with tempfile.TemporaryDirectory() as tmp:
-        ex = flagship_extractor(tmp, rng, output_root="profile")
+        ex = flagship_extractor(tmp, rng, output_root="profile", head_mode=args.head_mode)
         ex.dataset = data
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -93,7 +96,7 @@ def main() -> int:
         by_name[e["name"]][1] += 1
     busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
     total = sum(by_class.values())
-    print(f"device: {torch.cuda.get_device_name(0)}; {n} images, batch {BATCH}, window {wall_us / 1e3:.3f} ms "
+    print(f"device: {torch.cuda.get_device_name(0)}; head {args.head_mode}; {n} images, batch {BATCH}, window {wall_us / 1e3:.3f} ms "
           f"(host clock, {n / wall_us * 1e6:.2f} im/s under the profiler)")
     print(f"device busy {busy / 1e3:.3f} ms = {100 * busy / wall_us:.1f}% of the window; "
           f"idle {100 * (1 - busy / wall_us):.1f}%; kernel time {total / 1e3:.3f} ms in {len(kernels)} launches")
