@@ -6,13 +6,14 @@
 Phases, one line each (more for the build):
   1. device: name, count, and nvidia-smi's name and power limit;
   2. build: nvcc of csrc/*.cu, with each kernel's registers, shared
-     memory and spills from -Xptxas -v;
+     memory and spills from -Xptxas -v (and the conv kernels' dynamic
+     shared memory at Cin = 192); the four conv kernels must not spill;
   3. kernels: K1 and K2 at the shapes the main path gives them (B=16,
      h=120, w=160, Cin=192, Cout=128, out_ch=1) against their plain
      versions on the same bf16 inputs, the fused head's score map with
      kernels against the plain versions, and each kernel's time per
      B=16 launch beside its bound, its plain version's and one PyTorch
-     call's (library_ms);
+     call's (library_ms), and K1's achieved TFLOP/s and share of its bound;
   4. the fused bf16 head against the f32 reference dataflow at 480x640;
   5. the main path: an Extractor at the flagship model, bf16, 128 seeded
      480x640 images (8 batches of 16) after a warm-up batch, 8192
@@ -38,7 +39,8 @@ Phases, one line each (more for the build):
      term) and T2 (pre-phased z_img) at the v1 path's shapes (B=16,
      h=120, w=160, Cin=192, Cout=128) against their plain versions on the
      same bf16 inputs, with times, bounds, plain times and cuDNN's conv
-     of the trunk half (library_ms);
+     of the trunk half (library_ms), and each one's TFLOP/s and share of
+     its bound;
   9. the v1 bf16 head (``fused_head_mode="v1"``) against the f32
      reference dataflow at 480x640, as phase 4 holds v3;
  10. the v1 path: an Extractor with ``head_mode: v1`` at the flagship
@@ -110,24 +112,32 @@ def _bound(ops, peak, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_img_none_kernel",
+                "conv_phase_img_phase_kernel")
+
+
 def _ptxas_summary(log):
-    """{kernel: {'regs', 'static_smem', 'spills'}} from -Xptxas -v."""
+    """{kernel: {'regs', 'static_smem', 'spill_stores', 'spill_loads'}} from -Xptxas -v."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next(k for k in ("conv_phase_kernel", "conv_phase_img_full_kernel",
-                                    "conv_phase_img_none_kernel", "conv_phase_img_phase_kernel",
-                                    "head_tail_kernel", "lse_pass_kernel", "reward_pass_kernel",
-                                    m.group(1)) if k in m.group(1))
+            name = next(k for k in (*CONV_KERNELS, "head_tail_kernel", "lse_pass_kernel",
+                                    "reward_pass_kernel", m.group(1)) if k in m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            out.setdefault(name, {})["spills"] = f"{m.group(1)}/{m.group(2)} B spill st/ld"
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
         if m and name:
             out.setdefault(name, {})["regs"] = int(m.group(1))
             out[name]["static_smem"] = int(m.group(2) or 0)
     return out
+
+
+def _rate(r, tflop):
+    """The conv kernel's achieved TFLOP/s and its share of the bound."""
+    return (f"{tflop / r['ms'] * 1e-9:.1f} TFLOP/s achieved ({tflop * 1e-12:.4g} TFLOP per launch), "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound")
 
 
 def phase_kernels(torch, fh, rng):
@@ -225,6 +235,7 @@ def phase_kernels(torch, fh, rng):
     for r in records:
         print(f"[3] {r['name']}: {r['ms']:.4f} ms per B={B} launch (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)")
+    print(f"[3] K1 conv_phase: {_rate(records[0], 2.0 * M * N * (9 * C + KP))}")
     return records
 
 
@@ -411,7 +422,8 @@ def phase_v1_kernels(torch, fh, rng):
         })
         print(f"[8] {name} ({layout}) at B={B} h={h} w={w} Cin={C} Cout={cout}: z max|err| {err:.4g} "
               f"(max|z| {z_max:.4g}); {ms:.4f} ms per launch (bound {bound[0]:.4f} ms by {bound[1]}, "
-              f"plain {plain:.4f} ms, cuDNN trunk conv {lib:.4f} ms)")
+              f"plain {plain:.4f} ms, cuDNN trunk conv {lib:.4f} ms); "
+              f"{_rate(records[-1], 2.0 * B * h * w * N * 9 * C)}")
         del z, s, q
     return records
 
@@ -683,8 +695,16 @@ def main() -> int:
 
     info = _build.build(force=True)
     print(f"[2] build: {info['seconds']:.2f} s -> {info['path'].name}")
-    for kname, props in _ptxas_summary(info["log"]).items():
+    summary = _ptxas_summary(info["log"])
+    lib = _build.load_kernels()
+    for kname, props in summary.items():
+        if kname in CONV_KERNELS:
+            # the launch's dynamic shared memory at the flagship point (C = KP = 192)
+            props["dynamic_smem"] = lib.posfeat_conv_smem_bytes(192, 192 if kname == "conv_phase_kernel" else 0)
         print(f"[2]   {kname}: {props}")
+    for kname in CONV_KERNELS:
+        props = summary[kname]
+        assert props["spill_stores"] == props["spill_loads"] == 0, (kname, props)
 
     rng = np.random.default_rng(SEED)
     records = phase_kernels(torch, fh, rng)

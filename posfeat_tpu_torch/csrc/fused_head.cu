@@ -11,21 +11,23 @@
 // stream, and raise on a non-zero return code.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libposfeat_kernels.so fused_head.cu
-// (posfeat_tpu_torch/ops/_build.py does this on first use.)
+//        -Xcompiler -fPIC -o libposfeat_kernels.so fused_head.cu reinforce.cu
+// (posfeat_tpu_torch/ops/_build.py does this on first use). No link flag
+// beyond these: <cuda.h> is read for the tensor-map types only, and
+// cuTensorMapEncodeTiled (libcuda) is looked up at run time with
+// cudaGetDriverEntryPointByVersion.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-// ------------------------------------------------------------------- K1
+// ------------------------------------------------------------- K1, K3, T1, T2
 //
 // z[b, y, x, n] = sum_{dy,dx,c} tp[b, y+dy, x+dx, c] * kph[dy*3+dx, c, n]
 //               + sum_p pat[b, y, x, p] * wm[b, p, n] + b2b[b, n]
@@ -38,251 +40,578 @@ namespace {
 // about 94 MB per image of traffic (mostly the z write), so the tensor
 // cores bound it (0.153 ms per image at 989 TFLOP/s bf16).
 //
-// Design: one block computes a TH x TW tile of trunk cells (BM = 64 rows
-// of the GEMM) against BN = 128 output channels. It stages the tile's
-// trunk cells with their 1-cell halo (the edge-padded trunk, so no
-// boundary tests in the MMA loop) and the tile's patch rows in shared
-// memory once, then walks K: 9 taps x C channels of the halo tile against
-// kph, then KP patch channels against wm[b], staging KC = 32 rows of the
-// B operand at a time. The TPU kernel carried its halo DMA across a
-// sequential grid; here every block loads its own halo, so blocks run in
-// any order. MMAs are bf16 WMMA 16x16x16 with f32 accumulators; 8 warps
-// each own a 32 x 32 piece of the 64 x 128 block tile. Row strides in
-// shared memory are padded by 16 bf16 (32 bytes) to keep WMMA's 32-byte
-// alignment while spreading rows over banks. The epilogue stages the
-// accumulators in shared memory (reusing the operand space), adds the
-// bias, writes z as bf16 pairs and reduces each column over the tile's
-// valid cells. Each tile writes its own partials row: no atomics, so the
-// moments are deterministic. wgmma, TMA and a pipelined K loop come later.
+// Design (one block = one TH x TW = 8 x 16 tile of trunk cells, BM = 128
+// GEMM rows, swept over all N in steps of BN = 256 channels):
+// - The tile's halo (10 x 18 cells, the edge-padded trunk, so no boundary
+//   tests in the MMA loop) and, for K1, its patch rows stay resident in
+//   shared memory for the whole sweep, staged once by cp.async, in core
+//   matrices: [C / 8][cells][8], so that any 8 consecutive cells of a halo
+//   row are one 128-byte core matrix.
+// - The B operand (kph, and wm[b] for K1's image half) is streamed in
+//   KC = 64-deep chunks of BN channels through a ring of 3 (K1) or 4
+//   (K3/T1/T2) shared-memory stages, 32 KB each, by TMA with the 128-byte
+//   swizzle, with full/empty mbarriers. The wrapper hands the kernel B
+//   K-major ([9, N, C] and [B, N, KP]), the layout wgmma reads without a
+//   transpose.
+// - Warp specialisation: warpgroup 0 is the producer (one thread issues the
+//   TMA loads; the warpgroup gives its registers back with setmaxnreg, 24
+//   each, so that the consumers get 240); warpgroups 1 and 2 are the
+//   consumers. Consumer warpgroup xh owns tile columns 8 xh .. 8 xh + 7 of
+//   all 8 tile rows (64 GEMM rows) x 256 channels: 128 f32 accumulators per
+//   thread.
+// - MMAs are wgmma.m64n256k16 with both operands in shared memory. The A
+//   descriptor's 8-row groups are the warpgroup's 8 tile rows, 18 cells
+//   apart in the halo, so a 3x3 tap is only a different start address:
+//   no im2col, no copies, no registers for A. One chunk stays queued
+//   behind the one that runs; a stage is released as soon as its wgmmas
+//   retire.
+// - A chunk deeper than C (or KP) is cut to its 16-deep steps that exist:
+//   C % 32 == 0 is enough, and TMA zero-fills B beyond C, N or KP.
+// - Epilogue from the accumulator registers, at the end of each N step: a
+//   4 x 4 transpose inside each quad of lanes gives each lane 8 contiguous
+//   channels of one cell, so bias, image term and z move as 16-byte
+//   accesses; z is stored with a streaming hint, the bias comes from shared
+//   memory (copied during the step's MMAs) and the image term is read one
+//   group of 32 channels ahead. The column sums of z and z^2 over the
+//   tile's valid cells come from the f32 values, summed over each warp's
+//   16 rows by a shuffle reduce-scatter, then across the 8 consumer warps
+//   through shared memory in a fixed order (warpgroup 1's warps, then
+//   warpgroup 2's). Each tile writes its own partials row: no atomics, so
+//   the moments are deterministic.
+// B traffic per launch at the flagship point: 16 * 150 tiles * 8 N steps
+// * 30 chunks * 32 KB = 18.9 GB from L2 (it is 7 MB + 12.6 MB in memory);
+// BM = 128 keeps that within what L2 delivers beside the MMAs. The
+// epilogue does not overlap the MMAs: it costs a tenth (K1, T1) to a
+// quarter (K3, T2) of a launch (tools/profile_torch_conv_stages.py).
 //
 // K3, T1 and T2 share the trunk half and differ in the epilogue, where an
-// image term Z is added to the staged f32 accumulator with the bias,
-// before the moments (no patch tile, no image-half MMA):
+// image term Z is added to the accumulator with the bias, before the
+// moments (no patch tile, no image-half MMA):
 //   K3 (kImgFull)  Z = z_img[b, 4y + ry, 4x + rx, c], full-res [B,4h,4w,Cout]
 //                  (the phase reorder the TPU kernel did in VMEM,
 //                  fused_head.py:137-140);
 //   T1 (kImgNone)  Z = 0;
 //   T2 (kImgPhase) Z = z_img_ph[b, y, x, n], already in phase layout.
-// Channel n = (ry*4 + rx)*Cout + c of the block's BN channels. The
-// epilogue maps consecutive threads to consecutive channel pairs of one
-// cell, so a warp reads 64 consecutive channels of one full-res pixel
-// (128 contiguous bytes) and its loads coalesce. Bound: the same tensor
-// work as K1's trunk half, 2.17 TFLOP per B=16 launch at the flagship
-// point, against about 2.65 GB of traffic in K3 (z written, z_img read
-// once): the tensor cores bound it.
+// Channel n = (ry*4 + rx)*Cout + c. Bound: the same tensor work as K1's
+// trunk half, 2.17 TFLOP per B=16 launch at the flagship point, against
+// about 2.65 GB of traffic in K3 (z written, z_img read once): the tensor
+// cores bound it.
 
-constexpr int TH = 4;
+constexpr int TH = 8;
 constexpr int TW = 16;
-constexpr int BM = TH * TW;  // 64
-constexpr int BN = 128;
-constexpr int KC = 32;
-constexpr int PAD = 16;
-constexpr int BS = BN + PAD;  // B-tile row stride (bf16)
-constexpr int CT = BN + 4;    // accumulator staging row stride (f32)
-constexpr int K1_THREADS = 256;
-
-size_t k1_smem_bytes(int C, int KP) {
-  size_t halo = size_t(TH + 2) * (TW + 2) * (C + PAD) * sizeof(bf16);
-  size_t ptile = size_t(BM) * (KP + PAD) * sizeof(bf16);
-  size_t btile = size_t(KC) * BS * sizeof(bf16);
-  size_t ops = halo + ptile + btile;
-  size_t ctile = size_t(BM) * CT * sizeof(float);
-  return ops > ctile ? ops : ctile;
-}
-
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
+constexpr int BM = TH * TW;  // 128
+constexpr int BN = 256;
+constexpr int KC = 64;  // one 128-byte swizzle row of bf16
+constexpr int HALO_CELLS = (TH + 2) * (TW + 2);
+constexpr int STAGE_BYTES = BN * KC * 2;
+constexpr int K1_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int RED_BYTES = 4 * BN * 8;  // one warpgroup's column partials, float2 (s, q)
+constexpr int MAX_SMEM = 232448;       // per block on sm_90
+// registers per thread: the launch gives 168 to each of 384 threads; the
+// producer warpgroup drops to 24 so that each consumer can rise to 240
+constexpr int LAUNCH_REGS = 168, PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 // the image term of the conv's epilogue (see above)
 enum ImageTerm { kPatches = 0, kImgFull = 1, kImgNone = 2, kImgPhase = 3 };
 
-// One block: a TH x TW tile of trunk cells of image b against BN output
-// channels. pat/wm feed the image half (kPatches only); img is the image
-// term's tensor (kImgFull, kImgPhase); bias is [B][N] with bias_bstride N,
-// or one [N] row with bias_bstride 0; cout is the full-res channel count.
-template <int MODE>
-__device__ __forceinline__ void conv_phase_body(
-    const bf16* __restrict__ tp, const bf16* __restrict__ kph, const bf16* __restrict__ pat,
-    const bf16* __restrict__ wm, const bf16* __restrict__ img, const float* __restrict__ bias_all,
-    int bias_bstride, bf16* __restrict__ z, float* __restrict__ psum, float* __restrict__ psq,
-    int h, int w, int C, int KP, int N, int cout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int CS = C + PAD;
-  const int PS = KP + PAD;
-  bf16* halo = reinterpret_cast<bf16*>(smem);  // [(TH+2)*(TW+2)][CS]
-  bf16* ptile = halo + (TH + 2) * (TW + 2) * CS;  // [BM][PS]
-  bf16* btile = ptile + BM * PS;                  // [KC][BS]
-  float* ctile = reinterpret_cast<float*>(smem);  // [BM][CT], after the K loop
+__host__ __device__ constexpr int ring_stages(int mode) { return mode == kPatches ? 3 : 4; }
 
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN;
-  const int ntx = (w + TW - 1) / TW;
-  const int nty = (h + TH - 1) / TH;
-  const int T = ntx * nty;
-  const int b = blockIdx.y / T;
-  const int tile = blockIdx.y % T;
-  const int y0 = (tile / ntx) * TH;
-  const int x0 = (tile % ntx) * TW;
-  const int hp = h + 2, wp = w + 2;
+size_t conv_smem_bytes(int C, int KP, int stages) {
+  // 1024 for aligning the ring to the swizzle's period, the ring, the
+  // halo, the patch tile, the reduction buffer, the step's bias, 2
+  // mbarriers per stage
+  return 1024 + size_t(stages) * STAGE_BYTES + size_t(HALO_CELLS) * C * 2 + size_t(BM) * KP * 2 +
+         RED_BYTES + BN * 4 + 16 * size_t(stages);
+}
 
-  // stage the halo tile (rows y0..y0+TH+1, columns x0..x0+TW+1 of tp)
-  const int C8 = C / 8;
-  for (int i = tid; i < (TH + 2) * (TW + 2) * C8; i += K1_THREADS) {
-    const int cell = i / C8, c8 = i % C8;
-    const int gy = y0 + cell / (TW + 2), gx = x0 + cell % (TW + 2);
-    bf16* dst = halo + cell * CS + c8 * 8;
-    if (gy < hp && gx < wp) {
-      copy16(dst, tp + ((size_t(b) * hp + gy) * wp + gx) * C + c8 * 8);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Spins on the barrier's phase; traps after about 2^24 polls (seconds)
+// so that a fault in the pipeline ends the launch with an error.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// 4 bytes global -> shared
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
+
+// 16 bytes global -> shared; zeros when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// a[i] of lane t -> a[t] of lane i, inside each quad of lanes (t = lane % 4):
+// two xor steps, each swapping the off-diagonal halves of 2 x 2 blocks
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int t) {
+#pragma unroll
+  for (int m = 2; m >= 1; m /= 2) {
+    const bool hi = t & m;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i & m) continue;
+      const uint32_t recv = __shfl_xor_sync(0xffffffffu, hi ? a[i] : a[i | m], m);
+      if (hi) {
+        a[i] = recv;
+      } else {
+        a[i | m] = recv;
+      }
     }
   }
-  if constexpr (MODE == kPatches) {
-    // stage the tile's patch rows
+}
+
+// one step of a reduce-scatter across the lanes that differ in bit M: the
+// lane with the bit set keeps the sums of d[HALF .. 2 HALF), the other those
+// of d[0 .. HALF), both in d[0 .. HALF)
+template <int M, int HALF>
+__device__ __forceinline__ void reduce_scatter_step(float (&d)[128], int lane) {
+  const bool hi = lane & M;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float recv = __shfl_xor_sync(0xffffffffu, hi ? d[i] : d[i + HALF], M);
+    d[i] = (hi ? d[i + HALF] : d[i]) + recv;
+  }
+}
+
+// shared-memory descriptor of a K-major operand tile in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+// shared-memory descriptor of a K-major operand in core matrices without
+// swizzle: 8 rows of 16 bytes each, lbo bytes between core matrices along
+// K, sbo bytes between 8-row groups along M
+__device__ __forceinline__ uint64_t desc_interleave(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of the accumulators above a wait
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// d[64 x 256] (+)= A[64 x 16] * B[16 x 256], both bf16 in shared memory, K-major
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a,
+                                                    uint64_t desc_b, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// One block: a TH x TW tile of trunk cells of image b against all N output
+// channels, in steps of BN. kmap is the TMA map of kph as [9][N][C]; wmap
+// (kPatches only) of wm as [B][N][KP]; pat feeds the patch tile (kPatches
+// only); img is the image term's tensor (kImgFull, kImgPhase); bias is
+// [B][N] with bias_bstride N, or one [N] row with bias_bstride 0; cout is
+// the full-res channel count.
+template <int MODE>
+__device__ __forceinline__ void conv_phase_body(
+    const CUtensorMap& kmap, const CUtensorMap& wmap, const bf16* __restrict__ tp,
+    const bf16* __restrict__ pat, const bf16* __restrict__ img, const float* __restrict__ bias_all,
+    int bias_bstride, bf16* __restrict__ z, float* __restrict__ psum, float* __restrict__ psq,
+    int h, int w, int C, int KP, int N, int cout) {
+  constexpr int S = ring_stages(MODE);
+  constexpr bool kPat = MODE == kPatches;
+  constexpr bool kHasImg = MODE == kImgFull || MODE == kImgPhase;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // halo and patch tile in core matrices: [C / 8][cells][8], so that any 8
+  // consecutive cells of a halo row form one 128-byte core matrix
+  bf16* halo = reinterpret_cast<bf16*>(ring + S * STAGE_BYTES);  // [C/8][HALO_CELLS][8]
+  bf16* ptile = halo + HALO_CELLS * C;                            // [KP/8][BM][8], K1 only
+  float2* red = reinterpret_cast<float2*>(ptile + (kPat ? BM * KP : 0));  // [4][BN]
+  const uint32_t ring_u = smem_u32(ring);
+  float* sbias = reinterpret_cast<float*>(red + 4 * BN);  // [BN] this step's bias
+  const uint32_t full_u = smem_u32(sbias + BN);  // S full barriers, then S empty ones
+  const uint32_t empty_u = full_u + 8 * S;
+
+  const int tid = threadIdx.x;
+  const int ntx = (w + TW - 1) / TW;
+  const int T = ntx * ((h + TH - 1) / TH);
+  const int b = blockIdx.x / T;
+  const int tile = blockIdx.x % T;
+  const int y0 = (tile / ntx) * TH;
+  const int x0 = (tile % ntx) * TW;
+  const int cpt = (C + KC - 1) / KC;  // chunks per tap
+  const int nchunks = 9 * cpt + (kPat ? (KP + KC - 1) / KC : 0);  // per N step
+  const int nsteps = (N + BN - 1) / BN;
+
+  // the producer's position: ring stage and phase, and the next chunk's
+  // tap (9 = the patch half), K offset and N step
+  int p_stage = 0, p_phase = 0, p_tap = 0, p_k0 = 0, p_n0 = 0;
+  auto produce_next = [&]() {
+    const uint32_t bar = full_u + 8 * p_stage, dst = ring_u + p_stage * STAGE_BYTES;
+    mbar_expect_tx(bar, STAGE_BYTES);
+    if (p_tap < 9) {
+      tma_load_3d(dst, &kmap, p_k0, p_n0, p_tap, bar);
+    } else if constexpr (kPat) {
+      tma_load_3d(dst, &wmap, p_k0, p_n0, b, bar);
+    }
+    if (++p_stage == S) {
+      p_stage = 0;
+      p_phase ^= 1;
+    }
+    p_k0 += KC;
+    if (p_k0 >= (p_tap < 9 ? C : KP)) {
+      p_k0 = 0;
+      if (++p_tap == (kPat && KP > 0 ? 10 : 9)) {
+        p_tap = 0;
+        p_n0 += BN;
+      }
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_u + 8 * s, 1);
+      mbar_init(empty_u + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int total = nsteps * nchunks;
+  if (tid == 0) {
+    for (int i = 0; i < S && i < total; ++i) produce_next();  // the ring starts empty
+  }
+
+  // stage the halo tile (rows y0..y0+TH+1, columns x0..x0+TW+1 of tp) and,
+  // for K1, the tile's patch rows; zeros outside the image
+  const int hp = h + 2, wp = w + 2, C8 = C / 8;
+  for (int i = tid; i < HALO_CELLS * C8; i += K1_THREADS) {
+    const int cell = i / C8, c8 = i % C8;
+    const int gy = y0 + cell / (TW + 2), gx = x0 + cell % (TW + 2);
+    const bool ok = gy < hp && gx < wp;
+    cp_async16(smem_u32(halo + (c8 * HALO_CELLS + cell) * 8),
+               ok ? tp + ((size_t(b) * hp + gy) * wp + gx) * C + c8 * 8 : tp, ok);
+  }
+  if constexpr (kPat) {
     const int KP8 = KP / 8;
     for (int i = tid; i < BM * KP8; i += K1_THREADS) {
       const int cell = i / KP8, k8 = i % KP8;
       const int gy = y0 + cell / TW, gx = x0 + cell % TW;
-      bf16* dst = ptile + cell * PS + k8 * 8;
-      if (gy < h && gx < w) {
-        copy16(dst, pat + ((size_t(b) * h + gy) * w + gx) * KP + k8 * 8);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
+      const bool ok = gy < h && gx < w;
+      cp_async16(smem_u32(ptile + (k8 * BM + cell) * 8),
+                 ok ? pat + ((size_t(b) * h + gy) * w + gx) * KP + k8 * 8 : pat, ok);
     }
   }
-
-  const int warp = tid / 32;
-  const int wr = warp / 4;  // tile rows 2*wr, 2*wr+1 (16 cells each)
-  const int wc = warp % 4;  // channels wc*32 .. wc*32+31 of the block
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // one KC x BN chunk of a row-major [K, N] operand into btile
-  auto stage_b = [&](const bf16* src) {
-    for (int i = tid; i < KC * (BN / 8); i += K1_THREADS) {
-      const int r = i / (BN / 8), c8 = i % (BN / 8);
-      copy16(btile + r * BS + c8 * 8, src + size_t(r) * N + c8 * 8);
-    }
-  };
-  auto mma_chunk = [&](const bf16* a_base, int a_row_step, int lda) {
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a_base + (2 * wr + i) * a_row_step + kk, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], btile + kk * BS + wc * 32 + j * 16, BS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  };
-
-  // trunk half: 9 taps of the halo tile against kph[tap]
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3, dx = tap % 3;
-    for (int k0 = 0; k0 < C; k0 += KC) {
-      __syncthreads();  // staging done / previous chunk consumed
-      stage_b(kph + (size_t(tap) * C + k0) * N + n0);
-      __syncthreads();
-      // fragment row i = cell (row, dx + i) of the halo tile
-      mma_chunk(halo + (dy * (TW + 2) + dx) * CS + k0, (TW + 2) * CS, CS);
-    }
-  }
-  if constexpr (MODE == kPatches) {
-    // image half: the tile's patches against wm[b]
-    for (int k0 = 0; k0 < KP; k0 += KC) {
-      __syncthreads();
-      stage_b(wm + (size_t(b) * KP + k0) * N + n0);
-      __syncthreads();
-      mma_chunk(ptile + k0, TW * PS, PS);
-    }
-  }
-  __syncthreads();  // every warp is done with the operand tiles
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(ctile + (2 * wr + i) * 16 * CT + wc * 32 + j * 16,
-                              acc[i][j], CT, wmma::mem_row_major);
+  asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
 
-  // epilogue: z = acc + Z + bias. With an image term the sum is written
-  // back to ctile (f32) for the moments; without one (K1, T1) the moments
-  // add the bias themselves and need no write-back or extra barrier.
-  constexpr bool kHasImg = MODE == kImgFull || MODE == kImgPhase;
-  const float* bias = bias_all + size_t(b) * bias_bstride + n0;
-  for (int i = tid; i < BM * (BN / 2); i += K1_THREADS) {
-    const int r = i / (BN / 2), c = 2 * (i % (BN / 2));
-    const int gy = y0 + r / TW, gx = x0 + r % TW;
-    if (gy < h && gx < w) {
-      float v0 = ctile[r * CT + c] + bias[c];
-      float v1 = ctile[r * CT + c + 1] + bias[c + 1];
-      if constexpr (kHasImg) {
-        const bf16* src;
-        if constexpr (MODE == kImgFull) {
-          // channels n, n+1 share a phase: Cout is a multiple of 8
-          const int n = n0 + c, ph = n / cout, cc = n % cout;
-          const size_t fy = 4 * size_t(gy) + ph / 4, fx = 4 * size_t(gx) + ph % 4;
-          src = img + ((size_t(b) * 4 * h + fy) * (4 * size_t(w)) + fx) * cout + cc;
-        } else {
-          src = img + ((size_t(b) * h + gy) * w + gx) * N + n0 + c;
-        }
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
-        v0 += f.x;
-        v1 += f.y;
-        ctile[r * CT + c] = v0;
-        ctile[r * CT + c + 1] = v1;
+  if (tid < 128) {
+    // producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      for (int i = S; i < total; ++i) {
+        mbar_wait(empty_u + 8 * p_stage, p_phase ^ 1);  // its previous load was consumed
+        produce_next();
       }
-      *reinterpret_cast<__nv_bfloat162*>(z + ((size_t(b) * h + gy) * w + gx) * N + n0 + c) =
-          __floats2bfloat162_rn(v0, v1);
     }
+    return;
   }
-  if constexpr (kHasImg) __syncthreads();
-  if (tid < BN) {
-    const float bc = kHasImg ? 0.f : bias[tid];
-    float s = 0.f, q = 0.f;
-    for (int r = 0; r < BM; ++r) {
-      if (y0 + r / TW < h && x0 + r % TW < w) {
-        const float v = ctile[r * CT + tid] + bc;
-        s += v;
-        q += v * v;
+
+  // consumer warpgroups
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = tid / 32 - 4;  // consumer warp 0..7
+  const int lane = tid % 32;
+  const int ct = tid - 128;  // consumer thread 0..255: column n0 + ct in the reduction
+  // consumer warpgroup xh takes tile columns 8 xh .. 8 xh + 7 of all 8 tile
+  // rows: its 64 GEMM rows are 8 core-matrix groups of 8 consecutive cells,
+  // one per tile row, (TW + 2) cells apart in the halo at any tap
+  const int xh = cw / 4;
+  const uint32_t halo_xh = smem_u32(halo + 8 * xh * 8);
+  const uint32_t ptile_xh = smem_u32(ptile + 8 * xh * 8);
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int it = 0;  // chunks consumed so far: the ring position
+
+  auto chunk = [&](int c) {
+    uint64_t da;
+    int ksteps;
+    if (c < 9 * cpt) {
+      const int tap = c / cpt, k0 = (c % cpt) * KC;
+      da = desc_interleave(
+          halo_xh + ((k0 / 8) * HALO_CELLS + (tap / 3) * (TW + 2) + tap % 3) * 16,
+          HALO_CELLS * 16, (TW + 2) * 16);
+      ksteps = min(KC, C - k0) / 16;
+    } else {
+      const int k0 = (c - 9 * cpt) * KC;
+      da = desc_interleave(ptile_xh + (k0 / 8) * BM * 16, BM * 16, TW * 16);
+      ksteps = min(KC, KP - k0) / 16;
+    }
+    const uint64_t a_step = (c < 9 * cpt ? HALO_CELLS : BM) * 2;  // 16 channels, in 16-byte units
+    const int s = it % S;
+    mbar_wait(full_u + 8 * s, (it / S) & 1);
+    wgmma_fence();
+    const uint64_t db = desc_sw128(ring_u + s * STAGE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk)
+      if (kk < ksteps) wgmma_m64n256k16_ss(acc, da + a_step * kk, db + 2 * kk, (c | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's wgmmas have retired: free its stage
+    if (c > 0 && lane == 0) mbar_arrive(empty_u + 8 * ((it + S - 1) % S));
+    ++it;
+  };
+
+  const int g = lane / 4, t = lane % 4;
+  // accumulator rows g and g + 8 of this warp = tile rows 2 (cw % 4) and
+  // 2 (cw % 4) + 1, both at tile column 8 xh + g
+  const int y = y0 + 2 * (cw % 4), x = x0 + 8 * xh + g;
+  const bool ok_row[2] = {y < h && x < w, y + 1 < h && x < w};
+  const size_t cell0 = (size_t(b) * h + y) * w + x;
+  const float* bias = bias_all + size_t(b) * bias_bstride;
+  // the image term of channels n, n+1 at accumulator row rr (K3, T2)
+  auto img_src = [&](int rr, int n) -> const bf16* {
+    if constexpr (MODE == kImgFull) {
+      // channels n, n+1 share a phase: Cout is a multiple of 8
+      const int ph = n / cout, cc = n % cout;
+      const size_t fy = 4 * size_t(y + rr) + ph / 4, fx = 4 * size_t(x) + ph % 4;
+      return img + ((size_t(b) * 4 * h + fy) * (4 * size_t(w)) + fx) * cout + cc;
+    } else {
+      return img + (cell0 + size_t(rr) * w) * N + n;
+    }
+  };
+
+  for (int step = 0; step < nsteps; ++step) {
+    const int n0 = step * BN;
+    if constexpr (kHasImg) {
+      // pull this step's image term into L2 while the MMAs run, one
+      // prefetch per 128-byte line of 64 channels, so that the epilogue's
+      // reads do not wait on device memory
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 8)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          if (ok_row[rr] && n0 + 8 * j < N)
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(img_src(rr, n0 + 8 * j + 2 * t)));
+    }
+    // this step's bias into shared memory, for the epilogue
+    if (n0 + ct < N) cp_async4(smem_u32(sbias + ct), bias + n0 + ct);
+    for (int c = 0; c < nchunks; ++c) chunk(c);
+    wgmma_wait<0>();
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    named_bar_sync(1, 256);  // every consumer's bias element has landed
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty_u + 8 * ((it + S - 1) % S));
+
+    // epilogue begin (tools/profile_torch_conv_stages.py cuts the kernel here)
+    // The accumulator layout gives lane (g, t) channels 8j + 2t, 8j + 2t + 1
+    // of rows g and g + 8. Per group of 32 channels (jq): a 4 x 4 transpose
+    // inside each quad of lanes gives each lane 8 contiguous channels of one
+    // row; z = acc + bias (+ Z) leaves as bf16, and this lane's sums of z,
+    // z^2 over its two rows go to acc[16 jq .. 16 jq + 15]. The image term
+    // is read one group ahead, so that its latency overlaps a group's work.
+    uint4 zi[2];  // the image term of this lane's 8 channels in rows g, g + 8, one group ahead
+    if constexpr (kHasImg) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        if (ok_row[rr]) zi[rr] = *reinterpret_cast<const uint4*>(img_src(rr, n0 + 8 * t));
+    }
+#pragma unroll
+    for (int jq = 0; jq < BN / 32; ++jq) {
+      const int n = n0 + 8 * (4 * jq + t);  // this lane's 8 channels
+      uint32_t e[2][2][4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          e[rr][0][i] = __float_as_uint(acc[4 * (4 * jq + i) + 2 * rr]);
+          e[rr][1][i] = __float_as_uint(acc[4 * (4 * jq + i) + 2 * rr + 1]);
+        }
+      float sum[8] = {}, sq[8] = {};
+      if (n0 + 32 * jq < N) {
+        const float4 b0 = *reinterpret_cast<const float4*>(sbias + n - n0);
+        const float4 b1 = *reinterpret_cast<const float4*>(sbias + n - n0 + 4);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          quad_transpose(e[rr][0], t);
+          quad_transpose(e[rr][1], t);
+          if (!ok_row[rr]) continue;
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = __uint_as_float(e[rr][k % 2][k / 2]) + bv[k];
+          if constexpr (kHasImg) {
+            const uint4 raw = zi[rr];
+            const __nv_bfloat162* zi = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float2 f = __bfloat1622float2(zi[k]);
+              v[2 * k] += f.x;
+              v[2 * k + 1] += f.y;
+            }
+          }
+          uint4 out;
+          __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) o2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+          __stcs(reinterpret_cast<uint4*>(z + (cell0 + size_t(rr) * w) * N + n), out);  // streamed
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            sum[k] += v[k];
+            sq[k] += v[k] * v[k];
+          }
+        }
+      }
+      if constexpr (kHasImg) {
+        if (jq + 1 < BN / 32 && n0 + 32 * (jq + 1) < N) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            if (ok_row[rr]) zi[rr] = *reinterpret_cast<const uint4*>(img_src(rr, n + 32));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        acc[16 * jq + k] = sum[k];
+        acc[16 * jq + 8 + k] = sq[k];
       }
     }
-    const size_t o = (size_t(b) * T + tile) * N + n0 + tid;
-    psum[o] = s;
-    psq[o] = q;
+    // sum over the warp's 16 rows as a reduce-scatter: lane (g, t) ends with
+    // group jq = g, channels 8 (4g + t) .. + 7, sums then squares, in acc[0 .. 15]
+    reduce_scatter_step<16, 64>(acc, lane);
+    reduce_scatter_step<8, 32>(acc, lane);
+    reduce_scatter_step<4, 16>(acc, lane);
+
+    // across the 8 consumer warps, in a fixed order: warpgroup 1's four
+    // warps through red, then warpgroup 2's
+    float ts = 0.f, tq = 0.f;
+#pragma unroll
+    for (int round = 0; round < 2; ++round) {
+      if (cw / 4 == round) {
+        float4* dst = reinterpret_cast<float4*>(red + (cw % 4) * BN + 8 * (4 * g + t));
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          dst[k] = make_float4(acc[2 * k], acc[8 + 2 * k], acc[2 * k + 1], acc[8 + 2 * k + 1]);
+      }
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 p = red[k * BN + ct];
+        ts += p.x;
+        tq += p.y;
+      }
+      named_bar_sync(1, 256);
+    }
+    if (n0 + ct < N) {
+      const size_t o = (size_t(b) * T + tile) * N + n0 + ct;
+      psum[o] = ts;
+      psq[o] = tq;
+    }
+    // epilogue end
   }
 }
 
-__global__ void __launch_bounds__(K1_THREADS)
-conv_phase_kernel(const bf16* __restrict__ tp, const bf16* __restrict__ kph,
-                  const bf16* __restrict__ pat, const bf16* __restrict__ wm,
+__global__ void __launch_bounds__(K1_THREADS, 1)
+conv_phase_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap wmap,
+                  const bf16* __restrict__ tp, const bf16* __restrict__ pat,
                   const float* __restrict__ b2b, bf16* __restrict__ z,
-                  float* __restrict__ psum, float* __restrict__ psq, int h,
-                  int w, int C, int KP, int N) {
-  conv_phase_body<kPatches>(tp, kph, pat, wm, nullptr, b2b, N, z, psum, psq, h, w, C, KP, N, 0);
+                  float* __restrict__ psum, float* __restrict__ psq, int h, int w, int C,
+                  int KP, int N) {
+  conv_phase_body<kPatches>(kmap, wmap, tp, pat, nullptr, b2b, N, z, psum, psq, h, w, C, KP, N, 0);
 }
 
 // K3, T1, T2: one kernel name each, so that profiles and -Xptxas -v tell them apart
-#define CONV_PHASE_IMG_KERNEL(NAME, MODE)                                                    \
-  __global__ void __launch_bounds__(K1_THREADS)                                              \
-  NAME(const bf16* __restrict__ tp, const bf16* __restrict__ kph,                           \
-       const bf16* __restrict__ img, const float* __restrict__ b2, bf16* __restrict__ z,    \
-       float* __restrict__ psum, float* __restrict__ psq, int h, int w, int C, int N,       \
-       int cout) {                                                                          \
-    conv_phase_body<MODE>(tp, kph, nullptr, nullptr, img, b2, 0, z, psum, psq, h, w, C, 0, \
-                          N, cout);                                                         \
+#define CONV_PHASE_IMG_KERNEL(NAME, MODE)                                                      \
+  __global__ void __launch_bounds__(K1_THREADS, 1)                                             \
+  NAME(const __grid_constant__ CUtensorMap kmap, const bf16* __restrict__ tp,                  \
+       const bf16* __restrict__ img, const float* __restrict__ b2, bf16* __restrict__ z,      \
+       float* __restrict__ psum, float* __restrict__ psq, int h, int w, int C, int N,         \
+       int cout) {                                                                            \
+    conv_phase_body<MODE>(kmap, kmap, tp, nullptr, img, b2, 0, z, psum, psq, h, w, C, 0, N,   \
+                          cout);                                                              \
   }
 CONV_PHASE_IMG_KERNEL(conv_phase_img_full_kernel, kImgFull)
 CONV_PHASE_IMG_KERNEL(conv_phase_img_none_kernel, kImgNone)
@@ -411,60 +740,119 @@ head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
 enum ArgError {
   kBadTile = -1,
   kBadShape = -2,
-  kGridTooLarge = -3,
+  kTooWide = -3,
+  kNoTensorMap = -4,
+  kRegisterBudget = -5,
 };
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// TMA map of a K-major bf16 tensor [outer][N][K] read in KC x BN x 1 boxes
+// with the 128-byte swizzle; out-of-range elements arrive as zeros
+bool encode_kmajor(CUtensorMap* map, const void* base, int K, int N, int outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(K), cuuint64_t(N), cuuint64_t(outer)};
+  const cuuint64_t strides[2] = {cuuint64_t(K) * 2, cuuint64_t(K) * N * 2};
+  const cuuint32_t box[3] = {KC, BN, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Sets the kernel's dynamic shared memory, after checking that the launch
+// gives the register pool that setmaxnreg redistributes (with fewer, the
+// consumers' setmaxnreg.inc would wait forever).
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return int(err);
+  if (attr.numRegs < LAUNCH_REGS) return kRegisterBudget;
+  return int(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+}
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of dynamic shared memory a conv block takes at C (and KP: 0 for
+// K3/T1/T2, which stream no patches).
+long posfeat_conv_smem_bytes(int C, int KP) {
+  return long(conv_smem_bytes(C, KP, KP ? ring_stages(kPatches) : ring_stages(kImgNone)));
+}
+
+// kph_t is kph as [9, N, C] and wm_t is wm as [B, N, KP] (K-major).
 // Returns 0, a cudaError_t value, or a negative ArgError.
-int posfeat_conv_phase(const void* tp, const void* kph, const void* pat,
-                       const void* wm, const void* b2b, void* z, void* psum,
-                       void* psq, int B, int h, int w, int C, int KP, int N,
-                       int th, int tw, void* stream) {
+int posfeat_conv_phase(const void* tp, const void* kph_t, const void* pat, const void* wm_t,
+                       const void* b2b, void* z, void* psum, void* psq, int B, int h, int w,
+                       int C, int KP, int N, int th, int tw, void* stream) {
   if (th != TH || tw != TW) return kBadTile;
-  if (C % KC || KP % KC || N % BN || B < 1 || h < 1 || w < 1) return kBadShape;
-  const long tiles = long(B) * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  if (tiles > 65535) return kGridTooLarge;
-  const size_t smem = k1_smem_bytes(C, KP);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid(N / BN, unsigned(tiles));
-  conv_phase_kernel<<<grid, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(tp), static_cast<const bf16*>(kph),
-      static_cast<const bf16*>(pat), static_cast<const bf16*>(wm),
-      static_cast<const float*>(b2b), static_cast<bf16*>(z),
-      static_cast<float*>(psum), static_cast<float*>(psq), h, w, C, KP, N);
+  if (C % 32 || KP % 32 || N % 128 || B < 1 || h < 1 || w < 1) return kBadShape;
+  const size_t smem = conv_smem_bytes(C, KP, ring_stages(kPatches));
+  if (smem > MAX_SMEM) return kTooWide;
+  CUtensorMap kmap, wmap;
+  if (!encode_kmajor(&kmap, kph_t, C, N, 9)) return kNoTensorMap;
+  if (KP == 0) {
+    wmap = kmap;  // no patch half: never read
+  } else if (!encode_kmajor(&wmap, wm_t, KP, N, B)) {
+    return kNoTensorMap;
+  }
+  const int rc = prepare(conv_phase_kernel, smem);
+  if (rc) return rc;
+  const int T = ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  conv_phase_kernel<<<B * T, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      kmap, wmap, static_cast<const bf16*>(tp), static_cast<const bf16*>(pat),
+      static_cast<const float*>(b2b), static_cast<bf16*>(z), static_cast<float*>(psum),
+      static_cast<float*>(psq), h, w, C, KP, N);
   return int(cudaGetLastError());
 }
 
-// layout: 0 = full-res z_img (K3), 1 = no image term (T1), 2 = pre-phased
-// z_img (T2). b2 is one [N] row. Returns 0, a cudaError_t value, or a
-// negative ArgError.
-int posfeat_conv_phase_img(const void* tp, const void* kph, const void* img,
-                           const void* b2, void* z, void* psum, void* psq, int B,
-                           int h, int w, int C, int N, int cout, int layout, int th,
-                           int tw, void* stream) {
+// kph_t is kph as [9, N, C]. layout: 0 = full-res z_img (K3), 1 = no image
+// term (T1), 2 = pre-phased z_img (T2). b2 is one [N] row. Returns 0, a
+// cudaError_t value, or a negative ArgError.
+int posfeat_conv_phase_img(const void* tp, const void* kph_t, const void* img, const void* b2,
+                           void* z, void* psum, void* psq, int B, int h, int w, int C, int N,
+                           int cout, int layout, int th, int tw, void* stream) {
   if (th != TH || tw != TW) return kBadTile;
-  if (C % KC || N % BN || cout % 8 || N != 16 * cout || layout < 0 || layout > 2 || B < 1 ||
+  if (C % 32 || N % 128 || cout % 8 || N != 16 * cout || layout < 0 || layout > 2 || B < 1 ||
       h < 1 || w < 1)
     return kBadShape;
-  const long tiles = long(B) * ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
-  if (tiles > 65535) return kGridTooLarge;
-  using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const float*, bf16*, float*,
+  const size_t smem = conv_smem_bytes(C, 0, ring_stages(kImgNone));
+  if (smem > MAX_SMEM) return kTooWide;
+  CUtensorMap kmap;
+  if (!encode_kmajor(&kmap, kph_t, C, N, 9)) return kNoTensorMap;
+  using Kernel = void (*)(const CUtensorMap, const bf16*, const bf16*, const float*, bf16*, float*,
                           float*, int, int, int, int, int);
   const Kernel kernels[3] = {conv_phase_img_full_kernel, conv_phase_img_none_kernel,
                              conv_phase_img_phase_kernel};
   const Kernel kernel = kernels[layout];
-  const size_t smem = k1_smem_bytes(C, 0);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid(N / BN, unsigned(tiles));
-  kernel<<<grid, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(tp), static_cast<const bf16*>(kph), static_cast<const bf16*>(img),
+  const int rc = prepare(kernel, smem);
+  if (rc) return rc;
+  const int T = ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
+  kernel<<<B * T, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      kmap, static_cast<const bf16*>(tp), static_cast<const bf16*>(img),
       static_cast<const float*>(b2), static_cast<bf16*>(z), static_cast<float*>(psum),
       static_cast<float*>(psq), h, w, C, N, cout);
   return int(cudaGetLastError());
@@ -491,11 +879,15 @@ int posfeat_head_tail(const void* z, const void* mu, const void* sc,
 const char* posfeat_error_string(int code) {
   switch (code) {
     case kBadTile:
-      return "K1 tile size differs from the compiled TH x TW";
+      return "conv tile size differs from the compiled TH x TW";
     case kBadShape:
       return "shape outside what the kernel supports";
-    case kGridTooLarge:
-      return "too many tiles for one launch";
+    case kTooWide:
+      return "C (or KP) too wide: the tile's shared memory exceeds the card's limit";
+    case kNoTensorMap:
+      return "cuTensorMapEncodeTiled unavailable or refused the operand";
+    case kRegisterBudget:
+      return "the conv kernel was compiled with fewer registers than its warp specialisation needs";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

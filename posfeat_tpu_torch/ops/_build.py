@@ -78,6 +78,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.posfeat_conv_phase.restype = i
     lib.posfeat_conv_phase_img.argtypes = [p] * 7 + [i] * 9 + [p]
     lib.posfeat_conv_phase_img.restype = i
+    lib.posfeat_conv_smem_bytes.argtypes = [i, i]
+    lib.posfeat_conv_smem_bytes.restype = ctypes.c_long
     lib.posfeat_head_tail.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.posfeat_head_tail.restype = i
     lib.posfeat_lse_pass.argtypes = [p] * 5 + [i] * 4 + [f] + [p]

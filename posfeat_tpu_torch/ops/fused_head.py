@@ -42,10 +42,13 @@ import torch.nn.functional as F
 
 from .phase import _edge_pad1, _phase_kernel, ring_correction_strips, space_to_phase
 
-# K1 tile (trunk rows × columns per CUDA block); csrc/fused_head.cu
-# rejects a launch whose tile differs from its compile-time constants
-K1_TILE = (4, 16)
-K1_BN = 128  # output channels per K1 block
+# conv tile (trunk rows × columns per CUDA block) of K1/K3/T1/T2;
+# csrc/fused_head.cu rejects a launch whose tile differs from its
+# compile-time constants
+K1_TILE = (8, 16)
+# output channels per step of a block's sweep over N; the kernel masks a
+# last half step, so N % (K1_BN // 2) == 0 is enough
+K1_BN = 256
 K2_ROWS = 256  # phase rows per K2 block
 K2_MAX_OUT = 4
 
@@ -121,15 +124,18 @@ def conv_phase(tp, kph, pat, wm, b2b):
     _check(pat, "pat", bf, (B, h, w, KP), dev)
     _check(wm, "wm", bf, (B, KP, N), dev)
     _check(b2b, "b2b", torch.float32, (B, N), dev)
-    if C % 32 or KP % 32 or N % K1_BN:
-        raise ValueError(f"K1 needs C, KP % 32 == 0 and N % {K1_BN} == 0; got {C}, {KP}, {N}")
+    if C % 32 or KP % 32 or N % (K1_BN // 2):
+        raise ValueError(f"K1 needs C, KP % 32 == 0 and N % {K1_BN // 2} == 0; got {C}, {KP}, {N}")
     th, tw = K1_TILE
     T = -(-h // th) * -(-w // tw)
     z = torch.empty((B, h, w, N), dtype=bf, device=dev)
     psum = torch.empty((B, T, N), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
+    # the kernel reads B K-major (what wgmma takes untransposed): one
+    # transposed copy of kph and of wm per call, 20 MB at the flagship point
+    kph_t, wm_t = kph.transpose(1, 2).contiguous(), wm.transpose(1, 2).contiguous()
     rc = load_kernels().posfeat_conv_phase(
-        _ptr(tp), _ptr(kph), _ptr(pat), _ptr(wm), _ptr(b2b),
+        _ptr(tp), _ptr(kph_t), _ptr(pat), _ptr(wm_t), _ptr(b2b),
         _ptr(z), _ptr(psum), _ptr(psq), B, h, w, C, KP, N, th, tw, _stream(),
     )
     conv_phase.launches += 1
@@ -189,9 +195,9 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
         _check(zimg, "zimg", bf, (B, 4 * h, 4 * w, cout), dev)
     elif layout == "phase":
         _check(zimg, "zimg", bf, (B, h, w, N), dev)
-    if C % 32 or N % K1_BN or N != 16 * cout or cout % 8:
+    if C % 32 or N % (K1_BN // 2) or N != 16 * cout or cout % 8:
         raise ValueError(
-            f"{IMG_KERNELS[layout]} needs C % 32 == 0, N = 16·Cout, N % {K1_BN} == 0 and "
+            f"{IMG_KERNELS[layout]} needs C % 32 == 0, N = 16·Cout, N % {K1_BN // 2} == 0 and "
             f"Cout % 8 == 0; got C={C}, N={N}"
         )
     th, tw = K1_TILE
@@ -200,8 +206,9 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
     psum = torch.empty((B, T, N), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
     img = ctypes.c_void_p(None) if layout == "none" else _ptr(zimg)
+    kph_t = kph.transpose(1, 2).contiguous()  # K-major, as for K1
     rc = load_kernels().posfeat_conv_phase_img(
-        _ptr(tp), _ptr(kph), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
+        _ptr(tp), _ptr(kph_t), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
         B, h, w, C, N, cout, IMG_LAYOUTS.index(layout), th, tw, _stream(),
     )
     conv_phase_img.launches[layout] += 1

@@ -9,6 +9,7 @@ JAX, and runs the ``gpu`` test with
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from posfeat_tpu_torch import resolve_device
 from posfeat_tpu_torch.ops import fused_head as fh
@@ -115,15 +116,61 @@ def test_plain_kernels_on_cpu_are_the_plain_versions(rng):
     assert (fh.conv_phase.launches, fh.head_tail.launches) == (n1, n2)
 
 
+def _tile_split(conv_fn):
+    """``conv_fn`` (a plain conv version, moments [B, 1, N]) with its
+    moments split over the kernels' tiles, [B, T, N], as the card's
+    kernels return them; ``.tiles`` records each call's T."""
+
+    def split(tp, kph, *rest):
+        z, _, _ = conv_fn(tp, kph, *rest)
+        th, tw = fh.K1_TILE
+        B, h, w, N = z.shape
+        zt = F.pad(z.float(), (0, 0, 0, -w % tw, 0, -h % th))
+        zt = zt.reshape(B, -(-h // th), th, -(-w // tw), tw, N).permute(0, 1, 3, 2, 4, 5)
+        zt = zt.reshape(B, -1, th * tw, N)
+        split.tiles.append(zt.shape[1])
+        return z, zt.sum(dim=2), (zt * zt).sum(dim=2)
+
+    split.tiles = []
+    return split
+
+
+@pytest.mark.parametrize("mode", ["v3", "v1"])
+def test_head_takes_moments_split_over_tiles(rng, mode):
+    """The partials contract: the head pools K1's/K3's moments over dim 1,
+    so moments split over the tiles of a ragged shape (h, w not multiples
+    of the tile) give the score of the single-row plain moments."""
+    h, w = 11, 21
+    trunk, s, k1, b1, k2t, k2i, b2, w3, b3, a = map(
+        torch.from_numpy, _setup(rng, B=2, h=h, w=w, cout=16, out=1)
+    )
+    y = F.conv2d(s.permute(0, 3, 1, 2), k1.permute(3, 2, 0, 1), b1, padding=1).permute(0, 2, 3, 1)
+    plain = fh.conv_phase_plain if mode == "v3" else fh.conv_phase_img_plain
+    th, tw = fh.K1_TILE
+    assert h % th and w % tw  # ragged in both directions
+    args = (trunk, s, y, k1, b1, k2t, k2i, b2, w3, b3, a)
+    want = fh._fused_head_tail(plain, fh.head_tail_plain, *args, mode=mode)
+    split = _tile_split(plain)
+    got = fh._fused_head_tail(split, fh.head_tail_plain, *args, mode=mode)
+    assert split.tiles == [-(-h // th) * -(-w // tw)]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """K1 and K2 on the card against their plain versions, on the same
-    bf16 inputs (a shape with ragged tiles and a small flagship-like one)."""
+    bf16 inputs: ragged tiles (h, w not multiples of the 8 x 16 tile), B = 2
+    (wm[b] and b2b[b] differ per image), the least C (32), N = 256 and
+    N = 2048, and a small flagship-like shape."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = resolve_device("cuda")  # also keeps the f32 plain versions out of TF32
     rng = np.random.RandomState(0)
-    for B, h, w, C, cout, out_ch in ((1, 6, 20, 32, 16, 1), (2, 12, 32, 192, 128, 2)):
+    shapes = (
+        (1, 6, 20, 32, 16, 1), (2, 12, 32, 192, 128, 2),
+        (2, 13, 21, 32, 16, 1), (2, 9, 35, 192, 128, 2), (3, 17, 33, 96, 16, 1),
+    )
+    for B, h, w, C, cout, out_ch in shapes:
         N, KP = 16 * cout, 192
         g = lambda *s, sc=1.0: torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).to(dev)
         bf = torch.bfloat16

@@ -129,14 +129,20 @@ def test_conv_phase_img_on_cpu_is_the_plain_version(rng):
 @pytest.mark.gpu
 def test_cuda_conv_phase_img_matches_plain_versions():
     """K3, T1 and T2 on the card against their plain versions, on the same
-    bf16 inputs (a shape with ragged tiles and a small flagship-like one):
-    z within one bf16 ulp, moments within rtol 1e-3."""
+    bf16 inputs: ragged tiles (h, w not multiples of the 8 x 16 tile), B >= 2,
+    the least C (32), N = 256, 384 (a last half step of 128 channels) and
+    2048, and a small flagship-like shape: z within one bf16 ulp, moments
+    within rtol 1e-3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = resolve_device("cuda")  # also keeps the f32 plain versions out of TF32
     rng = np.random.RandomState(0)
     bf = torch.bfloat16
-    for B, h, w, C, cout in ((1, 6, 20, 32, 16), (2, 12, 32, 192, 128)):
+    shapes = (
+        (1, 6, 20, 32, 16), (2, 12, 32, 192, 128),
+        (2, 13, 21, 32, 16), (2, 9, 35, 192, 128), (3, 17, 33, 96, 24),
+    )
+    for B, h, w, C, cout in shapes:
         N = 16 * cout
         g = lambda *s, sc=1.0: torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).to(dev)
         tp, kph, b2 = g(B, h + 2, w + 2, C).to(bf), g(9, C, N, sc=0.05).to(bf), g(N, sc=0.1)

@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""Time the fused head's kernels of two checkouts of this repository on
+one CUDA card, in turns A, B, B, A, so that a change is compared with its
+parent on the same card and under the same conditions.
+
+    python3 tools/compare_torch_trees.py PARENT_DIR CHANGE_DIR
+
+Each turn is a process of its own, started in that checkout: it builds
+the checkout's kernels and runs its chip_smoke.phase_kernels (K1, K2 at
+B=16, 480x640) and phase_v1_kernels (K3, T1, T2), which check every kernel
+against its plain version and time it with CUDA events. Prints one JSON
+line per turn, then nvidia-smi's name and power limit, and a last JSON
+line {"ms": {kernel: {"A": [ms, ms], "B": [ms, ms]}}}. Without a CUDA card
+it exits 2 and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+TURN = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke
+from posfeat_tpu_torch import resolve_device
+from posfeat_tpu_torch.ops import fused_head as fh
+resolve_device("cuda")
+rng = np.random.default_rng(chip_smoke.SEED)
+records = chip_smoke.phase_kernels(torch, fh, rng) + chip_smoke.phase_v1_kernels(torch, fh, rng)
+print("TURN " + json.dumps({r["name"]: r["ms"] for r in records}))
+"""
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    trees = {"A": os.path.abspath(sys.argv[1]), "B": os.path.abspath(sys.argv[2])}
+    ms = {}
+    for label in ("A", "B", "B", "A"):
+        res = subprocess.run([sys.executable, "-c", TURN], cwd=trees[label], capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
+            return 1
+        turn = json.loads(next(x for x in res.stdout.splitlines() if x.startswith("TURN "))[5:])
+        print(json.dumps({"tree": label, "path": trees[label], "ms": turn}), flush=True)
+        for name, t in turn.items():
+            ms.setdefault(name, {"A": [], "B": []})[label].append(t)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(json.dumps({"ms": ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
