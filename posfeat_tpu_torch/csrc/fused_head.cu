@@ -46,7 +46,13 @@ namespace {
 //   tests in the MMA loop) and, for K1, its patch rows stay resident in
 //   shared memory for the whole sweep, staged once by cp.async, in core
 //   matrices: [C / 8][cells][8], so that any 8 consecutive cells of a halo
-//   row are one 128-byte core matrix.
+//   row are one 128-byte core matrix. Each staging thread fences its
+//   cp.async writes to the async proxy (fence.proxy.async) before the
+//   barrier after which wgmma reads them. Where halo and patch tile do not
+//   fit beside the ring (K1 at C >= 224 with KP = 192, K3/T1/T2 at
+//   C >= 256), they are cut into slices of channels that take turns in one
+//   buffer, staged again for every N step (APlan): any C % 32 == 0 runs,
+//   the wider ones at a cost in staging that the flagship C = 192 avoids.
 // - The B operand (kph, and wm[b] for K1's image half) is streamed in
 //   KC = 64-deep chunks of BN channels through a ring of 3 (K1) or 4
 //   (K3/T1/T2) shared-memory stages, 32 KB each, by TMA with the 128-byte
@@ -65,8 +71,9 @@ namespace {
 //   no im2col, no copies, no registers for A. One chunk stays queued
 //   behind the one that runs; a stage is released as soon as its wgmmas
 //   retire.
-// - A chunk deeper than C (or KP) is cut to its 16-deep steps that exist:
-//   C % 32 == 0 is enough, and TMA zero-fills B beyond C, N or KP.
+// - A chunk deeper than C (or KP, or its slice) is cut to its 16-deep
+//   steps that exist: C % 32 == 0 is enough, and TMA zero-fills B beyond
+//   C, N or KP.
 // - Epilogue from the accumulator registers, at the end of each N step: a
 //   4 x 4 transpose inside each quad of lanes gives each lane 8 contiguous
 //   channels of one cell, so bias, image term and z move as 16-byte
@@ -117,12 +124,47 @@ enum ImageTerm { kPatches = 0, kImgFull = 1, kImgNone = 2, kImgPhase = 3 };
 
 __host__ __device__ constexpr int ring_stages(int mode) { return mode == kPatches ? 3 : 4; }
 
-size_t conv_smem_bytes(int C, int KP, int stages) {
-  // 1024 for aligning the ring to the swizzle's period, the ring, the
-  // halo, the patch tile, the reduction buffer, the step's bias, 2
-  // mbarriers per stage
-  return 1024 + size_t(stages) * STAGE_BYTES + size_t(HALO_CELLS) * C * 2 + size_t(BM) * KP * 2 +
-         RED_BYTES + BN * 4 + 16 * size_t(stages);
+// Shared memory other than the A operand: 1024 for aligning the ring to
+// the swizzle's period, the ring, the reduction buffer, the step's bias,
+// 2 mbarriers per stage. The A operand (halo, patch tile) gets the rest.
+__host__ __device__ constexpr int fixed_smem(int mode) {
+  return 1024 + ring_stages(mode) * STAGE_BYTES + RED_BYTES + BN * 4 + 16 * ring_stages(mode);
+}
+
+// Where the A operand lives. Its slices, in the order the MMAs take them
+// within each N step: the halo in slices of cs channels (segments
+// 0 .. nh-1), then the patch tile in slices of ps channels. When the halo
+// and the patch tile fit beside each other (C + KP up to about 400 at
+// KP = 192), each is one slice, staged once for the whole sweep
+// (resident). Otherwise the slices, cs and ps a multiple of KC, take
+// turns in one buffer and are staged again for every N step.
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+
+struct APlan {
+  int cs, ps, nh, nseg;
+  bool resident;
+  __host__ __device__ APlan(int C, int KP, int mode) {
+    const int room = MAX_SMEM - fixed_smem(mode);
+    resident = HALO_CELLS * C * 2 + BM * KP * 2 <= room;
+    cs = resident ? C : imin(C, room / (HALO_CELLS * 2) / KC * KC);
+    ps = resident ? KP : imin(KP, room / (BM * 2) / KC * KC);
+    nh = (C + cs - 1) / cs;
+    nseg = nh + (KP > 0 ? (KP + ps - 1) / ps : 0);
+  }
+  __host__ __device__ int base(int seg) const { return seg < nh ? seg * cs : (seg - nh) * ps; }
+  __host__ __device__ int width(int seg, int C, int KP) const {
+    return seg < nh ? imin(cs, C - base(seg)) : imin(ps, KP - base(seg));
+  }
+  // elements from the buffer's start: the resident patch tile follows the halo
+  __host__ __device__ int offset(int seg) const { return resident && seg >= nh ? HALO_CELLS * cs : 0; }
+  __host__ __device__ int bytes() const {
+    const int halo = HALO_CELLS * cs * 2, ptile = BM * ps * 2;
+    return resident ? halo + ptile : (halo > ptile ? halo : ptile);
+  }
+};
+
+size_t conv_smem_bytes(int C, int KP, int mode) {
+  return size_t(fixed_smem(mode)) + APlan(C, KP, mode).bytes();
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -305,13 +347,14 @@ __device__ __forceinline__ void conv_phase_body(
   constexpr int S = ring_stages(MODE);
   constexpr bool kPat = MODE == kPatches;
   constexpr bool kHasImg = MODE == kImgFull || MODE == kImgPhase;
+  const APlan plan(C, KP, MODE);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  // halo and patch tile in core matrices: [C / 8][cells][8], so that any 8
-  // consecutive cells of a halo row form one 128-byte core matrix
-  bf16* halo = reinterpret_cast<bf16*>(ring + S * STAGE_BYTES);  // [C/8][HALO_CELLS][8]
-  bf16* ptile = halo + HALO_CELLS * C;                            // [KP/8][BM][8], K1 only
-  float2* red = reinterpret_cast<float2*>(ptile + (kPat ? BM * KP : 0));  // [4][BN]
+  // the A operand's slices in core matrices: a halo slice [cs/8][HALO_CELLS][8],
+  // so that any 8 consecutive cells of a halo row form one 128-byte core
+  // matrix; a patch slice (K1 only) [ps/8][BM][8]
+  bf16* abuf = reinterpret_cast<bf16*>(ring + S * STAGE_BYTES);
+  float2* red = reinterpret_cast<float2*>(ring + S * STAGE_BYTES + plan.bytes());  // [4][BN]
   const uint32_t ring_u = smem_u32(ring);
   float* sbias = reinterpret_cast<float*>(red + 4 * BN);  // [BN] this step's bias
   const uint32_t full_u = smem_u32(sbias + BN);  // S full barriers, then S empty ones
@@ -324,33 +367,73 @@ __device__ __forceinline__ void conv_phase_body(
   const int tile = blockIdx.x % T;
   const int y0 = (tile / ntx) * TH;
   const int x0 = (tile % ntx) * TW;
-  const int cpt = (C + KC - 1) / KC;  // chunks per tap
-  const int nchunks = 9 * cpt + (kPat ? (KP + KC - 1) / KC : 0);  // per N step
+  // per N step: 9 taps of every halo slice, then the patch slices, in
+  // chunks of KC channels (cs and ps are C and KP or multiples of KC)
+  const int nchunks = 9 * ((C + KC - 1) / KC) + (kPat ? (KP + KC - 1) / KC : 0);
   const int nsteps = (N + BN - 1) / BN;
 
   // the producer's position: ring stage and phase, and the next chunk's
-  // tap (9 = the patch half), K offset and N step
-  int p_stage = 0, p_phase = 0, p_tap = 0, p_k0 = 0, p_n0 = 0;
+  // slice, tap, K offset within the slice and N step
+  int p_stage = 0, p_phase = 0, p_seg = 0, p_tap = 0, p_k0 = 0, p_n0 = 0;
   auto produce_next = [&]() {
     const uint32_t bar = full_u + 8 * p_stage, dst = ring_u + p_stage * STAGE_BYTES;
+    const bool halo = p_seg < plan.nh;
     mbar_expect_tx(bar, STAGE_BYTES);
-    if (p_tap < 9) {
-      tma_load_3d(dst, &kmap, p_k0, p_n0, p_tap, bar);
+    if (halo) {
+      tma_load_3d(dst, &kmap, plan.base(p_seg) + p_k0, p_n0, p_tap, bar);
     } else if constexpr (kPat) {
-      tma_load_3d(dst, &wmap, p_k0, p_n0, b, bar);
+      tma_load_3d(dst, &wmap, plan.base(p_seg) + p_k0, p_n0, b, bar);
     }
     if (++p_stage == S) {
       p_stage = 0;
       p_phase ^= 1;
     }
     p_k0 += KC;
-    if (p_k0 >= (p_tap < 9 ? C : KP)) {
+    if (p_k0 >= plan.width(p_seg, C, KP)) {
       p_k0 = 0;
-      if (++p_tap == (kPat && KP > 0 ? 10 : 9)) {
+      if (halo && p_tap < 8) {
+        ++p_tap;
+      } else {
         p_tap = 0;
-        p_n0 += BN;
+        if (++p_seg == plan.nseg) {
+          p_seg = 0;
+          p_n0 += BN;
+        }
       }
     }
+  };
+
+  // stage slice seg of the A operand with threads t0, t0 + nt, ...: a halo
+  // slice (rows y0..y0+TH+1, columns x0..x0+TW+1 of tp) or a slice of the
+  // tile's patch rows; zeros outside the image
+  const int hp = h + 2, wp = w + 2;
+  auto stage_a = [&](int seg, int t0, int nt) {
+    const int base = plan.base(seg), W8 = plan.width(seg, C, KP) / 8;
+    bf16* dst = abuf + plan.offset(seg);
+    if (seg < plan.nh) {
+      for (int i = t0; i < HALO_CELLS * W8; i += nt) {
+        const int cell = i / W8, c8 = i % W8;
+        const int gy = y0 + cell / (TW + 2), gx = x0 + cell % (TW + 2);
+        const bool ok = gy < hp && gx < wp;
+        cp_async16(smem_u32(dst + (c8 * HALO_CELLS + cell) * 8),
+                   ok ? tp + ((size_t(b) * hp + gy) * wp + gx) * C + base + c8 * 8 : tp, ok);
+      }
+    } else if constexpr (kPat) {
+      for (int i = t0; i < BM * W8; i += nt) {
+        const int cell = i / W8, k8 = i % W8;
+        const int gy = y0 + cell / TW, gx = x0 + cell % TW;
+        const bool ok = gy < h && gx < w;
+        cp_async16(smem_u32(dst + (k8 * BM + cell) * 8),
+                   ok ? pat + ((size_t(b) * h + gy) * w + gx) * KP + base + k8 * 8 : pat, ok);
+      }
+    }
+  };
+  // the staging threads' cp.async writes (generic proxy) become visible to
+  // wgmma's reads (async proxy) once each thread fences and all meet at the
+  // barrier that follows
+  auto staged = []() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   };
 
   if (tid == 0) {
@@ -366,27 +449,9 @@ __device__ __forceinline__ void conv_phase_body(
     for (int i = 0; i < S && i < total; ++i) produce_next();  // the ring starts empty
   }
 
-  // stage the halo tile (rows y0..y0+TH+1, columns x0..x0+TW+1 of tp) and,
-  // for K1, the tile's patch rows; zeros outside the image
-  const int hp = h + 2, wp = w + 2, C8 = C / 8;
-  for (int i = tid; i < HALO_CELLS * C8; i += K1_THREADS) {
-    const int cell = i / C8, c8 = i % C8;
-    const int gy = y0 + cell / (TW + 2), gx = x0 + cell % (TW + 2);
-    const bool ok = gy < hp && gx < wp;
-    cp_async16(smem_u32(halo + (c8 * HALO_CELLS + cell) * 8),
-               ok ? tp + ((size_t(b) * hp + gy) * wp + gx) * C + c8 * 8 : tp, ok);
-  }
-  if constexpr (kPat) {
-    const int KP8 = KP / 8;
-    for (int i = tid; i < BM * KP8; i += K1_THREADS) {
-      const int cell = i / KP8, k8 = i % KP8;
-      const int gy = y0 + cell / TW, gx = x0 + cell % TW;
-      const bool ok = gy < h && gx < w;
-      cp_async16(smem_u32(ptile + (k8 * BM + cell) * 8),
-                 ok ? pat + ((size_t(b) * h + gy) * w + gx) * KP + k8 * 8 : pat, ok);
-    }
-  }
-  asm volatile("cp.async.wait_all;" ::: "memory");
+  // every slice when they are resident, else the first, by all threads
+  for (int seg = 0; seg < (plan.resident ? plan.nseg : 1); ++seg) stage_a(seg, tid, K1_THREADS);
+  staged();
   __syncthreads();
 
   if (tid < 128) {
@@ -410,40 +475,62 @@ __device__ __forceinline__ void conv_phase_body(
   // rows: its 64 GEMM rows are 8 core-matrix groups of 8 consecutive cells,
   // one per tile row, (TW + 2) cells apart in the halo at any tap
   const int xh = cw / 4;
-  const uint32_t halo_xh = smem_u32(halo + 8 * xh * 8);
-  const uint32_t ptile_xh = smem_u32(ptile + 8 * xh * 8);
+  const uint32_t abuf_xh = smem_u32(abuf + 8 * xh * 8);
 
   float acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  int it = 0;  // chunks consumed so far: the ring position
+  int it = 0;             // chunks consumed so far: the ring position
+  bool pending = false;   // the last chunk's stage is not yet released
 
-  auto chunk = [&](int c) {
-    uint64_t da;
-    int ksteps;
-    if (c < 9 * cpt) {
-      const int tap = c / cpt, k0 = (c % cpt) * KC;
-      da = desc_interleave(
-          halo_xh + ((k0 / 8) * HALO_CELLS + (tap / 3) * (TW + 2) + tap % 3) * 16,
-          HALO_CELLS * 16, (TW + 2) * 16);
-      ksteps = min(KC, C - k0) / 16;
-    } else {
-      const int k0 = (c - 9 * cpt) * KC;
-      da = desc_interleave(ptile_xh + (k0 / 8) * BM * 16, BM * 16, TW * 16);
-      ksteps = min(KC, KP - k0) / 16;
-    }
-    const uint64_t a_step = (c < 9 * cpt ? HALO_CELLS : BM) * 2;  // 16 channels, in 16-byte units
+  // one chunk: A from descriptor da, a_step between its 16-deep steps, of
+  // which ksteps exist; zero starts the accumulators afresh
+  auto chunk = [&](uint64_t da, uint64_t a_step, int ksteps, bool zero) {
     const int s = it % S;
     mbar_wait(full_u + 8 * s, (it / S) & 1);
     wgmma_fence();
     const uint64_t db = desc_sw128(ring_u + s * STAGE_BYTES);
 #pragma unroll
     for (int kk = 0; kk < KC / 16; ++kk)
-      if (kk < ksteps) wgmma_m64n256k16_ss(acc, da + a_step * kk, db + 2 * kk, (c | kk) != 0);
+      if (kk < ksteps) wgmma_m64n256k16_ss(acc, da + a_step * kk, db + 2 * kk, !(zero && kk == 0));
     wgmma_commit();
     wgmma_wait<1>();  // the previous chunk's wgmmas have retired: free its stage
-    if (c > 0 && lane == 0) mbar_arrive(empty_u + 8 * ((it + S - 1) % S));
+    if (pending && lane == 0) mbar_arrive(empty_u + 8 * ((it + S - 1) % S));
+    pending = true;
     ++it;
+  };
+  // every wgmma retired, every stage released
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    if (pending && lane == 0) mbar_arrive(empty_u + 8 * ((it + S - 1) % S));
+    pending = false;
+  };
+  // the MMAs of one N step, slice by slice
+  auto mma_step = [&](int step) {
+    bool zero = true;
+    for (int seg = 0; seg < plan.nseg; ++seg) {
+      if (!plan.resident && (step > 0 || seg > 0)) {
+        // the slices take turns in one buffer: wait until no consumer reads it
+        drain();
+        named_bar_sync(1, 256);
+        stage_a(seg, ct, 256);
+        staged();
+        named_bar_sync(1, 256);
+      }
+      const int width = plan.width(seg, C, KP);
+      const uint32_t a_u = abuf_xh + plan.offset(seg) * 2;
+      if (seg < plan.nh) {
+        for (int tap = 0; tap < 9; ++tap)
+          for (int k0 = 0; k0 < width; k0 += KC, zero = false)
+            chunk(desc_interleave(a_u + ((k0 / 8) * HALO_CELLS + (tap / 3) * (TW + 2) + tap % 3) * 16,
+                                  HALO_CELLS * 16, (TW + 2) * 16),
+                  HALO_CELLS * 2, min(KC, width - k0) / 16, zero);
+      } else {
+        for (int k0 = 0; k0 < width; k0 += KC, zero = false)
+          chunk(desc_interleave(a_u + (k0 / 8) * BM * 16, BM * 16, TW * 16), BM * 2,
+                min(KC, width - k0) / 16, zero);
+      }
+    }
   };
 
   const int g = lane / 4, t = lane % 4;
@@ -480,12 +567,11 @@ __device__ __forceinline__ void conv_phase_body(
     }
     // this step's bias into shared memory, for the epilogue
     if (n0 + ct < N) cp_async4(smem_u32(sbias + ct), bias + n0 + ct);
-    for (int c = 0; c < nchunks; ++c) chunk(c);
-    wgmma_wait<0>();
+    mma_step(step);
+    drain();
     asm volatile("cp.async.wait_all;" ::: "memory");
     named_bar_sync(1, 256);  // every consumer's bias element has landed
     fence_acc(acc);
-    if (lane == 0) mbar_arrive(empty_u + 8 * ((it + S - 1) % S));
 
     // epilogue begin (tools/profile_torch_conv_stages.py cuts the kernel here)
     // The accumulator layout gives lane (g, t) channels 8j + 2t, 8j + 2t + 1
@@ -740,7 +826,6 @@ head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
 enum ArgError {
   kBadTile = -1,
   kBadShape = -2,
-  kTooWide = -3,
   kNoTensorMap = -4,
   kRegisterBudget = -5,
 };
@@ -800,7 +885,7 @@ extern "C" {
 // Bytes of dynamic shared memory a conv block takes at C (and KP: 0 for
 // K3/T1/T2, which stream no patches).
 long posfeat_conv_smem_bytes(int C, int KP) {
-  return long(conv_smem_bytes(C, KP, KP ? ring_stages(kPatches) : ring_stages(kImgNone)));
+  return long(conv_smem_bytes(C, KP, KP ? kPatches : kImgNone));
 }
 
 // kph_t is kph as [9, N, C] and wm_t is wm as [B, N, KP] (K-major).
@@ -809,9 +894,8 @@ int posfeat_conv_phase(const void* tp, const void* kph_t, const void* pat, const
                        const void* b2b, void* z, void* psum, void* psq, int B, int h, int w,
                        int C, int KP, int N, int th, int tw, void* stream) {
   if (th != TH || tw != TW) return kBadTile;
-  if (C % 32 || KP % 32 || N % 128 || B < 1 || h < 1 || w < 1) return kBadShape;
-  const size_t smem = conv_smem_bytes(C, KP, ring_stages(kPatches));
-  if (smem > MAX_SMEM) return kTooWide;
+  if (C < 32 || C % 32 || KP % 32 || N % 128 || B < 1 || h < 1 || w < 1) return kBadShape;
+  const size_t smem = conv_smem_bytes(C, KP, kPatches);
   CUtensorMap kmap, wmap;
   if (!encode_kmajor(&kmap, kph_t, C, N, 9)) return kNoTensorMap;
   if (KP == 0) {
@@ -836,11 +920,10 @@ int posfeat_conv_phase_img(const void* tp, const void* kph_t, const void* img, c
                            void* z, void* psum, void* psq, int B, int h, int w, int C, int N,
                            int cout, int layout, int th, int tw, void* stream) {
   if (th != TH || tw != TW) return kBadTile;
-  if (C % 32 || N % 128 || cout % 8 || N != 16 * cout || layout < 0 || layout > 2 || B < 1 ||
-      h < 1 || w < 1)
+  if (C < 32 || C % 32 || N % 128 || cout % 8 || N != 16 * cout || layout < 0 || layout > 2 ||
+      B < 1 || h < 1 || w < 1)
     return kBadShape;
-  const size_t smem = conv_smem_bytes(C, 0, ring_stages(kImgNone));
-  if (smem > MAX_SMEM) return kTooWide;
+  const size_t smem = conv_smem_bytes(C, 0, kImgNone);
   CUtensorMap kmap;
   if (!encode_kmajor(&kmap, kph_t, C, N, 9)) return kNoTensorMap;
   using Kernel = void (*)(const CUtensorMap, const bf16*, const bf16*, const float*, bf16*, float*,
@@ -882,8 +965,6 @@ const char* posfeat_error_string(int code) {
       return "conv tile size differs from the compiled TH x TW";
     case kBadShape:
       return "shape outside what the kernel supports";
-    case kTooWide:
-      return "C (or KP) too wide: the tile's shared memory exceeds the card's limit";
     case kNoTensorMap:
       return "cuTensorMapEncodeTiled unavailable or refused the operand";
     case kRegisterBudget:

@@ -72,7 +72,12 @@ def build(force: bool = False) -> dict:
 @functools.lru_cache(maxsize=1)
 def load_kernels() -> ctypes.CDLL:
     """The built library with every function's argtypes and restype set."""
-    lib = ctypes.CDLL(str(build()["path"]))
+    return bind(ctypes.CDLL(str(build()["path"])))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argtypes and restype of every C entry point of ``lib``, a
+    build of ``SOURCES``; returns ``lib``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.posfeat_conv_phase.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.posfeat_conv_phase.restype = i

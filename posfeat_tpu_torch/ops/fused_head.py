@@ -72,6 +72,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def k_major(t: torch.Tensor) -> torch.Tensor:
+    """A B operand [..., K, N] (kph, wm) as the conv kernels read it:
+    [..., N, K], contiguous, the layout wgmma takes untransposed."""
+    return t.transpose(-2, -1).contiguous()
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         from ._build import load_kernels
@@ -124,16 +130,15 @@ def conv_phase(tp, kph, pat, wm, b2b):
     _check(pat, "pat", bf, (B, h, w, KP), dev)
     _check(wm, "wm", bf, (B, KP, N), dev)
     _check(b2b, "b2b", torch.float32, (B, N), dev)
-    if C % 32 or KP % 32 or N % (K1_BN // 2):
-        raise ValueError(f"K1 needs C, KP % 32 == 0 and N % {K1_BN // 2} == 0; got {C}, {KP}, {N}")
+    if C < 32 or C % 32 or KP % 32 or N % (K1_BN // 2):
+        raise ValueError(f"K1 needs C, KP % 32 == 0, C > 0 and N % {K1_BN // 2} == 0; got {C}, {KP}, {N}")
     th, tw = K1_TILE
     T = -(-h // th) * -(-w // tw)
     z = torch.empty((B, h, w, N), dtype=bf, device=dev)
     psum = torch.empty((B, T, N), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
-    # the kernel reads B K-major (what wgmma takes untransposed): one
-    # transposed copy of kph and of wm per call, 20 MB at the flagship point
-    kph_t, wm_t = kph.transpose(1, 2).contiguous(), wm.transpose(1, 2).contiguous()
+    # one K-major copy of kph and of wm per call, 20 MB at the flagship point
+    kph_t, wm_t = k_major(kph), k_major(wm)
     rc = load_kernels().posfeat_conv_phase(
         _ptr(tp), _ptr(kph_t), _ptr(pat), _ptr(wm_t), _ptr(b2b),
         _ptr(z), _ptr(psum), _ptr(psq), B, h, w, C, KP, N, th, tw, _stream(),
@@ -195,9 +200,9 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
         _check(zimg, "zimg", bf, (B, 4 * h, 4 * w, cout), dev)
     elif layout == "phase":
         _check(zimg, "zimg", bf, (B, h, w, N), dev)
-    if C % 32 or N % (K1_BN // 2) or N != 16 * cout or cout % 8:
+    if C < 32 or C % 32 or N % (K1_BN // 2) or N != 16 * cout or cout % 8:
         raise ValueError(
-            f"{IMG_KERNELS[layout]} needs C % 32 == 0, N = 16·Cout, N % {K1_BN // 2} == 0 and "
+            f"{IMG_KERNELS[layout]} needs C % 32 == 0, C > 0, N = 16·Cout, N % {K1_BN // 2} == 0 and "
             f"Cout % 8 == 0; got C={C}, N={N}"
         )
     th, tw = K1_TILE
@@ -206,7 +211,7 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
     psum = torch.empty((B, T, N), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
     img = ctypes.c_void_p(None) if layout == "none" else _ptr(zimg)
-    kph_t = kph.transpose(1, 2).contiguous()  # K-major, as for K1
+    kph_t = k_major(kph)
     rc = load_kernels().posfeat_conv_phase_img(
         _ptr(tp), _ptr(kph_t), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
         B, h, w, C, N, cout, IMG_LAYOUTS.index(layout), th, tw, _stream(),

@@ -131,8 +131,9 @@ def test_cuda_conv_phase_img_matches_plain_versions():
     """K3, T1 and T2 on the card against their plain versions, on the same
     bf16 inputs: ragged tiles (h, w not multiples of the 8 x 16 tile), B >= 2,
     the least C (32), N = 256, 384 (a last half step of 128 channels) and
-    2048, and a small flagship-like shape: z within one bf16 ulp, moments
-    within rtol 1e-3."""
+    2048, a small flagship-like shape, and C = 256 and 800, too wide for the
+    halo to stay resident, which the kernel stages in slices: z within one
+    bf16 ulp, moments within rtol 1e-3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = resolve_device("cuda")  # also keeps the f32 plain versions out of TF32
@@ -141,6 +142,7 @@ def test_cuda_conv_phase_img_matches_plain_versions():
     shapes = (
         (1, 6, 20, 32, 16), (2, 12, 32, 192, 128),
         (2, 13, 21, 32, 16), (2, 9, 35, 192, 128), (3, 17, 33, 96, 24),
+        (2, 9, 21, 256, 16), (1, 10, 20, 800, 16),
     )
     for B, h, w, C, cout in shapes:
         N = 16 * cout

@@ -67,13 +67,15 @@ def build_all(out_dir):
     with open(os.path.join(ROOT, "posfeat_tpu_torch", "csrc", "fused_head.cu")) as f:
         src = f.read()
     os.makedirs(out_dir, exist_ok=True)
+    # the library's other sources, so that every entry point _build.bind declares exists
+    others = [str(s) for s in _build.SOURCES if s.name != "fused_head.cu"]
     procs = {}
     for name in BUILDS:
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(variant(src, name))
         so = os.path.join(out_dir, f"{name}.so")
-        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.FLAGS, "-o", so, cu],
+        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.FLAGS, "-o", so, cu, *others],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (so, p) in procs.items():
@@ -92,35 +94,34 @@ def main() -> int:
         return 2
     from chip_smoke import CONV_KERNELS, _ptxas_summary
     from posfeat_tpu_torch import resolve_device
+    from posfeat_tpu_torch.ops import _build
+    from posfeat_tpu_torch.ops import fused_head as fh
 
     dev = resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     builds = build_all(os.path.join(ROOT, "build", "torch_kernels", "stages"))
     libs = {}
-    P, I = ctypes.c_void_p, ctypes.c_int
     for name, (so, log) in builds.items():
         summary = _ptxas_summary(log)
         print(f"{name}: " + "; ".join(f"{k} {summary[k]['regs']} regs, spills "
                                       f"{summary[k]['spill_stores']}/{summary[k]['spill_loads']} B"
                                       for k in CONV_KERNELS))
-        lib = ctypes.CDLL(so)
-        lib.posfeat_conv_phase.argtypes = [P] * 8 + [I] * 8 + [P]
-        lib.posfeat_conv_phase_img.argtypes = [P] * 7 + [I] * 9 + [P]
-        lib.posfeat_error_string.argtypes = [I]
-        lib.posfeat_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(so))
 
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
     h, w = H // 4, W // 4
-    N, T = 16 * COUT, -(-h // 8) * -(-w // 16)
+    th, tw = fh.K1_TILE
+    N, T = 16 * COUT, -(-h // th) * -(-w // tw)
 
     def g(*shape, scale=1.0):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
 
-    tp, kph_t = g(B, h + 2, w + 2, CIN).to(bf), g(9, N, CIN, scale=0.03).to(bf)
-    pat, wm_t, b2b, b2 = g(B, h, w, KP).to(bf), g(B, N, KP, scale=0.03).to(bf), g(B, N), g(N)
+    # the wrappers' operands, and B in the K-major layout they hand the kernels
+    tp, kph = g(B, h + 2, w + 2, CIN).to(bf), g(9, CIN, N, scale=0.03).to(bf)
+    pat, wm, b2b, b2 = g(B, h, w, KP).to(bf), g(B, KP, N, scale=0.03).to(bf), g(B, N), g(N)
+    kph_t, wm_t = fh.k_major(kph), fh.k_major(wm)
     zfull, zph = g(B, H, W, COUT).to(bf), g(B, h, w, N).to(bf)
     z = torch.empty((B, h, w, N), dtype=bf, device=dev)
     ps, pq = torch.empty((B, T, N), device=dev), torch.empty((B, T, N), device=dev)
@@ -130,12 +131,13 @@ def main() -> int:
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         if kernel == "K1":
             rc = lib.posfeat_conv_phase(ptr(tp), ptr(kph_t), ptr(pat), ptr(wm_t), ptr(b2b), ptr(z),
-                                        ptr(ps), ptr(pq), B, h, w, CIN, KP, N, 8, 16, stream)
+                                        ptr(ps), ptr(pq), B, h, w, CIN, KP, N, th, tw, stream)
         else:
-            layout = {"K3": 0, "T1": 1, "T2": 2}[kernel]
-            img = {"K3": zfull, "T1": None, "T2": zph}[kernel]
-            rc = lib.posfeat_conv_phase_img(ptr(tp), ptr(kph_t), ptr(img), ptr(b2), ptr(z), ptr(ps),
-                                            ptr(pq), B, h, w, CIN, N, COUT, layout, 8, 16, stream)
+            layout = next(lay for lay, k in fh.IMG_KERNELS.items() if k == kernel)
+            img = {"full": zfull, "none": None, "phase": zph}[layout]
+            rc = lib.posfeat_conv_phase_img(ptr(tp), ptr(kph_t), ptr(img), ptr(b2), ptr(z), ptr(ps), ptr(pq),
+                                            B, h, w, CIN, N, COUT, fh.IMG_LAYOUTS.index(layout), th, tw,
+                                            stream)
         if rc:
             raise RuntimeError(f"{kernel}: {lib.posfeat_error_string(rc).decode()}")
 
