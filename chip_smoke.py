@@ -7,13 +7,17 @@ Phases, one line each (more for the build):
   1. device: name, count, and nvidia-smi's name and power limit;
   2. build: nvcc of csrc/*.cu, with each kernel's registers, shared
      memory and spills from -Xptxas -v (and the conv kernels' dynamic
-     shared memory at Cin = 192); the four conv kernels must not spill;
+     shared memory at Cin = 192; K2's 24 template instances in one
+     line); the four conv kernels, every K2 instance and the lse pass's
+     two kernels must not spill, nor K2 and the lse pass keep a stack
+     frame;
   3. kernels: K1 and K2 at the shapes the main path gives them (B=16,
      h=120, w=160, Cin=192, Cout=128, out_ch=1) against their plain
      versions on the same bf16 inputs, the fused head's score map with
      kernels against the plain versions, and each kernel's time per
      B=16 launch beside its bound, its plain version's and one PyTorch
-     call's (library_ms), and K1's achieved TFLOP/s and share of its bound;
+     call's (library_ms), K1's achieved TFLOP/s and K2's achieved TB/s,
+     each with its share of the bound;
   4. the fused bf16 head against the f32 reference dataflow at 480x640;
   5. the main path: an Extractor at the flagship model, bf16, 128 seeded
      480x640 images (8 batches of 16) after a warm-up batch, 8192
@@ -26,7 +30,8 @@ Phases, one line each (more for the build):
      outputs carry the good reward, against their plain versions (rtol
      2e-4 on all seven outputs, flipped good/bad decisions at most 1e-3
      of the good pairs), with times, bounds, plain times and one PyTorch
-     logsumexp expression;
+     logsumexp expression; the lse pass's TFLOP/s, its share of the f32
+     bound and its floor on the tensor cores as 3xTF32 (floor_tc_ms);
   7. stage-2 training at the flagship width: configs/train_kp.yaml with
      the flagship model in f32, SyntheticPairs 480x640 in batches of 6
      through the PrefetchLoader; one step with the kernels against the
@@ -87,8 +92,8 @@ H, W, BATCH, NUM_PTS, N_IMAGES = 480, 640, 16, 8192, 128
 N_IMAGES_V1 = 64  # the v1 path: 4 batches of 16
 # stage 2 (configs/train_kp.yaml): batch 6 pairs, grid 8 -> m = n = 60 * 80
 TRAIN_BATCH, GRID, TRAIN_STEPS = 6, 8, 6
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores, f32 CUDA cores, HBM3
+PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 SEED = 0
 
 
@@ -116,21 +121,32 @@ CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_i
                 "conv_phase_img_phase_kernel")
 
 
+def _kernel_key(mangled):
+    """A kernel's key in the ptxas summary: its name, with K2's template
+    arguments as head_tail_kernel<LPR,OUT>."""
+    m = re.search(r"head_tail_kernelILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"head_tail_kernel<{m.group(1)},{m.group(2)}>"
+    return next(k for k in (*CONV_KERNELS, "lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", mangled)
+                if k in mangled)
+
+
 def _ptxas_summary(log):
-    """{kernel: {'regs', 'static_smem', 'spill_stores', 'spill_loads'}} from -Xptxas -v."""
+    """{kernel: {'regs', 'static_smem', 'stack', 'spill_stores', 'spill_loads'}} from -Xptxas -v."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next(k for k in (*CONV_KERNELS, "head_tail_kernel", "lse_pass_kernel",
-                                    "reward_pass_kernel", m.group(1)) if k in m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            name = _kernel_key(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
         if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
             out.setdefault(name, {})["regs"] = int(m.group(1))
-            out[name]["static_smem"] = int(m.group(2) or 0)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
     return out
 
 
@@ -236,6 +252,8 @@ def phase_kernels(torch, fh, rng):
         print(f"[3] {r['name']}: {r['ms']:.4f} ms per B={B} launch (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)")
     print(f"[3] K1 conv_phase: {_rate(records[0], 2.0 * M * N * (9 * C + KP))}")
+    print(f"[3] K2 head_tail: {k2_bytes / (k2_ms * 1e-3) * 1e-12:.3f} TB/s achieved "
+          f"({k2_bytes * 1e-9:.4g} GB per launch), {k2_bound[0] / k2_ms:.1%} of the bound")
     return records
 
 
@@ -566,10 +584,17 @@ def phase_reduction(torch, rng):
          "ms": rw_ms, "plain_ms": rw_plain, "bound_ms": rw_bound[0], "bound_by": rw_bound[1],
          "library_ms": None},
     ]
+    # the lse pass runs its product on the tensor cores as 3xTF32: its floor there
+    product = 2.0 * pairs * D
+    records[0]["floor_tc_ms"] = 3 * product / PEAK_TF32 * 1e3
     for r in records:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[6] {r['name']}: {r['ms']:.4f} ms per B={B} launch (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {lib})")
+    lse = records[0]
+    print(f"[6] K4+K5 lse_pass: {product / (lse['ms'] * 1e-3) * 1e-12:.2f} TFLOP/s of the product "
+          f"({product * 1e-9:.4g} GFLOP per launch), {lse['bound_ms'] / lse['ms']:.1%} of the f32 bound; "
+          f"3xTF32 tensor-core floor {lse['floor_tc_ms']:.4f} ms ({lse['floor_tc_ms'] / lse['ms']:.1%} of it)")
     return records
 
 
@@ -697,14 +722,22 @@ def main() -> int:
     print(f"[2] build: {info['seconds']:.2f} s -> {info['path'].name}")
     summary = _ptxas_summary(info["log"])
     lib = _build.load_kernels()
+    k2 = {k: v for k, v in summary.items() if k.startswith("head_tail_kernel<")}
     for kname, props in summary.items():
         if kname in CONV_KERNELS:
             # the launch's dynamic shared memory at the flagship point (C = KP = 192)
             props["dynamic_smem"] = lib.posfeat_conv_smem_bytes(192, 192 if kname == "conv_phase_kernel" else 0)
-        print(f"[2]   {kname}: {props}")
-    for kname in CONV_KERNELS:
+        if kname not in k2 or kname == "head_tail_kernel<16,1>":  # the main path's instance
+            print(f"[2]   {kname}: {props}")
+    assert len(k2) == 24, sorted(k2)
+    print(f"[2]   head_tail_kernel, all {len(k2)} instances: registers {min(v['regs'] for v in k2.values())}-"
+          f"{max(v['regs'] for v in k2.values())}, stack {max(v['stack'] for v in k2.values())} B, "
+          f"spills {sum(v['spill_stores'] + v['spill_loads'] for v in k2.values())} B")
+    for kname in (*CONV_KERNELS, *k2, "lse_split_kernel", "lse_pass_kernel"):
         props = summary[kname]
         assert props["spill_stores"] == props["spill_loads"] == 0, (kname, props)
+        if kname not in CONV_KERNELS:
+            assert props["stack"] == 0, (kname, props)
 
     rng = np.random.default_rng(SEED)
     records = phase_kernels(torch, fh, rng)

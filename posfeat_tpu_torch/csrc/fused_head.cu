@@ -23,6 +23,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 using bf16 = __nv_bfloat16;
 
 namespace {
@@ -167,39 +169,6 @@ size_t conv_smem_bytes(int C, int KP, int mode) {
   return size_t(fixed_smem(mode)) + APlan(C, KP, mode).bytes();
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Spins on the barrier's phase; traps after about 2^24 polls (seconds)
-// so that a fault in the pipeline ends the launch with an error.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls > (1u << 24)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, uint32_t bar) {
   asm volatile(
@@ -264,28 +233,6 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (uint64_t(1) << 62);
 }
 
-// shared-memory descriptor of a K-major operand in core matrices without
-// swizzle: 8 rows of 16 bytes each, lbo bytes between core matrices along
-// K, sbo bytes between 8-row groups along M
-__device__ __forceinline__ uint64_t desc_interleave(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads of the accumulators above a wait
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
@@ -710,93 +657,166 @@ CONV_PHASE_IMG_KERNEL(conv_phase_img_phase_kernel, kImgPhase)
 //   x = PReLU((z[b, r, :] - mu[b]) * sc[b]);  u[b, r, o] = x . w3[:, o] + b3[o]
 // plus per-block sums of u and u^2 per output channel.
 //
-// What bounds it: it reads z once (78.6 MB per image at the flagship point)
-// and writes u (1.2 MB per image for one output channel), a few FLOP per
-// byte: device memory bandwidth bounds it (about 24 us per image at
-// 3.35 TB/s).
+// What bounds it: it reads z once (78.6 MB per image at the flagship point,
+// 1.26 GB per B=16 launch) and writes u (1.2 MB per image for one output
+// channel), a few FLOP per byte: device memory bandwidth bounds it (0.38 ms
+// per B=16 launch at 3.35 TB/s).
 //
-// Design: a row is read by LPR = Cout/8 lanes, each with one 16-byte load
-// of 8 bf16, so a warp reads 32/LPR whole rows per step, coalesced. Each
-// lane keeps its 8 channels' mu, sc and w3 in registers for the whole
-// block (rows of one block belong to one image). The per-row dot product
-// is finished by xor shuffles inside each lane group; each block owns
-// ROWS rows of one image and writes one partials row, reduced in a fixed
-// order through shared memory, so the moments are deterministic. There is
-// no tensor-core work: out_ch is 1 or 2.
+// Design: one instance per (LPR = Cout/8, OUT = out_ch), chosen by a table
+// in posfeat_head_tail, so that every loop and shuffle count is a constant.
+// - A row is read by LPR lanes, each with one 16-byte load of 8 bf16, so a
+//   warp reads G = 32/LPR rows per load instruction, coalesced. Rows of one
+//   instruction are consecutive (row = base + (i * G) + lane group).
+// - Each lane issues all its loads of a trip (at least 4, 8 at the flagship
+//   point) before any arithmetic, with a streaming hint that keeps z out of
+//   L1 (z is read once and overflows L2), so enough bytes are in flight to
+//   cover the memory latency.
+// - The P x OUT partial dot products a lane holds for P rows of its group
+//   are finished by a reduce-scatter over the group (P - 1 shuffles per
+//   output for P rows; then log2(LPR / P) plain xor steps), after which
+//   lane li < P owns row li of its P: the group stores P consecutive u
+//   values, and the warp 32/LPR * P of them, in one coalesced store.
+// - Each block takes a contiguous range of one image's rows (a few blocks
+//   per SM: the wrapper picks the range, K2_BLOCKS); it writes one partials
+//   row, its lanes' sums reduced by shuffles and then across its warps
+//   through shared memory in a fixed order, so the moments are
+//   deterministic, with no atomics.
 
 constexpr int K2_THREADS = 256;
 constexpr int K2_WARPS = K2_THREADS / 32;
 constexpr int MAXO = 4;
 
-__global__ void __launch_bounds__(K2_THREADS)
+template <int LPR, int OUT>
+struct K2Shape {
+  // rows per reduce-scatter: P x OUT partials per lane stay at most 8
+  static constexpr int PMAX = OUT == 1 ? 8 : (OUT == 2 ? 4 : 2);
+  static constexpr int P = LPR < PMAX ? LPR : PMAX;
+  static constexpr int U = P >= 4 ? 1 : 4 / P;  // reduce-scatter groups per trip: >= 4 loads
+  static constexpr int G = 32 / LPR;            // rows per load instruction of a warp
+  static constexpr int ROWS = G * P * U;        // rows per warp trip
+};
+
+// 16 bytes of z, read once: no L1 allocation
+__device__ __forceinline__ uint4 ld_stream(const bf16* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// at least 2 blocks per SM: up to 128 registers a thread, which every
+// instance fits without spilling
+template <int LPR, int OUT>
+__global__ void __launch_bounds__(K2_THREADS, 2)
 head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
                  const float* __restrict__ sc, const float* __restrict__ a,
                  const float* __restrict__ w3, const float* __restrict__ b3,
                  float* __restrict__ u, float* __restrict__ usum,
-                 float* __restrict__ usq, int R, int cout, int out_ch,
-                 int rows_per_block) {
-  __shared__ float red[K2_WARPS][2 * MAXO];
+                 float* __restrict__ usq, int R, int rows_per_block) {
+  using S = K2Shape<LPR, OUT>;
+  constexpr int P = S::P, U = S::U, G = S::G, COUT = 8 * LPR;
+  __shared__ float red[K2_WARPS][2 * OUT];
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * rows_per_block;
   const int r1 = min(r0 + rows_per_block, R);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int lpr = cout / 8;            // lanes per row
-  const int rpw = 32 / lpr;            // rows per warp step
-  const int sub = lane / lpr;          // row within the step
-  const int c0 = (lane % lpr) * 8;     // this lane's first channel
+  const int gi = lane / LPR;   // row within a load instruction
+  const int li = lane % LPR;   // lane within the row's group
+  const int c0 = li * 8;       // this lane's first channel
   const float slope = a[0];
 
-  float m[8], s[8], wv[8][MAXO];
+  float m[8], s[8], wv[8][OUT];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    m[j] = mu[size_t(b) * cout + c0 + j];
-    s[j] = sc[size_t(b) * cout + c0 + j];
+    m[j] = mu[size_t(b) * COUT + c0 + j];
+    s[j] = sc[size_t(b) * COUT + c0 + j];
 #pragma unroll
-    for (int o = 0; o < MAXO; ++o) wv[j][o] = o < out_ch ? w3[(c0 + j) * out_ch + o] : 0.f;
+    for (int o = 0; o < OUT; ++o) wv[j][o] = w3[(c0 + j) * OUT + o];
   }
-  float bias[MAXO], tsum[MAXO], tsq[MAXO];
+  float bias[OUT], tsum[OUT], tsq[OUT];
 #pragma unroll
-  for (int o = 0; o < MAXO; ++o) {
-    bias[o] = o < out_ch ? b3[o] : 0.f;
+  for (int o = 0; o < OUT; ++o) {
+    bias[o] = b3[o];
     tsum[o] = 0.f;
     tsq[o] = 0.f;
   }
 
-  const bf16* zb = z + size_t(b) * R * cout;
-  for (int r = r0 + warp * rpw + sub; r - sub < r1; r += K2_WARPS * rpw) {
-    const bool valid = r < r1;
-    float acc[MAXO] = {0.f, 0.f, 0.f, 0.f};
-    if (valid) {
-      uint4 raw = *reinterpret_cast<const uint4*>(zb + size_t(r) * cout + c0);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const bf16* zb = z + size_t(b) * R * COUT + c0;
+  float* ub = u + size_t(b) * R * OUT;
+  for (int base = r0 + warp * S::ROWS; base < r1; base += K2_WARPS * S::ROWS) {
+    uint4 raw[U][P];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(v2[j]);
-        float x0 = (f.x - m[2 * j]) * s[2 * j];
-        float x1 = (f.y - m[2 * j + 1]) * s[2 * j + 1];
-        x0 = x0 >= 0.f ? x0 : slope * x0;
-        x1 = x1 >= 0.f ? x1 : slope * x1;
+    for (int q = 0; q < U; ++q)
 #pragma unroll
-        for (int o = 0; o < MAXO; ++o) acc[o] += x0 * wv[2 * j][o] + x1 * wv[2 * j + 1][o];
+      for (int j = 0; j < P; ++j) {
+        const int r = base + (q * P + j) * G + gi;
+        raw[q][j] = r < r1 ? ld_stream(zb + size_t(r) * COUT) : make_uint4(0u, 0u, 0u, 0u);
       }
-    }
-    // finish the dot product inside each lane group
 #pragma unroll
-    for (int o = 0; o < MAXO; ++o)
-      for (int off = lpr / 2; off > 0; off /= 2)
-        acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], off);
-    if (valid && lane % lpr == 0) {
-      for (int o = 0; o < out_ch; ++o) {
-        const float v = acc[o] + bias[o];
-        u[(size_t(b) * R + r) * out_ch + o] = v;
-        tsum[o] += v;
-        tsq[o] += v * v;
+    for (int q = 0; q < U; ++q) {
+      float p[P][OUT];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw[q][j]);
+#pragma unroll
+        for (int o = 0; o < OUT; ++o) p[j][o] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(v2[k]);
+          float x0 = (f.x - m[2 * k]) * s[2 * k];
+          float x1 = (f.y - m[2 * k + 1]) * s[2 * k + 1];
+          x0 = x0 >= 0.f ? x0 : slope * x0;
+          x1 = x1 >= 0.f ? x1 : slope * x1;
+#pragma unroll
+          for (int o = 0; o < OUT; ++o) p[j][o] += x0 * wv[2 * k][o] + x1 * wv[2 * k + 1][o];
+        }
+      }
+      // reduce-scatter over the P rows: at distance d the lane keeps the
+      // upper half of its rows if bit d of li is set, and sends the other
+      // half to its partner; lane li ends with row li % P
+#pragma unroll
+      for (int d = P / 2; d >= 1; d /= 2) {
+        const bool upper = li & d;
+#pragma unroll
+        for (int j = 0; j < d; ++j)
+#pragma unroll
+          for (int o = 0; o < OUT; ++o) {
+            const float send = upper ? p[j][o] : p[j + d][o];
+            const float keep = upper ? p[j + d][o] : p[j][o];
+            p[j][o] = keep + __shfl_xor_sync(0xffffffffu, send, d);
+          }
+      }
+      // lanes P apart in the group hold the same row: finish the sum
+#pragma unroll
+      for (int d = P; d < LPR; d *= 2)
+#pragma unroll
+        for (int o = 0; o < OUT; ++o) p[0][o] += __shfl_xor_sync(0xffffffffu, p[0][o], d);
+      const int r = base + (q * P + li % P) * G + gi;
+      if (li < P && r < r1) {
+        float v[OUT];
+#pragma unroll
+        for (int o = 0; o < OUT; ++o) {
+          v[o] = p[0][o] + bias[o];
+          tsum[o] += v[o];
+          tsq[o] += v[o] * v[o];
+        }
+        float* dst = ub + size_t(r) * OUT;
+        if constexpr (OUT == 4) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else if constexpr (OUT == 2) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+        } else {
+#pragma unroll
+          for (int o = 0; o < OUT; ++o) dst[o] = v[o];
+        }
       }
     }
   }
   // block reduction in a fixed order: lanes, then warps
 #pragma unroll
-  for (int o = 0; o < MAXO; ++o) {
+  for (int o = 0; o < OUT; ++o) {
+#pragma unroll
     for (int off = 16; off > 0; off /= 2) {
       tsum[o] += __shfl_xor_sync(0xffffffffu, tsum[o], off);
       tsq[o] += __shfl_xor_sync(0xffffffffu, tsq[o], off);
@@ -804,24 +824,33 @@ head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
   }
   if (lane == 0) {
 #pragma unroll
-    for (int o = 0; o < MAXO; ++o) {
+    for (int o = 0; o < OUT; ++o) {
       red[warp][o] = tsum[o];
-      red[warp][MAXO + o] = tsq[o];
+      red[warp][OUT + o] = tsq[o];
     }
   }
   __syncthreads();
-  if (threadIdx.x < out_ch) {
+  if (threadIdx.x < OUT) {
     const int o = threadIdx.x;
     float s1 = 0.f, s2 = 0.f;
+#pragma unroll
     for (int i = 0; i < K2_WARPS; ++i) {
       s1 += red[i][o];
-      s2 += red[i][MAXO + o];
+      s2 += red[i][OUT + o];
     }
-    const size_t idx = (size_t(b) * gridDim.x + blockIdx.x) * out_ch + o;
+    const size_t idx = (size_t(b) * gridDim.x + blockIdx.x) * OUT + o;
     usum[idx] = s1;
     usq[idx] = s2;
   }
 }
+
+using HeadTailKernel = void (*)(const bf16*, const float*, const float*, const float*,
+                                const float*, const float*, float*, float*, float*, int, int);
+#define K2_ROW(LPR) \
+  {head_tail_kernel<LPR, 1>, head_tail_kernel<LPR, 2>, head_tail_kernel<LPR, 3>, head_tail_kernel<LPR, 4>}
+// [log2(LPR)][out_ch - 1]
+const HeadTailKernel kHeadTail[6][MAXO] = {K2_ROW(1), K2_ROW(2), K2_ROW(4), K2_ROW(8), K2_ROW(16), K2_ROW(32)};
+#undef K2_ROW
 
 enum ArgError {
   kBadTile = -1,
@@ -946,16 +975,18 @@ int posfeat_head_tail(const void* z, const void* mu, const void* sc,
                       void* usum, void* usq, int B, int R, int cout, int out_ch,
                       int rows_per_block, void* stream) {
   const int lpr = cout / 8;
-  if (cout % 8 || lpr > 32 || (lpr & (lpr - 1)) || out_ch < 1 || out_ch > MAXO ||
+  if (cout % 8 || lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) || out_ch < 1 || out_ch > MAXO ||
       rows_per_block < 1 || B < 1 || B > 65535 || R < 1)
     return kBadShape;
+  int log2_lpr = 0;
+  while ((1 << log2_lpr) < lpr) ++log2_lpr;
   dim3 grid((R + rows_per_block - 1) / rows_per_block, B);
-  head_tail_kernel<<<grid, K2_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  kHeadTail[log2_lpr][out_ch - 1]<<<grid, K2_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(z), static_cast<const float*>(mu),
       static_cast<const float*>(sc), static_cast<const float*>(a),
       static_cast<const float*>(w3), static_cast<const float*>(b3),
       static_cast<float*>(u), static_cast<float*>(usum), static_cast<float*>(usq),
-      R, cout, out_ch, rows_per_block);
+      R, rows_per_block);
   return int(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
-interface, loaded through ``ctypes``. The library goes to
-``build/torch_kernels/`` at the root of the checkout, named by a hash of
-the sources and flags, and is built the first time a kernel is launched;
-nothing is built when the package is imported.
+``nvcc`` compiles ``csrc/*.cu`` (which include ``csrc/hopper.cuh``) into
+one shared library with a plain C interface, loaded through ``ctypes``.
+The library goes to ``build/torch_kernels/`` at the root of the
+checkout, named by a hash of the sources, header and flags, and is built
+the first time a kernel is launched; nothing is built when the package
+is imported.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 SOURCES = (PKG / "csrc" / "fused_head.cu", PKG / "csrc" / "reinforce.cu")
+HEADERS = (PKG / "csrc" / "hopper.cuh",)  # included by the sources; in the library's hash
 BUILD_DIR = PKG.parent / "build" / "torch_kernels"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,7 +42,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     return BUILD_DIR / f"libposfeat_kernels_{h.hexdigest()[:16]}.so"
 
@@ -87,7 +89,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.posfeat_conv_smem_bytes.restype = ctypes.c_long
     lib.posfeat_head_tail.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.posfeat_head_tail.restype = i
-    lib.posfeat_lse_pass.argtypes = [p] * 5 + [i] * 4 + [f] + [p]
+    lib.posfeat_lse_pass.argtypes = [p] * 7 + [i] * 4 + [f] + [p]
     lib.posfeat_lse_pass.restype = i
     lib.posfeat_reward_pass.argtypes = [p] * 15 + [i] * 4 + [f] * 4 + [p]
     lib.posfeat_reward_pass.restype = i

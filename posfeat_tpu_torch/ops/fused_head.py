@@ -49,7 +49,10 @@ K1_TILE = (8, 16)
 # output channels per step of a block's sweep over N; the kernel masks a
 # last half step, so N % (K1_BN // 2) == 0 is enough
 K1_BN = 256
-K2_ROWS = 256  # phase rows per K2 block
+# K2 blocks per launch to aim for: a few per SM of a 132-SM card, each
+# over a contiguous range of one image's phase rows
+K2_BLOCKS = 1024
+K2_MIN_ROWS = 256  # at least one trip of every warp of a block
 K2_MAX_OUT = 4
 
 
@@ -243,6 +246,14 @@ def head_tail_plain(z, mu, sc, a, w3, b3):
     return u.reshape(B, h, w, -1), usum, usq
 
 
+def head_tail_rows_per_block(B: int, R: int) -> int:
+    """Phase rows per K2 block for B images of R rows: about K2_BLOCKS
+    blocks in all, each at least K2_MIN_ROWS rows (or all R). The
+    moments come as one partials row per block: [B, ceil(R / rows), out]."""
+    per_image = max(1, min(-(-K2_BLOCKS // B), R // K2_MIN_ROWS))
+    return -(-R // per_image)
+
+
 def head_tail(z, mu, sc, a, w3, b3):
     """K2 (replaces posfeat_tpu/ops/pallas/fused_head.py:284
     ``_tail_kernel``). Same contract as ``head_tail_plain``, except that
@@ -266,13 +277,14 @@ def head_tail(z, mu, sc, a, w3, b3):
             f"K2 needs Cout in 8·2^i up to 256 and out_ch <= {K2_MAX_OUT}; got {cout}, {out_ch}"
         )
     R = h * w * (n // cout)  # phase rows per image
-    T2 = -(-R // K2_ROWS)
+    rows = head_tail_rows_per_block(B, R)
+    T2 = -(-R // rows)
     u = torch.empty((B, h, w, (n // cout) * out_ch), dtype=f32, device=dev)
     usum = torch.empty((B, T2, out_ch), dtype=f32, device=dev)
     usq = torch.empty_like(usum)
     rc = load_kernels().posfeat_head_tail(
         _ptr(z), _ptr(mu), _ptr(sc), _ptr(a), _ptr(w3), _ptr(b3),
-        _ptr(u), _ptr(usum), _ptr(usq), B, R, cout, out_ch, K2_ROWS, _stream(),
+        _ptr(u), _ptr(usum), _ptr(usq), B, R, cout, out_ch, rows, _stream(),
     )
     head_tail.launches += 1
     _raise_on(rc, "K2 head_tail")

@@ -29,7 +29,8 @@ import ctypes
 
 import torch
 
-TILE_M = 64  # rows of f1 per CUDA block (csrc/reinforce.cu TM)
+TILE_M = 128  # rows of f1 per lse-pass block, columns of f2 per tile (csrc/reinforce.cu LM)
+REWARD_TILE_M = 64  # rows of f1 per reward-pass block (csrc/reinforce.cu TM)
 MAX_D = 128
 
 
@@ -100,6 +101,15 @@ def lse_pass_plain(f1, f2, temperature: float):
     return lse(2), lse(1)
 
 
+def merge_col_partials(col_max, col_sum):
+    """Column log-sum-exp [B, n] from the lse pass's per-row-tile (max,
+    Σexp) partials [B, tiles, n], Σexp clipped at 1e-30 as
+    ``lse_pass_plain`` does."""
+    mx = col_max.amax(dim=1, keepdim=True)
+    se = (col_sum * torch.exp(col_max - mx)).sum(dim=1)
+    return mx.squeeze(1) + torch.log(se.clamp_min(1e-30))
+
+
 def lse_pass(f1, f2, temperature: float):
     """The lse-pass kernel (replaces posfeat_tpu/ops/pallas/reinforce.py:66
     ``_pass1_kernel`` and :88 ``_pass2_kernel``); same contract as
@@ -112,19 +122,21 @@ def lse_pass(f1, f2, temperature: float):
     dev = f1.device
     _check(f1, "f1", (B, m, D), dev)
     _check(f2, "f2", (B, n, D), dev)
-    mt = -(-m // TILE_M)
-    row_lse = torch.empty((B, m), dtype=torch.float32, device=dev)
-    col_max = torch.empty((B, mt, n), dtype=torch.float32, device=dev)
-    col_sum = torch.empty_like(col_max)
+    mt, nt = -(-m // TILE_M), -(-n // TILE_M)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # f1 and f2 split into TF32 hi and lo, tile by tile, in 16-deep chunks
+    depth = 16 * -(-D // 16)
+    f1s = torch.empty(B * mt * 2 * depth * TILE_M, **f32)
+    f2s = torch.empty(B * nt * 2 * depth * TILE_M, **f32)
+    row_lse = torch.empty((B, m), **f32)
+    col_max, col_sum = torch.empty((B, mt, n), **f32), torch.empty((B, mt, n), **f32)
     rc = load_kernels().posfeat_lse_pass(
-        _ptr(f1), _ptr(f2), _ptr(row_lse), _ptr(col_max), _ptr(col_sum),
+        _ptr(f1), _ptr(f2), _ptr(f1s), _ptr(f2s), _ptr(row_lse), _ptr(col_max), _ptr(col_sum),
         B, m, n, D, float(temperature), _stream(),
     )
     lse_pass.launches += 1
     _raise_on(rc, "lse_pass")
-    mx = col_max.amax(dim=1, keepdim=True)
-    se = (col_sum * torch.exp(col_max - mx)).sum(dim=1)
-    return row_lse, mx.squeeze(1) + torch.log(se.clamp_min(1e-30))
+    return row_lse, merge_col_partials(col_max, col_sum)
 
 
 lse_pass.launches = 0
@@ -170,7 +182,7 @@ def reward_pass(f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse, col_l
         (row_lse, "row_lse", (B, m)), (col_lse, "col_lse", (B, n)),
     ):
         _check(t, name, shape, dev)
-    mt = -(-m // TILE_M)
+    mt = -(-m // REWARD_TILE_M)
     f32 = dict(dtype=torch.float32, device=dev)
     row_w, p_rowsum = torch.empty((B, m), **f32), torch.empty((B, m), **f32)
     colw_part, pcol_part = torch.empty((B, mt, n), **f32), torch.empty((B, mt, n), **f32)

@@ -156,6 +156,59 @@ def test_head_takes_moments_split_over_tiles(rng, mode):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
 
 
+def _block_split(tail_fn):
+    """``tail_fn`` (the plain K2, moments [B, 1, out]) with its moments
+    split over K2's blocks, [B, T2, out], each block a contiguous range of
+    ``head_tail_rows_per_block`` phase rows, as the card's kernel returns
+    them; ``.rows`` records each call's (R, rows per block)."""
+
+    def split(z, mu, sc, a, w3, b3):
+        u, _, _ = tail_fn(z, mu, sc, a, w3, b3)
+        B, out_ch = u.shape[0], w3.shape[1]
+        ur = u.reshape(B, -1, out_ch)
+        R = ur.shape[1]
+        rows = fh.head_tail_rows_per_block(B, R)
+        split.rows.append((R, rows))
+        parts = torch.split(ur, rows, dim=1)
+        return (u, torch.stack([p.sum(dim=1) for p in parts], 1),
+                torch.stack([(p * p).sum(dim=1) for p in parts], 1))
+
+    split.rows = []
+    return split
+
+
+@pytest.mark.parametrize("mode", ["v3", "v1"])
+def test_head_takes_k2_moments_split_over_blocks(rng, mode):
+    """K2's partials contract: the head pools K2's moments over dim 1, so
+    moments split over K2's block row ranges at a ragged R (not a
+    multiple of the rows per block) give the score of the single-row
+    plain moments."""
+    h, w = 11, 23
+    trunk, s, k1, b1, k2t, k2i, b2, w3, b3, a = map(
+        torch.from_numpy, _setup(rng, B=2, h=h, w=w, cout=16, out=1)
+    )
+    y = F.conv2d(s.permute(0, 3, 1, 2), k1.permute(3, 2, 0, 1), b1, padding=1).permute(0, 2, 3, 1)
+    conv = fh.conv_phase_plain if mode == "v3" else fh.conv_phase_img_plain
+    args = (trunk, s, y, k1, b1, k2t, k2i, b2, w3, b3, a)
+    want = fh._fused_head_tail(conv, fh.head_tail_plain, *args, mode=mode)
+    split = _block_split(fh.head_tail_plain)
+    got = fh._fused_head_tail(conv, split, *args, mode=mode)
+    (R, rows), = split.rows
+    assert R == h * w * 16 and R % rows and -(-R // rows) > 2  # several blocks, the last one short
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_head_tail_rows_per_block():
+    """About K2_BLOCKS blocks per launch, at least K2_MIN_ROWS rows each
+    (or all R), covering every row."""
+    for B, R in ((16, 307200), (1, 307200), (2, 3696), (2, 4048), (3, 100), (1093, 4096)):
+        rows = fh.head_tail_rows_per_block(B, R)
+        T2 = -(-R // rows)
+        assert rows >= min(R, fh.K2_MIN_ROWS) and T2 * rows >= R > (T2 - 1) * rows
+        assert B * T2 <= fh.K2_BLOCKS + B
+    assert fh.head_tail_rows_per_block(16, 307200) == 4800  # the flagship point: 64 blocks per image
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """K1 and K2 on the card against their plain versions, on the same
@@ -196,6 +249,37 @@ def test_cuda_kernels_match_plain_versions():
         a, w3, b3 = torch.tensor([0.25], device=dev), g(cout, out_ch, sc=0.1), g(out_ch)
         u, us, uq = fh.head_tail(z, mu, sc, a, w3, b3)
         torch.cuda.synchronize()
+        ur, usr, uqr = fh.head_tail_plain(z, mu, sc, a, w3, b3)
+        torch.testing.assert_close(u, ur, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(us.sum(1), usr.sum(1), rtol=1e-3, atol=1e-2)
+        torch.testing.assert_close(uq.sum(1), uqr.sum(1), rtol=1e-3, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cout", [8, 16, 32, 64, 128, 256])
+def test_cuda_head_tail_every_instance(cout):
+    """K2 against its plain version for every compiled instance: lanes
+    per row Cout / 8 = 1 ... 32, out_ch 1-4, at B = 2 and an R (5 x 10 x 16
+    = 800 phase rows, 3 blocks of 267) that is a multiple of neither the
+    rows per block nor a warp's trip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = resolve_device("cuda")
+    rng = np.random.RandomState(cout)
+    B, h, w = 2, 5, 10
+    R = h * w * 16
+    rows = fh.head_tail_rows_per_block(B, R)
+    assert R % rows and rows % 32
+    g = lambda *s, sc=1.0: torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).to(dev)
+    z = g(B, h, w, 16 * cout).to(torch.bfloat16)
+    mu, sc = g(B, cout, sc=0.1), g(B, cout).abs() + 0.5
+    a = torch.tensor([0.25], device=dev)
+    for out_ch in (1, 2, 3, 4):
+        w3, b3 = g(cout, out_ch, sc=0.1), g(out_ch)
+        n0 = fh.head_tail.launches
+        u, us, uq = fh.head_tail(z, mu, sc, a, w3, b3)
+        torch.cuda.synchronize()
+        assert fh.head_tail.launches == n0 + 1 and us.shape == (B, -(-R // rows), out_ch)
         ur, usr, uqr = fh.head_tail_plain(z, mu, sc, a, w3, b3)
         torch.testing.assert_close(u, ur, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(us.sum(1), usr.sum(1), rtol=1e-3, atol=1e-2)

@@ -7,7 +7,8 @@ parent on the same card and under the same conditions.
 
 Each turn is a process of its own, started in that checkout: it builds
 the checkout's kernels and runs its chip_smoke.phase_kernels (K1, K2 at
-B=16, 480x640) and phase_v1_kernels (K3, T1, T2), which check every kernel
+B=16, 480x640), phase_v1_kernels (K3, T1, T2) and phase_reduction (the
+lse and reward passes at B=6, m=n=4800), which check every kernel
 against its plain version and time it with CUDA events. Prints one JSON
 line per turn, then nvidia-smi's name and power limit, and a last JSON
 line {"ms": {kernel: {"A": [ms, ms], "B": [ms, ms]}}}. Without a CUDA card
@@ -29,7 +30,8 @@ from posfeat_tpu_torch import resolve_device
 from posfeat_tpu_torch.ops import fused_head as fh
 resolve_device("cuda")
 rng = np.random.default_rng(chip_smoke.SEED)
-records = chip_smoke.phase_kernels(torch, fh, rng) + chip_smoke.phase_v1_kernels(torch, fh, rng)
+records = (chip_smoke.phase_kernels(torch, fh, rng) + chip_smoke.phase_v1_kernels(torch, fh, rng)
+           + chip_smoke.phase_reduction(torch, rng))
 print("TURN " + json.dumps({r["name"]: r["ms"] for r in records}))
 """
 

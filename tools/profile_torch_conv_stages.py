@@ -69,13 +69,14 @@ def build_all(out_dir):
     os.makedirs(out_dir, exist_ok=True)
     # the library's other sources, so that every entry point _build.bind declares exists
     others = [str(s) for s in _build.SOURCES if s.name != "fused_head.cu"]
+    inc = ["-I", str(_build.PKG / "csrc")]  # the copies include csrc/hopper.cuh
     procs = {}
     for name in BUILDS:
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(variant(src, name))
         so = os.path.join(out_dir, f"{name}.so")
-        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.FLAGS, "-o", so, cu, *others],
+        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.FLAGS, *inc, "-o", so, cu, *others],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (so, p) in procs.items():
