@@ -71,6 +71,32 @@ def build(force: bool = False) -> dict:
     return {"path": so, "seconds": seconds, "log": log}
 
 
+def build_variants(src_name: str, builds, variant, out_dir) -> dict:
+    """Compile one library per name in ``builds``, all in parallel, each
+    from a copy of ``csrc/<src_name>`` rewritten by ``variant(src, name)``
+    beside the other sources as they are (so that every entry point
+    ``bind`` declares exists). For tools that time a kernel with a stage
+    cut out. Returns {name: (library path, nvcc's log)}."""
+    src = (PKG / "csrc" / src_name).read_text()
+    os.makedirs(out_dir, exist_ok=True)
+    others = [str(s) for s in SOURCES if s.name != src_name]
+    inc = ["-I", str(PKG / "csrc")]  # the copies include csrc/hopper.cuh
+    procs = {}
+    for name in builds:
+        cu, so = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"{name}.so")
+        with open(cu, "w") as f:
+            f.write(variant(src, name))
+        procs[name] = (so, subprocess.Popen([_nvcc(), *FLAGS, *inc, "-o", so, cu, *others],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (so, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        out[name] = (so, log)
+    return out
+
+
 @functools.lru_cache(maxsize=1)
 def load_kernels() -> ctypes.CDLL:
     """The built library with every function's argtypes and restype set."""

@@ -64,33 +64,6 @@ def variant(src: str, build: str) -> str:
     return src
 
 
-def build_all(out_dir):
-    """Compiles every build in parallel; returns {build: (library path, ptxas log)}."""
-    from posfeat_tpu_torch.ops import _build
-
-    with open(os.path.join(ROOT, "posfeat_tpu_torch", "csrc", "reinforce.cu")) as f:
-        src = f.read()
-    os.makedirs(out_dir, exist_ok=True)
-    # the library's other sources, so that every entry point _build.bind declares exists
-    others = [str(s) for s in _build.SOURCES if s.name != "reinforce.cu"]
-    inc = ["-I", str(_build.PKG / "csrc")]  # the copies include csrc/hopper.cuh
-    procs = {}
-    for name in BUILDS:
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(variant(src, name))
-        so = os.path.join(out_dir, f"{name}.so")
-        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.FLAGS, *inc, "-o", so, cu, *others],
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for name, (so, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-        out[name] = (so, log)
-    return out
-
-
 def main() -> int:
     import torch
 
@@ -105,7 +78,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     libs = {}
-    for name, (so, log) in build_all(os.path.join(ROOT, "build", "torch_kernels", "lse_stages")).items():
+    for name, (so, log) in _build.build_variants(
+            "reinforce.cu", BUILDS, variant, os.path.join(ROOT, "build", "torch_kernels", "lse_stages")).items():
         k = _ptxas_summary(log)["lse_pass_kernel"]
         print(f"{name}: lse_pass_kernel {k['regs']} regs, spills {k['spill_stores']}/{k['spill_loads']} B")
         libs[name] = _build.bind(ctypes.CDLL(so))
