@@ -8,10 +8,11 @@ Phases, one line each (more for the build):
   2. build: nvcc of csrc/*.cu, with each kernel's registers, shared
      memory and spills from -Xptxas -v (and the conv kernels' dynamic
      shared memory at Cin = 192; K2's 24 template instances in one
-     line); the four conv kernels, every K2 instance and the lse pass's
-     two kernels must not spill, nor K2 and the lse pass keep a stack
-     frame, nor ptxas inject more warpgroup.waits (C7517) into the lse
-     pass than the one its build carries;
+     line); the four conv kernels, every K2 instance and the three
+     reduction kernels (the split, the lse and reward passes) must not
+     spill, nor K2 and the reduction kernels keep a stack frame, nor
+     ptxas inject more warpgroup.waits (C7517) into the lse or the
+     reward pass than their builds carry;
   3. kernels: K1 and K2 at the shapes the main path gives them (B=16,
      h=120, w=160, Cin=192, Cout=128, out_ch=1) against their plain
      versions on the same bf16 inputs, the fused head's score map with
@@ -30,18 +31,22 @@ Phases, one line each (more for the build):
      matches, half of them on each other's epipolar lines so that the
      outputs carry the good reward, against their plain versions (rtol
      2e-4 on all seven outputs, flipped good/bad decisions at most 1e-3
-     of the good pairs), with times, bounds, plain times and one PyTorch
-     logsumexp expression; the lse pass's TFLOP/s and its share of its
-     bound, its product's three TF32 products (3xTF32) on the tensor
-     cores, with the same product as f32 FMAs beside it;
+     of the good pairs; the operands' TF32 split bit for bit; the reward
+     pass on the lse pass's outputs, as the reduction runs it, the plain
+     version on the plain log-sum-exps), with
+     times, bounds, plain times and one PyTorch logsumexp expression;
+     each pass's TFLOP/s and share of its bound, its product's three TF32
+     products (3xTF32) on the tensor cores, with the same work as f32
+     FMAs beside it; the reward pass timed on the split that the
+     reduction shares with the lse pass;
   7. stage-2 training at the flagship width: configs/train_kp.yaml with
      the flagship model in f32, SyntheticPairs 480x640 in batches of 6
      through the PrefetchLoader; one step with the kernels against the
      same step through the dense DiskLoss on the same draws (loss rtol
      2e-4, head gradient rtol 2e-3), then a Trainer run of a warm-up
      step and 5 timed steps with the reduction's launch counts read
-     around it: every step finite, the head moved, the backbone
-     bit-identical;
+     around it (one split per reduction): every step finite, the head
+     moved, the backbone bit-identical;
   8. the v1 head's conv kernels: K3 (full-res z_img), T1 (no image
      term) and T2 (pre-phased z_img) at the v1 path's shapes (B=16,
      h=120, w=160, Cin=192, Cout=128) against their plain versions on the
@@ -119,9 +124,11 @@ def _bound(ops, peak, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# warpgroup.waits that ptxas injects into lse_pass_kernel (C7517, before a
-# read of registers a wgmma defines) in the build this file was written for
-LSE_INJECTED_WAITS = 1
+# warpgroup.waits that ptxas injects (C7517, before a read of registers a
+# wgmma defines) into each reduction pass in the build this file was
+# written for: both run one product loop, product_tiles in csrc/reinforce.cu,
+# whose tiles' first wgmmas write their accumulators without reading them
+INJECTED_WAITS = {"lse_pass_kernel": 0, "reward_pass_kernel": 0}
 CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_img_none_kernel",
                 "conv_phase_img_phase_kernel")
 
@@ -489,18 +496,21 @@ def _unit(torch, x):
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
-def phase_reduction(torch, rng):
-    """The lse and reward passes against their plain versions at the
-    training path's shapes, plus times; returns their kernel records."""
-    from posfeat_tpu_torch.ops import reinforce as rf
+# the reduction's keyword arguments on the training path (configs/train_kp.yaml: T = 60, reward_thr 2)
+REDUCTION_KW = dict(temperature=60.0, thr=2.0, good_reward=1.0, bad_reward=-0.25)
+
+
+def reduction_problem(torch, rng):
+    """The reduction's inputs at the training path's shapes (B=6,
+    m=n=4800, D=128) on the card: seeded unit descriptors with planted
+    matches, half of them on each other's epipolar lines. Returns (f1,
+    f2, line1, c2h, line2, c1h, accept1, accept2)."""
     from posfeat_tpu_torch.ops.coords import homogenize
     from posfeat_tpu_torch.ops.epipolar import epipolar_lines
 
     dev = torch.device("cuda")
     B, m, D = TRAIN_BATCH, (H // GRID) * (W // GRID), 128
     n = m
-    kw = dict(temperature=60.0, thr=2.0, good_reward=1.0, bad_reward=-0.25)
-    T = kw["temperature"]
 
     def g(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
@@ -528,21 +538,44 @@ def phase_reduction(torch, rng):
     c2 = torch.where(torch.from_numpy(rng.random((B, n, 1)) < 0.5).to(dev), on_line, c2)
     a1 = (torch.from_numpy(rng.random((B, m))) > 0.5).float().to(dev)
     a2 = (torch.from_numpy(rng.random((B, n))) > 0.5).float().to(dev)
-    args = (f1, f2, line1, homogenize(c2), epipolar_lines(F2, c2).contiguous(), homogenize(c1), a1, a2)
+    return f1, f2, line1, homogenize(c2), epipolar_lines(F2, c2).contiguous(), homogenize(c1), a1, a2
+
+
+def phase_reduction(torch, rng):
+    """The lse and reward passes against their plain versions at the
+    training path's shapes, plus times; returns their kernel records."""
+    from posfeat_tpu_torch.ops import reinforce as rf
+
+    args = reduction_problem(torch, rng)
+    f1, f2 = args[:2]
+    (B, m, D), n = f1.shape, f2.shape[1]
+    kw = REDUCTION_KW
+    T = kw["temperature"]
 
     # JAX's tolerance (test_pallas_reinforce.py:70) on every output
     def close(got, ref):
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-5)
         return (got - ref).abs().max().item()
 
+    # the operands' TF32 split, shared by both passes, bit for bit
+    tiles = rf._split_operands(f1, f2)
+    torch.cuda.synchronize()
+    assert torch.equal(tiles[0], rf._split_plain(f1, True)) and torch.equal(tiles[1], rf._split_plain(f2, False))
     rl, cl = rf.lse_pass(f1, f2, T)
     torch.cuda.synchronize()
     rlp, clp = rf.lse_pass_plain(f1, f2, T)
     err_lse = max(close(rl, rlp), close(cl, clp))
-    out = rf.reward_pass(*args, rlp, clp, **kw)
+    # each reward pass on the log-sum-exps of its own product, as the
+    # reduction runs it: the kernel's 3xTF32 dots carry the tensor cores'
+    # truncation (one sign), which cancels in lp = (aff - rl) + (aff - cl)
+    # only against the lse pass that ran on the same dots
+    out = rf.reward_pass(*args, rl, cl, **kw, tiles=tiles)
     torch.cuda.synchronize()
     ref = rf.reward_pass_plain(*args, rlp, clp, **kw)
     err_rw = max(close(o, r) for o, r in zip(out[:7], ref[:7]))
+    # the same kernel fed the plain version's log-sum-exps: s0 without the cancellation (not held)
+    s0_mixed = rf.reward_pass(*args, rlp, clp, **kw, tiles=tiles)[0]
+    s0_mixed_rel = ((s0_mixed - ref[0]).abs() / ref[0].abs()).max().item()
     # pairs at exactly thr may flip good <-> bad between kernel and plain
     n_good = ref[7].sum().item()
     flips = (out[7] - ref[7]).abs().sum().item()
@@ -555,7 +588,8 @@ def phase_reduction(torch, rng):
     whole_ref = rf.reinforce_reduction_plain(*args, **kw)
     err_whole = max(close(o, r) for o, r in zip(whole, whole_ref))
     print(f"[6] reduction at B={B} m={m} n={n} D={D} T={T:g} thr={kw['thr']:g}: lse max|err| {err_lse:.3g}, "
-          f"reward outputs max|err| {err_rw:.3g}, whole reduction max|err| {err_whole:.3g}; good pairs "
+          f"reward outputs max|err| {err_rw:.3g} (s0 fed the plain lse: rel err {s0_mixed_rel:.3g}), "
+          f"whole reduction max|err| {err_whole:.3g}; good pairs "
           f"{int(n_good)} of {B * m * n}, flipped {flips:g}; max colW {ref[2].amax().item():.4g}, "
           f"s0 {whole_ref[0].min().item():.5g}..{whole_ref[0].max().item():.5g}, "
           f"p_max {whole_ref[5].min().item():.4g}..{whole_ref[5].max().item():.4g}, "
@@ -569,20 +603,23 @@ def phase_reduction(torch, rng):
         return torch.logsumexp(aff, -1), torch.logsumexp(aff, 1)
 
     lse_lib = _time_ms(lse_library, n=10)
-    rw_ms = _time_ms(lambda: rf.reward_pass(*args, rl, cl, **kw))
+    # the reward pass as the reduction runs it, on the split it shares with the lse pass
+    rw_ms = _time_ms(lambda: rf.reward_pass(*args, rl, cl, **kw, tiles=tiles))
     rw_plain = _time_ms(lambda: rf.reward_pass_plain(*args, rl, cl, **kw), n=5)
+    split_ms = _time_ms(lambda: rf._split_operands(f1, f2))
+    whole_ms = _time_ms(lambda: rf.reinforce_reduction(*args, **kw))
     pairs, f4 = B * m * n, 4
     product = 2.0 * pairs * D
-    # the lse pass runs its product on the tensor cores as 3xTF32: three
-    # TF32 products (hi·hi, hi·lo, lo·hi) at the TF32 peak; its epilogue
-    # (scale, two max, two exp, two adds per pair) runs beside them on the
-    # f32 cores and takes less (0.017 ms at B=6, m=n=4800)
+    # both passes run their product on the tensor cores as 3xTF32: three
+    # TF32 products (hi·hi, hi·lo, lo·hi) at the TF32 peak. Their
+    # epilogues run on the f32 cores and take less at their peak: the lse
+    # pass's (scale, two max, two exp, two adds per pair) 0.017 ms, the
+    # reward pass's (scale, two subtractions, exp, two 3-term distances,
+    # compares, W and six sums, about 24 operations per pair) 0.05 ms at
+    # B=6, m=n=4800
     lse_bound = _bound(3 * product, PEAK_TF32, f4 * (f1.numel() + f2.numel() + rl.numel() + cl.numel()))
-    # the reward pass: the 2·D multiply-adds of each pair's product in f32
-    # plus its epilogue (scale, two subtractions, exp, two 3-term
-    # distances, compares, W and five sums)
     rw_bytes = f4 * (sum(a.numel() for a in args) + rl.numel() + cl.numel() + 2 * m * B + 2 * n * B + 3 * B)
-    rw_bound = _bound(pairs * (2.0 * D + 24), PEAK_F32, rw_bytes)
+    rw_bound = _bound(3 * product, PEAK_TF32, rw_bytes)
     records = [
         {"name": "K4+K5 lse_pass", "route": "cuda", "source": "posfeat_tpu_torch/csrc/reinforce.cu",
          "replaces": "posfeat_tpu/ops/pallas/reinforce.py:66", "launches": 0, "max_abs_err": err_lse,
@@ -597,12 +634,16 @@ def phase_reduction(torch, rng):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[6] {r['name']}: {r['ms']:.4f} ms per B={B} launch (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {lib})")
-    lse = records[0]
-    f32_ms = pairs * (2.0 * D + 8) / PEAK_F32 * 1e3  # the product and epilogue on the f32 cores
-    print(f"[6] K4+K5 lse_pass: {product / (lse['ms'] * 1e-3) * 1e-12:.2f} TFLOP/s of the product "
-          f"({product * 1e-9:.4g} GFLOP per launch), {lse['bound_ms'] / lse['ms']:.1%} of its bound "
-          f"(3xTF32 on the tensor cores); the same work as f32 FMAs would be bounded at {f32_ms:.4f} ms "
-          f"({f32_ms / lse['ms']:.1%} of its time)")
+    # the product and epilogue as f32 FMAs on the CUDA cores, each pass's
+    # bound before its product moved to the tensor cores
+    for r, epi_ops in zip(records, (8, 24)):
+        f32_ms = pairs * (2.0 * D + epi_ops) / PEAK_F32 * 1e3
+        print(f"[6] {r['name']}: {product / (r['ms'] * 1e-3) * 1e-12:.2f} TFLOP/s of the product "
+              f"({product * 1e-9:.4g} GFLOP per launch), {r['bound_ms'] / r['ms']:.1%} of its bound "
+              f"(3xTF32 on the tensor cores); the same work as f32 FMAs would be bounded at {f32_ms:.4f} ms "
+              f"({f32_ms / r['ms']:.1%} of its time)")
+    print(f"[6] split of f1 and f2 (lse_split_kernel, once per reduction): {split_ms:.4f} ms; whole reduction "
+          f"(one split, both passes, the merges): {whole_ms:.4f} ms per B={B} call")
     return records
 
 
@@ -642,7 +683,7 @@ def phase_training(torch, records):
         # one step's loss and head gradient: kernels against the dense DiskLoss
         batch = tr.to_device(collate([tr.train_dataset[i] for i in range(TRAIN_BATCH)]))
         name, weight, loss_k = tr.loss_fns[0]
-        assert loss_k._use_streamed()
+        assert loss_k._use_streamed(FLAGSHIP_MODEL_CONFIG["backbone_config"]["fine_out_ch"])
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         with torch.no_grad():
             out = tr.model(batch)
@@ -676,12 +717,16 @@ def phase_training(torch, records):
         # the main path: Trainer.train, as the CLI runs it
         rf.lse_pass.launches = 0
         rf.reward_pass.launches = 0
+        rf._split_operands.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tr.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"K4+K5 lse_pass": rf.lse_pass.launches, "K6 reward_pass": rf.reward_pass.launches}
+        # one split of f1 and f2 per reduction, shared by its two passes
+        assert rf._split_operands.launches == launches["K4+K5 lse_pass"] == launches["K6 reward_pass"], (
+            rf._split_operands.launches, launches)
         peak = torch.cuda.max_memory_allocated()
 
         run = f"{tmp}/{cfg['checkpoint_name']}"
@@ -741,16 +786,17 @@ def main() -> int:
     print(f"[2]   head_tail_kernel, all {len(k2)} instances: registers {min(v['regs'] for v in k2.values())}-"
           f"{max(v['regs'] for v in k2.values())}, stack {max(v['stack'] for v in k2.values())} B, "
           f"spills {sum(v['spill_stores'] + v['spill_loads'] for v in k2.values())} B")
-    for kname in (*CONV_KERNELS, *k2, "lse_split_kernel", "lse_pass_kernel"):
+    for kname in (*CONV_KERNELS, *k2, "lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel"):
         props = summary[kname]
         assert props["spill_stores"] == props["spill_loads"] == 0, (kname, props)
         if kname not in CONV_KERNELS:
             assert props["stack"] == 0, (kname, props)
-    # a warpgroup.wait that ptxas injects between the lse pass's wgmmas
-    # serializes them (one more than this design's once doubled the pass's time)
-    injected = [x for x in info["log"].splitlines() if "C7517" in x and "lse_pass_kernel" in x]
-    print(f"[2]   lse_pass_kernel: {len(injected)} warpgroup.wait injected by ptxas (C7517)")
-    assert len(injected) <= LSE_INJECTED_WAITS, injected
+    # a warpgroup.wait that ptxas injects between a pass's wgmmas serializes
+    # them (one more than the lse pass's design once doubled its time)
+    for kname, most in INJECTED_WAITS.items():
+        injected = [x for x in info["log"].splitlines() if "C7517" in x and kname in x]
+        print(f"[2]   {kname}: {len(injected)} warpgroup.wait injected by ptxas (C7517), at most {most}")
+        assert len(injected) <= most, injected
 
     rng = np.random.default_rng(SEED)
     records = phase_kernels(torch, fh, rng)

@@ -38,6 +38,7 @@ from ..core.device import resolve_device
 from ..data import DATASETS
 from ..data.utils import IMAGENET_MEAN, IMAGENET_STD
 from ..models import MODELS
+from ..models.keypoint_det import check_head_dataflow
 from ..ops.coords import denormalize_coords
 from ..ops.detect import DETECTORS
 from ..ops.grid_sample import sample_feat_by_coord
@@ -106,6 +107,7 @@ class Extractor:
                 and self.device.type == "cuda"
             ):
                 lh_cfg["fused_upsample"] = "pallas"
+            check_head_dataflow(lh_cfg.get("fused_upsample", True), dtype, self.device.type)
 
         # fail fast on an existing run dir (reference extractor.py:133-140)
         # unless resume: True
@@ -176,7 +178,7 @@ class Extractor:
             and "detector_config_query" in self.config
         ):
             raise NotImplementedError(
-                "detector_config_query is not ported yet; see ROADMAP.md queue 1, item 7"
+                "detector_config_query is not ported yet; see ROADMAP.md queue 1, item 2"
             )
         return "detector_config"
 

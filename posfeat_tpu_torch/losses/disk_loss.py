@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..ops.coords import homogenize, normalize_coords
 from ..ops.epipolar import epipolar_lines, epipolar_pairwise_dist
 from ..ops.grid_sample import sample_feat_by_coord
-from ..ops.reinforce import reinforce_reduction
+from ..ops.reinforce import kernels_take, reinforce_reduction
 from ..ops.samplers import (
     accept_logits,
     bernoulli_logp,
@@ -124,9 +124,12 @@ class DiskLoss:
 
     # -------------------------------------------------------------- loss
 
-    def _use_streamed(self) -> bool:
+    def _use_streamed(self, dim: int) -> bool:
         """The streamed reduction covers the shipped configuration
-        (detached match distribution, constant un-rescaled reward)."""
+        (detached match distribution, constant un-rescaled reward) at the
+        descriptor widths ``dim`` its kernels take (D % 4 == 0, D <= 128);
+        anything else takes the dense path, chosen before any launch as
+        the JAX package's ``_use_pallas`` chooses."""
         if self.config.get("use_pallas", "auto") is False:
             return False
         return bool(
@@ -134,6 +137,7 @@ class DiskLoss:
             and not self.config["match_grad"]
             and self.reward_name == "constant_reward"
             and not self.config["reward_config"].get("rescale_thr", False)
+            and kernels_take(dim)
         )
 
     def _reward_config(self, epoch) -> Dict[str, Any]:
@@ -219,7 +223,7 @@ class DiskLoss:
         feat1 = sample_feat_by_coord(xf1, normalize_coords(coord1, H, W), cos)  # [B, m, c]
         feat2 = sample_feat_by_coord(xf2, normalize_coords(coord2, H, W), cos)  # [B, n, c]
 
-        if self._use_streamed():
+        if self._use_streamed(feat1.shape[-1]):
             return self._streamed_loss(inputs, feat1, feat2, coord1, coord2, logp1, logp2,
                                        accept1, accept2, temperature, rcfg["reward_thr"])
 

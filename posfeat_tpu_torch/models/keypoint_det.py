@@ -162,6 +162,19 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown act {act}")
 
 
+def check_head_dataflow(fused_upsample, dtype: torch.dtype, device_type: str) -> None:
+    """Refuses the fused head (``fused_upsample="pallas"``) on the card at
+    any dtype but bf16: its CUDA kernels K1/K2 (and K3 in mode v1) take
+    bf16 only. The JAX head runs at the trunk's dtype, so this is a
+    divergence of the port. On the CPU the kernels' plain versions run
+    every dtype. Raises ValueError; nothing switches dataflow silently."""
+    if fused_upsample == "pallas" and dtype != torch.bfloat16 and device_type == "cuda":
+        raise ValueError(
+            f"fused_upsample='pallas' at {dtype} on the card: the fused head's kernels K1/K2 (and K3 "
+            "with fused_head_mode 'v1') take bfloat16 only. Run it at bfloat16, or pick a dataflow "
+            "that runs at float32: False, True, 'phase' or 'always'")
+
+
 class KeypointDet(nn.Module):
     """Keypoint score head. Parameter names are the reference's
     (conv1, conv2, conv3, convimg, relu), so reference
@@ -205,6 +218,7 @@ class KeypointDet(nn.Module):
     def forward(self, fine_map: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         """fine_map [B, h, w, C_in], img [B, H, W, 3] -> score [B, H, W, out]."""
         dt = self.dtype
+        check_head_dataflow(self.fused_upsample, dt, fine_map.device.type)
         a = self.relu.weight
 
         def prelu(x):

@@ -115,9 +115,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.posfeat_conv_smem_bytes.restype = ctypes.c_long
     lib.posfeat_head_tail.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.posfeat_head_tail.restype = i
-    lib.posfeat_lse_pass.argtypes = [p] * 7 + [i] * 4 + [f] + [p]
+    lib.posfeat_reinforce_split.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.posfeat_reinforce_split.restype = i
+    lib.posfeat_lse_pass.argtypes = [p] * 5 + [i] * 4 + [f] + [p]
     lib.posfeat_lse_pass.restype = i
-    lib.posfeat_reward_pass.argtypes = [p] * 15 + [i] * 4 + [f] * 4 + [p]
+    lib.posfeat_reward_pass.argtypes = [p] * 12 + [i] * 4 + [f] * 4 + [p]
     lib.posfeat_reward_pass.restype = i
     for name in ("posfeat_error_string", "posfeat_reinforce_error_string"):
         getattr(lib, name).argtypes = [i]

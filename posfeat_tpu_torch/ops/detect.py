@@ -59,7 +59,7 @@ def generate_kpts_single(
     if not stable:
         raise NotImplementedError(
             "Gumbel sampling (stable=False) is a training path; see ROADMAP.md "
-            "queue 1, item 11"
+            "queue 1, item 6"
         )
     if refine != "avg3":
         raise NotImplementedError(

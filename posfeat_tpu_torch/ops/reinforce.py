@@ -18,6 +18,11 @@ aff = T·f1·f2ᵀ − T. Two kernels compute it without an m×n tensor
   distances, the reward, W and every statistic the loss and its
   diagnostics need, with per-row-tile partials that the wrapper sums.
 
+Both run one product, f1·f2ᵀ as 3×TF32 on the tensor cores, from f1 and
+f2 split into TF32 hi and lo tiles by a third kernel (``_split_operands``).
+``reinforce_reduction`` splits once and hands the tiles to both passes;
+each pass called alone splits for itself.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. There is no backward:
 every output is detached, as the JAX reduction stops gradients.
@@ -29,8 +34,8 @@ import ctypes
 
 import torch
 
-TILE_M = 128  # rows of f1 per lse-pass block, columns of f2 per tile (csrc/reinforce.cu LM)
-REWARD_TILE_M = 64  # rows of f1 per reward-pass block (csrc/reinforce.cu TM)
+TILE_M = 128  # rows of f1 per block, columns of f2 per tile (csrc/reinforce.cu LM)
+CHUNK = 16  # depth of one f2 chunk of the split tiles (csrc/reinforce.cu LKC)
 MAX_D = 128
 
 
@@ -63,12 +68,18 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed ({rc}): {msg}")
 
 
+def kernels_take(D: int) -> bool:
+    """Whether the kernels take descriptors of width D (csrc/reinforce.cu
+    ``check_shape``)."""
+    return 0 < D <= MAX_D and D % 4 == 0
+
+
 def _shapes(f1, f2):
     B, m, D = f1.shape
     n = f2.shape[1]
     if f2.shape != (B, n, D):
         raise ValueError(f"f2 has shape {tuple(f2.shape)}, expected ({B}, n, {D})")
-    if D % 4 or D > MAX_D:
+    if not kernels_take(D):
         raise ValueError(f"the kernels need D % 4 == 0 and D <= {MAX_D}; got D = {D}")
     return B, m, n, D
 
@@ -83,6 +94,75 @@ def _line_dist(a, b):
     rounded products and two rounded sums, in the kernel's order."""
     a, b = a[:, :, None, :], b[:, None, :, :]
     return ((a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]).abs()
+
+
+# ------------------------------------------------------------ the split
+
+
+def _tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits) as cvt.rna.tf32.f32 rounds it,
+    to nearest with ties away from zero, kept as f32: half of the last
+    kept bit added to the magnitude's bits, the 13 dropped bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_plain(x, whole: bool):
+    """Plain version of the split of x [B, rows, D]: x = hi + lo, both
+    TF32, flat in the kernels' tile layout [B][tile][chunk][hi, lo][cq][128][4]
+    (tiles of TILE_M rows, chunks of ``cq`` groups of 4 depths, zero beyond
+    rows and D). f1's tiles (``whole``) are one chunk of the whole depth,
+    f2's chunks CHUNK deep."""
+    B, rows, D = x.shape
+    depth, tiles = CHUNK * -(-D // CHUNK), -(-rows // TILE_M)
+    xp = x.new_zeros((B, tiles * TILE_M, depth))
+    xp[:, :rows, :D] = x
+    hi = _tf32_rna(xp)
+    lo = _tf32_rna(xp - hi)
+    chunk = depth if whole else CHUNK
+
+    def lay(y):  # [B, tiles, chunks, 1, cq, 128, 4]
+        return y.view(B, tiles, TILE_M, depth // chunk, chunk // 4, 4).permute(0, 1, 3, 4, 2, 5)[:, :, :, None]
+
+    return torch.cat([lay(hi), lay(lo)], 3).flatten()
+
+
+def _split_floats(B, rows, D):
+    return B * -(-rows // TILE_M) * 2 * CHUNK * -(-D // CHUNK) * TILE_M
+
+
+def _split_operands(f1, f2):
+    """f1 [B, m, D] and f2 [B, n, D] split into TF32 hi and lo tiles, the
+    operands of both passes (csrc/reinforce.cu ``lse_split_kernel``, two
+    launches, counted as one split). Returns flat (f1s, f2s) in the layout
+    of ``_split_plain``, which runs on CPU tensors."""
+    if f1.device.type == "cpu":
+        return _split_plain(f1, True), _split_plain(f2, False)
+    from ._build import load_kernels
+
+    B, m, n, D = _shapes(f1, f2)
+    dev = f1.device
+    _check(f1, "f1", (B, m, D), dev)
+    _check(f2, "f2", (B, n, D), dev)
+    f1s = torch.empty(_split_floats(B, m, D), dtype=torch.float32, device=dev)
+    f2s = torch.empty(_split_floats(B, n, D), dtype=torch.float32, device=dev)
+    rc = load_kernels().posfeat_reinforce_split(_ptr(f1), _ptr(f2), _ptr(f1s), _ptr(f2s), B, m, n, D,
+                                                _stream())
+    _split_operands.launches += 1
+    _raise_on(rc, "split")
+    return f1s, f2s
+
+
+_split_operands.launches = 0
+
+
+def _tiles(tiles, f1, f2, B, m, n, D):
+    """The split tiles a pass reads: ``tiles`` as ``_split_operands``
+    returned them, checked, or f1 and f2 split now."""
+    if tiles is None:
+        return _split_operands(f1, f2)
+    for t, name, rows in zip(tiles, ("f1s", "f2s"), (m, n)):
+        _check(t, name, (_split_floats(B, rows, D),), f1.device)
+    return tiles
 
 
 # ------------------------------------------------------------- lse pass
@@ -110,10 +190,11 @@ def merge_col_partials(col_max, col_sum):
     return mx.squeeze(1) + torch.log(se.clamp_min(1e-30))
 
 
-def lse_pass(f1, f2, temperature: float):
+def lse_pass(f1, f2, temperature: float, *, tiles=None):
     """The lse-pass kernel (replaces posfeat_tpu/ops/pallas/reinforce.py:66
     ``_pass1_kernel`` and :88 ``_pass2_kernel``); same contract as
-    ``lse_pass_plain``."""
+    ``lse_pass_plain``. ``tiles``: f1 and f2 as ``_split_operands``
+    returned them, or None to split them here."""
     if f1.device.type == "cpu":
         return lse_pass_plain(f1, f2, temperature)
     from ._build import load_kernels
@@ -122,16 +203,13 @@ def lse_pass(f1, f2, temperature: float):
     dev = f1.device
     _check(f1, "f1", (B, m, D), dev)
     _check(f2, "f2", (B, n, D), dev)
-    mt, nt = -(-m // TILE_M), -(-n // TILE_M)
+    f1s, f2s = _tiles(tiles, f1, f2, B, m, n, D)
+    mt = -(-m // TILE_M)
     f32 = dict(dtype=torch.float32, device=dev)
-    # f1 and f2 split into TF32 hi and lo, tile by tile, in 16-deep chunks
-    depth = 16 * -(-D // 16)
-    f1s = torch.empty(B * mt * 2 * depth * TILE_M, **f32)
-    f2s = torch.empty(B * nt * 2 * depth * TILE_M, **f32)
     row_lse = torch.empty((B, m), **f32)
     col_max, col_sum = torch.empty((B, mt, n), **f32), torch.empty((B, mt, n), **f32)
     rc = load_kernels().posfeat_lse_pass(
-        _ptr(f1), _ptr(f2), _ptr(f1s), _ptr(f2s), _ptr(row_lse), _ptr(col_max), _ptr(col_sum),
+        _ptr(f1s), _ptr(f2s), _ptr(row_lse), _ptr(col_max), _ptr(col_sum),
         B, m, n, D, float(temperature), _stream(),
     )
     lse_pass.launches += 1
@@ -151,7 +229,14 @@ def reward_pass_plain(f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse,
     rowW [B, m], colW [B, n], p_rowsum [B, m], p_colsum [B, n], p_max [B],
     p_sum [B], n_good [B]); n_good counts the pairs with both epipolar
     distances under ``thr``, so a card run can count flipped decisions."""
-    aff = _affinity(f1, f2, temperature)
+    return _reward_of_affinity(_affinity(f1, f2, temperature), line1, c2h, line2, c1h, accept1,
+                               accept2, row_lse, col_lse, thr=thr, good_reward=good_reward,
+                               bad_reward=bad_reward)
+
+
+def _reward_of_affinity(aff, line1, c2h, line2, c1h, accept1, accept2, row_lse, col_lse, *,
+                        thr, good_reward, bad_reward):
+    """``reward_pass_plain`` on a given affinity aff [B, m, n]."""
     lp = (aff - row_lse[:, :, None]) + (aff - col_lse[:, None, :])
     p = torch.exp(lp)
     good = (_line_dist(line1, c2h) < thr) & (_line_dist(c1h, line2) < thr)
@@ -163,10 +248,30 @@ def reward_pass_plain(f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse,
     )
 
 
+def _pack_columns(c2h, line2, accept2, col_lse):
+    """The reward pass's column operands [B, n_tiles, 8, TILE_M],
+    structure of arrays per column tile (c2h x, y, z, line2 x, y, z,
+    accept2, col_lse), one bulk copy each. Columns beyond n get NaN lines
+    (never good), accept 0 (W = 0) and col_lse 1e30 (p = 0), so the
+    kernel needs no mask per pair."""
+    B, n = accept2.shape
+    n_ct = -(-n // TILE_M)
+
+    def pad(x, value):
+        return torch.nn.functional.pad(x, (0, 0, 0, n_ct * TILE_M - n), value=value)
+
+    nan = float("nan")
+    cols = torch.cat([pad(c2h, nan), pad(line2, nan), pad(accept2[..., None], 0.0),
+                      pad(col_lse[..., None], 1e30)], -1)
+    return cols.view(B, n_ct, TILE_M, 8).transpose(2, 3).contiguous()
+
+
 def reward_pass(f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse, col_lse,
-                *, temperature, thr, good_reward, bad_reward):
+                *, temperature, thr, good_reward, bad_reward, tiles=None):
     """The reward-pass kernel (replaces posfeat_tpu/ops/pallas/reinforce.py:110
-    ``_pass3_kernel``); same contract as ``reward_pass_plain``."""
+    ``_pass3_kernel``); same contract as ``reward_pass_plain``. ``tiles``:
+    f1 and f2 as ``_split_operands`` returned them, or None to split them
+    here."""
     kw = dict(temperature=temperature, thr=thr, good_reward=good_reward, bad_reward=bad_reward)
     if f1.device.type == "cpu":
         return reward_pass_plain(f1, f2, line1, c2h, line2, c1h, accept1, accept2,
@@ -182,13 +287,15 @@ def reward_pass(f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse, col_l
         (row_lse, "row_lse", (B, m)), (col_lse, "col_lse", (B, n)),
     ):
         _check(t, name, shape, dev)
-    mt = -(-m // REWARD_TILE_M)
+    f1s, f2s = _tiles(tiles, f1, f2, B, m, n, D)
+    cols = _pack_columns(c2h, line2, accept2, col_lse)
+    mt = -(-m // TILE_M)
     f32 = dict(dtype=torch.float32, device=dev)
     row_w, p_rowsum = torch.empty((B, m), **f32), torch.empty((B, m), **f32)
     colw_part, pcol_part = torch.empty((B, mt, n), **f32), torch.empty((B, mt, n), **f32)
     stats = torch.empty((B, mt, 4), **f32)
     rc = load_kernels().posfeat_reward_pass(
-        *map(_ptr, (f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse, col_lse,
+        *map(_ptr, (f1s, f2s, line1, c1h, accept1, row_lse, cols,
                     row_w, p_rowsum, colw_part, pcol_part, stats)),
         B, m, n, D, float(temperature), float(thr), float(good_reward), float(bad_reward),
         _stream(),
@@ -232,11 +339,13 @@ def reinforce_reduction(f1, f2, line1, c2h, line2, c1h, accept1, accept2, *,
     coord2; line2 [B, n, 3] and c1h [B, m, 3] the other direction;
     accept1/2 [B, m]/[B, n] Bernoulli accepts. Returns the detached
     (s0 [B], rowW [B, m], colW [B, n], p_rowsum [B, m], p_colsum [B, n],
-    p_max [B], p_sum [B]). Each pass launches its kernel on CUDA tensors
-    and runs its plain version on CPU tensors."""
+    p_max [B], p_sum [B]). Each pass launches its kernel on CUDA tensors,
+    both on one split of f1 and f2, and runs its plain version on CPU
+    tensors."""
     f1, f2, line1, c2h, line2, c1h, accept1, accept2 = _prepare(
         (f1, f2, line1, c2h, line2, c1h, accept1, accept2))
-    row_lse, col_lse = lse_pass(f1, f2, temperature)
+    tiles = _split_operands(f1, f2) if f1.is_cuda else None
+    row_lse, col_lse = lse_pass(f1, f2, temperature, tiles=tiles)
     return reward_pass(f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse, col_lse,
                        temperature=temperature, thr=thr, good_reward=good_reward,
-                       bad_reward=bad_reward)[:7]
+                       bad_reward=bad_reward, tiles=tiles)[:7]

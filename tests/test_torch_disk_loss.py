@@ -121,8 +121,8 @@ def test_disk_loss_matches_jax_given_draws(case):
     l_ref, c_ref, g_ref = _jax_loss(cfg, prob, epoch, key)
     draws = jax_disk_draws(prob[0], prob[1], key, G)
     loss_mod = DiskLoss(copy.deepcopy(cfg))
-    assert loss_mod._use_streamed() == (use_pallas == "interpret"
-                                        and reward == "constant_reward" and not rescale)
+    assert loss_mod._use_streamed(C) == (use_pallas == "interpret"
+                                         and reward == "constant_reward" and not rescale)
     l_got, c_got, g_got = _port_loss(cfg, prob, epoch, draws)
 
     np.testing.assert_allclose(l_got, l_ref, rtol=2e-4, atol=1e-5)

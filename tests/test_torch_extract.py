@@ -151,6 +151,29 @@ def test_bf16_selects_fused_head_only_on_the_card(tmp_path):
     assert "fused_upsample" not in cfg["model_config"]["localheader_config"]
 
 
+def test_extractor_checks_the_head_dataflow_first(tmp_path, monkeypatch):
+    """Extractor applies the head's dataflow rule to the resolved
+    dataflow, dtype and device before it writes anything."""
+    from posfeat_tpu_torch.extract import extractor as ex_mod
+
+    seen = []
+
+    class Refused(Exception):
+        pass
+
+    def rule(*args):
+        seen.append(args)
+        raise Refused
+
+    monkeypatch.setattr(ex_mod, "check_head_dataflow", rule)
+    cfg = _config(tmp_path, "refused", tmp_path / "none")
+    cfg["head_dataflow"] = "pallas"
+    with pytest.raises(Refused):
+        Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu", dataset=[])
+    assert seen == [("pallas", torch.float32, "cpu")]
+    assert not (tmp_path / "out").exists()
+
+
 @pytest.mark.parametrize(
     "dataflow, mode", [("pallas", "v1"), ("phase", None), ("always", None), (False, None)]
 )

@@ -92,6 +92,56 @@ def test_keypoint_det_rejects_unknown_dataflows():
         tm.KeypointDet(in_channels=8, fused_upsample="pallas", fused_head_mode="v2")
 
 
+@pytest.mark.parametrize("dataflow, dtype, device, refused", [
+    ("pallas", torch.float32, "cuda", True),
+    ("pallas", torch.float16, "cuda", True),
+    ("pallas", torch.bfloat16, "cuda", False),
+    ("pallas", torch.float32, "cpu", False),
+    (False, torch.float32, "cuda", False),
+    (True, torch.float32, "cuda", False),
+    ("phase", torch.float32, "cuda", False),
+    ("always", torch.float32, "cuda", False),
+])
+def test_fused_head_refused_on_the_card_below_bf16(dataflow, dtype, device, refused):
+    """The fused head's kernels take bf16 only: (pallas, not bf16, cuda)
+    raises ValueError naming K1/K2 and the dataflows that run at f32;
+    every other dataflow, bf16 on the card, and every dtype on the CPU
+    (the plain versions) pass."""
+    from posfeat_tpu_torch.models.keypoint_det import check_head_dataflow
+
+    if refused:
+        with pytest.raises(ValueError, match=r"K1/K2.*False, True, 'phase' or 'always'"):
+            check_head_dataflow(dataflow, dtype, device)
+    else:
+        check_head_dataflow(dataflow, dtype, device)
+
+
+def test_keypoint_det_checks_its_dataflow_before_any_work(rng, monkeypatch):
+    """KeypointDet.forward applies the dataflow rule to its dtype and its
+    input's device before its first conv."""
+    from posfeat_tpu_torch.models import keypoint_det as kd
+
+    seen = []
+
+    class Refused(Exception):
+        pass
+
+    def rule(*args):
+        seen.append(args)
+        raise Refused
+
+    def no_work(*a, **k):
+        raise AssertionError("the head ran before its dataflow was checked")
+
+    monkeypatch.setattr(kd, "check_head_dataflow", rule)
+    monkeypatch.setattr(kd, "_conv", no_work)
+    monkeypatch.setattr(kd, "fused_head_tail", no_work)
+    head = tm.KeypointDet(in_channels=8, fused_upsample="pallas", dtype=torch.float32)
+    with pytest.raises(Refused):
+        head(torch.from_numpy(rng.rand(1, 4, 5, 8).astype(np.float32)), torch.zeros(1, 16, 20, 3))
+    assert seen == [("pallas", torch.float32, "cpu")]
+
+
 def test_posfeat_extract_output_dict(rng):
     jmodel, variables = jax_posfeat(seed=3)
     im = rng.rand(1, 64, 96, 3).astype(np.float32)

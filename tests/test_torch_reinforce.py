@@ -130,6 +130,33 @@ def _product_3xtf32(f1, f2):
     return (mm(l1, h2) + mm(h1, l2)) + mm(h1, h2)
 
 
+def _rz(x):
+    """float64 x rounded to f32 toward zero."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    f[over] = torch.nextafter(f[over], torch.zeros_like(f[over]))
+    return f
+
+
+def _product_3xtf32_truncating(f1, f2):
+    """f1·f2ᵀ as the passes' product forms it on the card: per 8-deep
+    step, lo·hi, then + hi·lo, then + hi·hi into one tensor-core
+    accumulator, each result truncated toward zero (the tensor cores'
+    accumulation), then added to an f32 running sum rounded to nearest."""
+    h1, h2 = _tf32_rna(f1), _tf32_rna(f2)
+    parts = [torch.from_numpy(a).double() for a in (h1, _tf32_rna(f1 - h1), h2, _tf32_rna(f2 - h2))]
+    h1, l1, h2, l2 = parts
+    mm = lambda a, b: torch.bmm(a, b.transpose(1, 2))  # noqa: E731
+    acc = torch.zeros(f1.shape[0], f1.shape[1], f2.shape[1])
+    for k in range(0, f1.shape[2], 8):
+        s = slice(k, k + 8)
+        d = _rz(mm(l1[..., s], h2[..., s]))
+        d = _rz(d.double() + mm(h1[..., s], l2[..., s]))
+        d = _rz(d.double() + mm(h1[..., s], h2[..., s]))
+        acc = acc + d
+    return acc
+
+
 def test_tf32_rounding_model():
     """The bit model of cvt.rna.tf32.f32: 10 mantissa bits kept, halfway
     cases rounded away from zero, the rest to nearest."""
@@ -140,6 +167,163 @@ def test_tf32_rounding_model():
     y = np.random.RandomState(0).randn(1000).astype(np.float32)
     r = _tf32_rna(y)
     assert not (r.view(np.uint32) & 0x1FFF).any() and (np.abs(r - y) <= 2.0 ** -11 * np.abs(y)).all()
+
+
+def _unsplit(f1s, f2s, B, m, n, D):
+    """(hi, lo) of f1 [B, m', depth] and of f2 [B, n', depth] (m', n'
+    whole tiles) read back from the split tiles at the offsets the
+    kernels read them: a block's f1 tile at (b * row_tiles + tile) *
+    2 * (depth / 4) * 128 * 4 floats, hi then lo, each [depth / 4][128][4];
+    f2's chunk i = column_tile * chunks + c at i * 2 * 16 * 128 floats, hi
+    then lo, each [4][128][4]."""
+    t, ck = rf.TILE_M, rf.CHUNK
+    depth = ck * -(-D // ck)
+    nck, mt, nt = depth // ck, -(-m // t), -(-n // t)
+    a = f1s.view(B * mt, 2, depth // 4, t, 4)  # [block][hi, lo][q][r][k]
+    a = a.permute(1, 0, 3, 2, 4).reshape(2, B, mt * t, depth)
+    c = f2s.view(B * nt, nck, 2, ck // 4, t, 4)  # [tile][chunk][hi, lo][q][r][k]
+    c = c.permute(2, 0, 4, 1, 3, 5).reshape(2, B, nt * t, depth)
+    return a, c
+
+
+@pytest.mark.parametrize("D", [128, 36, 20])
+def test_split_layout_is_what_both_kernels_read(D):
+    """``_split_operands`` on the CPU, ``_split_plain``, gives f1 and f2 as
+    the kernels read them, in the tile layout [B][tile][chunk][hi, lo][cq]
+    [128][4] that ``lse_split_kernel`` writes: read back at the passes'
+    offsets, hi is x rounded to TF32 bit for bit (the numpy model of
+    cvt.rna), lo is x - hi rounded, zero beyond m, n and D; the 3xTF32
+    product of the tiles is the modelled one."""
+    B, m, n = 2, 2 * rf.TILE_M + 3, rf.TILE_M + 1
+    args = _problem(np.random.RandomState(D), B=B, m=m, n=n, D=D)
+    f1s, f2s = rf._split_operands(torch.from_numpy(args[0]), torch.from_numpy(args[1]))
+    assert f1s.shape == (rf._split_floats(B, m, D),) and f2s.shape == (rf._split_floats(B, n, D),)
+    (h1, l1), (h2, l2) = _unsplit(f1s, f2s, B, m, n, D)
+    for x, hi, lo, rows in ((args[0], h1, l1, m), (args[1], h2, l2, n)):
+        want_hi = _tf32_rna(x)
+        np.testing.assert_array_equal(hi[:, :rows, :D].numpy(), want_hi)
+        np.testing.assert_array_equal(lo[:, :rows, :D].numpy(), _tf32_rna(x - want_hi))
+        assert not hi[:, rows:].any() and not hi[:, :, D:].any() and not lo[:, rows:].any() and not lo[:, :, D:].any()
+    mm = lambda a, b: torch.bmm(a, b.transpose(1, 2))  # noqa: E731
+    got = ((mm(l1, h2) + mm(h1, l2)) + mm(h1, h2))[:, :m, :n]
+    torch.testing.assert_close(got, _product_3xtf32(args[0], args[1]), rtol=0, atol=1e-6)
+
+
+def test_column_operands_pack_and_padding(rng):
+    """``_pack_columns`` lays each column tile's c2h, line2, accept2 and
+    col_lse out as 8 arrays of 128; the columns beyond n and, as the
+    reward kernel fills them, the rows beyond m (NaN lines, accept 0, lse
+    1e30) add nothing to any output of the plain reward arithmetic."""
+    B, m, n, D = 2, 130, rf.TILE_M + 5, 16
+    f1, f2, l1, c2h, l2, c1h, a1, a2 = map(torch.from_numpy, _problem(rng, B=B, m=m, n=n, D=D))
+    T = KW["temperature"]
+    rl, cl = rf.lse_pass_plain(f1, f2, T)
+    cols = rf._pack_columns(c2h, l2, a2, cl)
+    assert cols.shape == (B, 2, 8, rf.TILE_M) and cols.is_contiguous()
+    flat = cols.permute(0, 1, 3, 2).reshape(B, 2 * rf.TILE_M, 8)
+    torch.testing.assert_close(flat[:, :n], torch.cat([c2h, l2, a2[..., None], cl[..., None]], -1), rtol=0, atol=0)
+    assert flat[:, n:, :6].isnan().all() and (flat[:, n:, 6] == 0).all() and (flat[:, n:, 7] == 1e30).all()
+    # rows padded as the kernel pads them
+    mp = 2 * rf.TILE_M
+    nan_rows = torch.full((B, mp - m, 3), float("nan"))
+    rows = dict(line1=torch.cat([l1, nan_rows], 1), c1h=torch.cat([c1h, nan_rows], 1),
+                accept1=torch.cat([a1, torch.zeros(B, mp - m)], 1),
+                row_lse=torch.cat([rl, torch.full((B, mp - m), 1e30)], 1))
+    aff = torch.nn.functional.pad(rf._affinity(f1, f2, T), (0, flat.shape[1] - n, 0, mp - m), value=-T)
+    padded = rf._reward_of_affinity(aff, rows["line1"], flat[..., :3], flat[..., 3:6], rows["c1h"], rows["accept1"],
+                                    flat[..., 6], rows["row_lse"], flat[..., 7], thr=KW["thr"],
+                                    good_reward=KW["good_reward"], bad_reward=KW["bad_reward"])
+    want = rf.reward_pass_plain(f1, f2, l1, c2h, l2, c1h, a1, a2, rl, cl, **KW)
+    got = (padded[0], padded[1][:, :m], padded[2][:, :n], padded[3][:, :m], padded[4][:, :n], *padded[5:])
+    assert not padded[1][:, m:].any() and not padded[3][:, m:].any() and not padded[2][:, n:].any()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("D", [128, 36])
+def test_3xtf32_reward_model_matches_pallas_interpret(D):
+    """The reward pass on the lse pass's 3xTF32 product, modelled on the
+    CPU at the training path's T = 60: the modelled dots (the tensor
+    cores' truncation included), scaled as the kernel scales them (one
+    rounding, as fmaf), with the log-sum-exps of the same modelled
+    affinity, pushed through the plain reward arithmetic; all seven
+    outputs against the Pallas reduction (interpret=True) and the plain
+    reduction at the reduction's tolerance, and the good decisions as the
+    plain version's (they read no product)."""
+    import jax.numpy as jnp
+    from posfeat_tpu.ops.pallas.reinforce import reinforce_reduction as jax_reduction
+
+    kw = dict(KW, temperature=60.0)
+    T = kw["temperature"]
+    args = _problem(np.random.RandomState(D + 1), B=2, m=300, n=290, D=D)
+    t = list(map(torch.from_numpy, args))
+    aff = (T * _product_3xtf32_truncating(args[0], args[1]).double() - T).float()
+    row_lse, col_lse = torch.logsumexp(aff, 2), torch.logsumexp(aff, 1)
+    rkw = {k: kw[k] for k in ("thr", "good_reward", "bad_reward")}
+    got = rf._reward_of_affinity(aff, *t[2:], row_lse, col_lse, **rkw)
+    ref = jax_reduction(*map(jnp.asarray, args), **kw, interpret=True)
+    for g, r in zip(got[:7], ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+    plain = rf.reinforce_reduction_plain(*t, **kw)
+    n_good = rf.reward_pass_plain(*t, *rf.lse_pass_plain(t[0], t[1], T), **kw)[7]
+    assert (got[7] - n_good).abs().sum() <= 1e-3 * n_good.sum()
+    for g, p in zip(got[:7], plain):
+        torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("D, takes", [(128, True), (64, True), (130, False), (126, False)])
+def test_streamed_loss_only_at_widths_the_kernels_take(D, takes):
+    """DiskLoss picks the streamed reduction only where its kernels take
+    the descriptors' width (D % 4 == 0, D <= 128), from the width alone,
+    before any launch, as the JAX package picks its path from the config."""
+    from posfeat_tpu_torch.losses import DiskLoss
+
+    cfg = dict(_SHIPPED_LOSS, use_pallas="auto")
+    assert rf.kernels_take(D) is takes
+    assert DiskLoss(cfg)._use_streamed(D) is takes
+    assert DiskLoss(dict(cfg, use_pallas=False))._use_streamed(D) is False
+
+
+# configs/train_kp.yaml's DiskLoss_config, the streamed path's configuration
+_SHIPPED_LOSS = {
+    "grid_size": 8, "loss_distance": "cos", "temperature_base": 5, "temperature_max": 60,
+    "epipolar_reward": "constant_reward", "reward_config": {"reward_thr": 4, "rescale_thr": False},
+    "cor_detach": True, "good_reward": 1, "bad_reward": -0.25, "kp_penalty": -0.001, "match_grad": False,
+}
+
+
+def test_wide_descriptors_take_the_dense_loss(monkeypatch):
+    """At D = 130 (beyond the kernels' 128) a DiskLoss step in the
+    streamed configuration takes the dense path and matches the dense
+    loss: the reduction is never called."""
+    from posfeat_tpu_torch.losses import DiskLoss
+    from posfeat_tpu_torch.losses import disk_loss as dl
+
+    rng = np.random.RandomState(4)
+    B, H, W, D, G = 2, 32, 48, 130, 8
+    kp1, kp2 = (torch.from_numpy(rng.randn(B, H, W, 1).astype(np.float32)) for _ in range(2))
+    xf1 = torch.from_numpy(rng.randn(B, H // 4, W // 4, D).astype(np.float32))
+    xf2 = xf1 + 0.3 * torch.from_numpy(rng.randn(B, H // 4, W // 4, D).astype(np.float32))
+    F = torch.from_numpy(_fundamental(rng, B))
+    inputs = {"F1": F, "F2": F.mT.contiguous()}
+
+    def step(cfg):
+        k1, k2 = kp1.clone().requires_grad_(True), kp2.clone().requires_grad_(True)
+        out = {"preds1": {"local_point": k1, "local_map": xf1}, "preds2": {"local_point": k2, "local_map": xf2},
+               "epoch": 1}
+        loss, comps = DiskLoss(cfg)(inputs, out, None, generator=torch.Generator().manual_seed(0))
+        loss.backward()
+        return loss.item(), comps, k1.grad
+
+    def never(*a, **k):
+        raise AssertionError("the streamed reduction ran at D = 130")
+
+    monkeypatch.setattr(dl, "reinforce_reduction", never)
+    l_auto, c_auto, g_auto = step(dict(_SHIPPED_LOSS, use_pallas="auto"))
+    l_dense, c_dense, g_dense = step(dict(_SHIPPED_LOSS, use_pallas=False))
+    assert np.isfinite(l_auto) and l_auto == l_dense
+    assert set(c_auto) == set(c_dense) and "cor max" in c_auto
+    torch.testing.assert_close(g_auto, g_dense, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("D", [128, 36])
@@ -170,13 +354,15 @@ def test_3xtf32_lse_model_matches_pallas_interpret(D):
 @pytest.mark.parametrize(
     "shape",
     [(2, 150, 97, 128), (1, 64, 64, 16), (3, 37, 200, 36), (2, 129, 257, 16), (1, 129, 257, 128),
-     (2, 150, 97, 36), (1, 300, 130, 128), (2, 150, 600, 36)],
+     (2, 150, 97, 36), (1, 300, 130, 128), (2, 150, 600, 36), (2, 389, 261, 128), (1, 517, 300, 20)],
     ids=["ragged_d128", "one_tile_d16", "ragged_d36", "ragged_129x257_d16", "ragged_129x257_d128",
-         "ragged_d36_b", "three_row_tiles_d128", "five_column_tiles_d36"],
+         "ragged_d36_b", "three_row_tiles_d128", "five_column_tiles_d36", "four_row_tiles_d128",
+         "five_row_tiles_d20"],
 )
 def test_cuda_kernels_match_plain_versions(shape):
-    """Each kernel against its plain version on the same inputs, and the
-    whole reduction against the dense one, ragged edges included."""
+    """Each kernel against its plain version on the same inputs (the
+    split bit for bit), and the whole reduction, on one split, against
+    the dense one, ragged edges included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = resolve_device("cuda")  # also keeps the f32 plain versions out of TF32
@@ -184,7 +370,10 @@ def test_cuda_kernels_match_plain_versions(shape):
     args = [torch.from_numpy(a).to(dev) for a in _problem(np.random.RandomState(1), B, m, n, D)]
     f1, f2, l1, c2h, l2, c1h, a1, a2 = args
     T = KW["temperature"]
-    n0 = (rf.lse_pass.launches, rf.reward_pass.launches)
+    f1s, f2s = rf._split_operands(f1, f2)
+    torch.cuda.synchronize()
+    assert torch.equal(f1s, rf._split_plain(f1, True)) and torch.equal(f2s, rf._split_plain(f2, False))
+    n0 = (rf.lse_pass.launches, rf.reward_pass.launches, rf._split_operands.launches)
     rl, cl = rf.lse_pass(f1, f2, T)
     torch.cuda.synchronize()
     rlp, clp = rf.lse_pass_plain(f1, f2, T)
@@ -195,10 +384,13 @@ def test_cuda_kernels_match_plain_versions(shape):
     ref = rf.reward_pass_plain(*args, rlp, clp, **KW)
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, rtol=RTOL, atol=ATOL)
+    # each pass alone splits for itself; the reduction splits once for both
+    assert rf._split_operands.launches == n0[2] + 2
     got = rf.reinforce_reduction(*args, **KW)
     want = rf.reinforce_reduction_plain(*args, **KW)
     for o, r in zip(got, want):
         torch.testing.assert_close(o, r, rtol=RTOL, atol=ATOL)
-    assert (rf.lse_pass.launches, rf.reward_pass.launches) == (n0[0] + 2, n0[1] + 2)
+    assert (rf.lse_pass.launches, rf.reward_pass.launches, rf._split_operands.launches) == (
+        n0[0] + 2, n0[1] + 2, n0[2] + 3)
     with pytest.raises(TypeError):
         rf.lse_pass(f1.double(), f2.double(), T)

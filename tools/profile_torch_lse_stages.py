@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""Split the time of posfeat_tpu_torch's lse pass (K4+K5, lse_pass_kernel
-in csrc/reinforce.cu) into its stages on one CUDA card, by timing copies
-of the source with a stage cut out, at the training path's shapes (B=6,
-m=n=4800, D=128, T=60).
+"""Split the time of posfeat_tpu_torch's two reduction passes, the lse
+pass (K4+K5, lse_pass_kernel) and the reward pass (K6,
+reward_pass_kernel), both in csrc/reinforce.cu, into their stages on one
+CUDA card, by timing copies of the source with a stage cut out, at the
+training path's shapes (B=6, m=n=4800, D=128, T=60; chip_smoke.py's
+reduction_problem).
 
     python3 tools/profile_torch_lse_stages.py
 
 Builds, each from a copy of csrc/reinforce.cu:
   full      the source as it is;
-  no_epi    the epilogue (between its "epilogue begin" and "epilogue end"
-            comments) replaced by the last adds and a sum that keeps the
-            accumulators alive: the wgmmas, their adds and the f2 staging;
-  no_stage  the f2 staging (between "staging begin" and "staging end": the
-            ring's bulk copies and the waits for them) removed as well:
-            the wgmmas and their adds on a ring that is never refilled.
-The copies' outputs are wrong and are never read. The kernel is timed
-through its wrapper with chip_smoke.py's timer (CUDA events around 20
-launches after 3) in the order full, no_epi, no_stage, then once more in
-reverse. Prints ptxas' registers and spills per build and a last JSON line
-{"ms": {build: [ms, ms]}, "device": ..., "power_limit": ...}. Without a
-CUDA card it exits 2 and prints no result.
+  no_epi    both passes' epilogues (each between its "epilogue begin" and
+            "epilogue end" comments) replaced by a sum of the accumulators
+            and a store that the compiler cannot drop: the wgmmas, their
+            adds and the staging;
+  no_stage  the staging (between "staging begin" and "staging end": the
+            f2 ring's bulk copies and the waits for them, and the reward
+            pass's column operands' copies and waits) removed as well: the
+            wgmmas and their adds on a ring that is never refilled.
+The copies' outputs are wrong and are never read. Each pass is timed
+through its wrapper on one split of f1 and f2 (the kernels alone, as
+``reinforce_reduction`` runs them) with chip_smoke.py's timer (CUDA events
+around 20 launches after 3) in the order full, no_epi, no_stage, then once
+more in reverse. Prints ptxas' registers and spills per build and kernel
+and a last JSON line {"ms": {pass: {build: [ms, ms]}}, "device": ...,
+"power_limit": ...}. Without a CUDA card it exits 2 and prints no result.
 """
 
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -33,26 +39,26 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import _ptxas_summary, _time_ms, _unit  # noqa: E402
+from chip_smoke import REDUCTION_KW, SEED, _ptxas_summary, _time_ms, reduction_problem  # noqa: E402
 
-B, M, D, T = 6, 4800, 128, 60.0
 BUILDS = ("full", "no_epi", "no_stage")
-KEEP_ALIVE = """    if (c == nck - 1) {  // keeps the accumulators alive
-      wgmma_wait<0>();
-      add(d0);
-      if (nks == 2 || c > 0) add(d1);
+KERNELS = ("lse_pass_kernel", "reward_pass_kernel")
+KEEP_ALIVE = """    {  // keeps the accumulators alive: a use the compiler cannot drop
       float x = 0.f;
 #pragma unroll
       for (int i = 0; i < 64; ++i) x += acc[i];
-      if (x == 12345.f) col_max[tid] = x;
+      if (x == 12345.f) smem[0] = x;
     }
 """
 
 
 def cut(src: str, stage: str, keep: str = "") -> str:
-    a = src.index(f"    // {stage} begin")
-    b = src.index(f"    // {stage} end")
-    return src[:a] + keep + src[b:]
+    """``src`` with every region from a "// {stage} begin" comment's line
+    to its "// {stage} end" comment's line replaced by ``keep``."""
+    pattern = re.compile(rf"^[ \t]*// {stage} begin.*?^(?=[ \t]*// {stage} end)", re.S | re.M)
+    out, n = pattern.subn(lambda _: keep, src)
+    assert n, f"no {stage} region"
+    return out
 
 
 def variant(src: str, build: str) -> str:
@@ -74,29 +80,37 @@ def main() -> int:
     from posfeat_tpu_torch.ops import _build
     from posfeat_tpu_torch.ops import reinforce as rf
 
-    dev = resolve_device("cuda")
+    resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     libs = {}
     for name, (so, log) in _build.build_variants(
             "reinforce.cu", BUILDS, variant, os.path.join(ROOT, "build", "torch_kernels", "lse_stages")).items():
-        k = _ptxas_summary(log)["lse_pass_kernel"]
-        print(f"{name}: lse_pass_kernel {k['regs']} regs, spills {k['spill_stores']}/{k['spill_loads']} B")
+        summary = _ptxas_summary(log)
+        for k in KERNELS:
+            print(f"{name}: {k} {summary[k]['regs']} regs, spills {summary[k]['spill_stores']}/"
+                  f"{summary[k]['spill_loads']} B")
         libs[name] = _build.bind(ctypes.CDLL(so))
 
-    # chip_smoke.phase_reduction's descriptors: unit f1, f2 noisy copies of permuted f1 rows
-    rng = np.random.default_rng(0)
-    g = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev)  # noqa: E731
-    f1 = _unit(torch, g(B, M, D))
-    perm = torch.from_numpy(rng.permutation(M)).to(dev)
-    f2 = _unit(torch, f1[:, perm] + 0.15 * g(B, M, D)).contiguous()
-    ms = {}
+    args = reduction_problem(torch, np.random.default_rng(SEED))
+    f1, f2 = args[:2]
+    kw, T = REDUCTION_KW, REDUCTION_KW["temperature"]
+    tiles = rf._split_operands(f1, f2)
+    rl, cl = rf.lse_pass_plain(f1, f2, T)
+    passes = {
+        "lse_pass": lambda: rf.lse_pass(f1, f2, T, tiles=tiles),
+        "reward_pass": lambda: rf.reward_pass(*args, rl, cl, **kw, tiles=tiles),
+    }
+    ms = {p: {} for p in passes}
     for order in (BUILDS, BUILDS[::-1]):
         for name in order:
-            _build.load_kernels = lambda lib=libs[name]: lib  # the wrapper loads its library per call
-            ms.setdefault(name, []).append(_time_ms(lambda: rf.lse_pass(f1, f2, T)))
-    for name in BUILDS:
-        print(f"{name}: {' / '.join(f'{t:.4f}' for t in ms[name])} ms per B={B} launch")
+            _build.load_kernels = lambda lib=libs[name]: lib  # the wrappers load their library per call
+            for p, fn in passes.items():
+                ms[p].setdefault(name, []).append(_time_ms(fn))
+    B = f1.shape[0]
+    for p in passes:
+        for name in BUILDS:
+            print(f"{p} {name}: {' / '.join(f'{t:.4f}' for t in ms[p][name])} ms per B={B} launch")
     print(smi)
     print(json.dumps({"ms": ms, "device": torch.cuda.get_device_name(0), "power_limit": smi.split(", ")[-1]}))
     return 0

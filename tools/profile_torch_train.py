@@ -32,7 +32,8 @@ from profile_torch_extract import _busy_us  # noqa: E402
 
 # kernel-name fragments -> class, first match wins
 CLASSES = (
-    ("K4+K5 lse_pass", ("lse_pass_kernel", "lse_split_kernel")),
+    ("K4-K6 split (shared by both passes)", ("lse_split_kernel",)),
+    ("K4+K5 lse_pass", ("lse_pass_kernel",)),
     ("K6 reward_pass", ("reward_pass_kernel",)),
     ("conv / gemm (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "implicit",
                                      "wgrad", "dgrad")),
