@@ -72,13 +72,14 @@
 // by shuffles, then over the 8 warps through shared memory, one partials
 // row per row tile. The ragged edge needs no mask per pair: a row beyond m
 // gets a NaN line (never good), accept 0 and row_lse 1e30 (p = 0), and the
-// wrapper packs the columns beyond n the same way. The reward pass holds
-// only beside the lse pass that ran on the same product: it forms aff from
-// the same dots with the same arithmetic (aff_log2), so that the dots'
-// errors (the tensor cores' truncating accumulation, one sign) and the
-// roundings of aff cancel in lp = (aff - row_lse) + (aff - col_lse). Fed
-// the log-sum-exps of the plain f32 product instead, the training path's
-// s0 moves by ~3e-4 at T = 60.
+// wrapper packs the columns beyond n the same way. The reward pass forms
+// aff from the lse pass's dots with the lse pass's arithmetic (aff_log2),
+// so that beside it the dots' errors (the tensor cores' truncating
+// accumulation, one sign) and the roundings of aff cancel in
+// lp = (aff - row_lse) + (aff - col_lse). Fed the log-sum-exps of the plain
+// f32 product instead, nothing cancels, and at T = 60 the training path's
+// s0 moves by up to ~1.6e-4 relative, inside the reference's rtol 2e-4;
+// forming aff as fmaf(T, dot, -T) moved it by ~3e-4 beside the lse pass.
 
 #include <cuda_runtime.h>
 
@@ -219,7 +220,9 @@ __device__ __forceinline__ void init_bars(uint32_t bar, int count) {
 // chunk cq groups of 4 depths, zero beyond rows and D. In shared memory
 // [depth / 4][rows][4] is what wgmma reads as K-major core matrices (4
 // depths of 8 consecutive rows make one 128-byte core matrix), so a chunk
-// is one contiguous bulk copy. One thread per float4 of hi and of lo.
+// is one contiguous bulk copy. One thread per float4 of hi and of lo; a
+// row of x is read as float4s where D % 4 == 0 (rows 16-byte aligned),
+// else one float at a time.
 __global__ void __launch_bounds__(SPLIT_THREADS) lse_split_kernel(
     const float* __restrict__ x, int rows, int D, int tiles, int chunks, int cq,
     float* __restrict__ out) {
@@ -230,7 +233,17 @@ __global__ void __launch_bounds__(SPLIT_THREADS) lse_split_kernel(
   const int q = int(g % cq), c = int(g / cq % chunks), tile = int(g / cq / chunks);
   const int row = tile * LM + r, k = 4 * (c * cq + q);
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row < rows && k < D) v = __ldg(reinterpret_cast<const float4*>(x + (size_t(b) * rows + row) * D + k));
+  if (row < rows && k < D) {
+    const float* src = x + (size_t(b) * rows + row) * D + k;
+    if (D % 4 == 0) {
+      v = __ldg(reinterpret_cast<const float4*>(src));
+    } else {
+      v.x = __ldg(src);
+      if (k + 1 < D) v.y = __ldg(src + 1);
+      if (k + 2 < D) v.z = __ldg(src + 2);
+      if (k + 3 < D) v.w = __ldg(src + 3);
+    }
+  }
   float* o = out + ((((size_t(b) * tiles + tile) * chunks + c) * 2 * cq + q) * LM + r) * 4;
   split_store(o, o + cq * LM * 4, v);
 }
@@ -637,7 +650,7 @@ __global__ void __launch_bounds__(L_THREADS, 1) reward_pass_kernel(
 }
 
 int check_shape(int B, int m, int n, int D) {
-  if (B < 1 || m < 1 || n < 1 || D < 4 || D > DMAX || D % 4) return kBadShape;
+  if (B < 1 || m < 1 || n < 1 || D < 1 || D > DMAX) return kBadShape;
   if (B > 65535) return kGridTooLarge;
   return 0;
 }
@@ -712,7 +725,7 @@ int posfeat_reward_pass(const void* f1s, const void* f2s, const void* line1, con
 const char* posfeat_reinforce_error_string(int code) {
   switch (code) {
     case kBadShape:
-      return "shape outside what the kernel supports (D must be a multiple of 4, at most 128)";
+      return "shape outside what the kernel supports (D at most 128)";
     case kGridTooLarge:
       return "batch too large for one launch";
     default:

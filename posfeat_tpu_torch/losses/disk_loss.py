@@ -20,6 +20,7 @@ that are not ported yet; they raise ``NotImplementedError`` (ROADMAP.md).
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 from ..ops.coords import homogenize, normalize_coords
 from ..ops.epipolar import epipolar_lines, epipolar_pairwise_dist
 from ..ops.grid_sample import sample_feat_by_coord
-from ..ops.reinforce import kernels_take, reinforce_reduction
+from ..ops.reinforce import MAX_D, kernels_take, reinforce_reduction
 from ..ops.samplers import (
     accept_logits,
     bernoulli_logp,
@@ -127,18 +128,24 @@ class DiskLoss:
     def _use_streamed(self, dim: int) -> bool:
         """The streamed reduction covers the shipped configuration
         (detached match distribution, constant un-rescaled reward) at the
-        descriptor widths ``dim`` its kernels take (D % 4 == 0, D <= 128);
-        anything else takes the dense path, chosen before any launch as
-        the JAX package's ``_use_pallas`` chooses."""
+        descriptor widths ``dim`` its kernels take (D <= 128); anything
+        else takes the dense path, chosen before any launch as the JAX
+        package's ``_use_pallas`` chooses. The JAX reduction streams any
+        width: a configuration it would stream at D > 128 takes the dense
+        path here, and says so in a warning."""
         if self.config.get("use_pallas", "auto") is False:
             return False
-        return bool(
+        eligible = bool(
             self.config["cor_detach"]
             and not self.config["match_grad"]
             and self.reward_name == "constant_reward"
             and not self.config["reward_config"].get("rescale_thr", False)
-            and kernels_take(dim)
         )
+        if eligible and not kernels_take(dim):
+            warnings.warn(f"DiskLoss: descriptor width {dim} is wider than the streamed reduction's kernels "
+                          f"take ({MAX_D}); taking the dense loss", stacklevel=2)
+            return False
+        return eligible
 
     def _reward_config(self, epoch) -> Dict[str, Any]:
         """Per-epoch reward config: ``reward_thr_final`` with

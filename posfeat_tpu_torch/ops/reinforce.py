@@ -71,7 +71,7 @@ def _raise_on(rc: int, what: str) -> None:
 def kernels_take(D: int) -> bool:
     """Whether the kernels take descriptors of width D (csrc/reinforce.cu
     ``check_shape``)."""
-    return 0 < D <= MAX_D and D % 4 == 0
+    return 0 < D <= MAX_D
 
 
 def _shapes(f1, f2):
@@ -80,7 +80,7 @@ def _shapes(f1, f2):
     if f2.shape != (B, n, D):
         raise ValueError(f"f2 has shape {tuple(f2.shape)}, expected ({B}, n, {D})")
     if not kernels_take(D):
-        raise ValueError(f"the kernels need D % 4 == 0 and D <= {MAX_D}; got D = {D}")
+        raise ValueError(f"the kernels need 0 < D <= {MAX_D}; got D = {D}")
     return B, m, n, D
 
 

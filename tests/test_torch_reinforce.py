@@ -186,7 +186,7 @@ def _unsplit(f1s, f2s, B, m, n, D):
     return a, c
 
 
-@pytest.mark.parametrize("D", [128, 36, 20])
+@pytest.mark.parametrize("D", [128, 36, 20, 126, 30, 5])
 def test_split_layout_is_what_both_kernels_read(D):
     """``_split_operands`` on the CPU, ``_split_plain``, gives f1 and f2 as
     the kernels read them, in the tile layout [B][tile][chunk][hi, lo][cq]
@@ -240,16 +240,26 @@ def test_column_operands_pack_and_padding(rng):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("D", [128, 36])
+def _aff_of_dots(dot, T):
+    """aff as both passes form it from their dots (csrc/reinforce.cu
+    ``aff_log2``, then the reward pass's scale by ln 2): v = fmaf(dot, Tl,
+    -Tl) with Tl = T * log2(e) rounded to f32, one rounding (dot * Tl is
+    exact in float64), then v * ln 2 rounded to f32."""
+    tl = float(np.float32(T) * np.float32(np.log2(np.e)))
+    v = (dot.double() * tl - tl).float()
+    return v * torch.tensor(np.log(2.0), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("D", [128, 36, 126])
 def test_3xtf32_reward_model_matches_pallas_interpret(D):
     """The reward pass on the lse pass's 3xTF32 product, modelled on the
     CPU at the training path's T = 60: the modelled dots (the tensor
-    cores' truncation included), scaled as the kernel scales them (one
-    rounding, as fmaf), with the log-sum-exps of the same modelled
-    affinity, pushed through the plain reward arithmetic; all seven
-    outputs against the Pallas reduction (interpret=True) and the plain
-    reduction at the reduction's tolerance, and the good decisions as the
-    plain version's (they read no product)."""
+    cores' truncation included), turned into aff with the kernels'
+    arithmetic (base 2, then ln 2), with the log-sum-exps of the same
+    modelled affinity, pushed through the plain reward arithmetic; all
+    seven outputs against the Pallas reduction (interpret=True) and the
+    plain reduction at the reduction's tolerance, and the good decisions
+    as the plain version's (they read no product)."""
     import jax.numpy as jnp
     from posfeat_tpu.ops.pallas.reinforce import reinforce_reduction as jax_reduction
 
@@ -257,7 +267,7 @@ def test_3xtf32_reward_model_matches_pallas_interpret(D):
     T = kw["temperature"]
     args = _problem(np.random.RandomState(D + 1), B=2, m=300, n=290, D=D)
     t = list(map(torch.from_numpy, args))
-    aff = (T * _product_3xtf32_truncating(args[0], args[1]).double() - T).float()
+    aff = _aff_of_dots(_product_3xtf32_truncating(args[0], args[1]), T)
     row_lse, col_lse = torch.logsumexp(aff, 2), torch.logsumexp(aff, 1)
     rkw = {k: kw[k] for k in ("thr", "good_reward", "bad_reward")}
     got = rf._reward_of_affinity(aff, *t[2:], row_lse, col_lse, **rkw)
@@ -271,17 +281,26 @@ def test_3xtf32_reward_model_matches_pallas_interpret(D):
         torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("D, takes", [(128, True), (64, True), (130, False), (126, False)])
+@pytest.mark.parametrize("D, takes", [(128, True), (64, True), (130, False), (126, True), (30, True), (129, False)])
 def test_streamed_loss_only_at_widths_the_kernels_take(D, takes):
     """DiskLoss picks the streamed reduction only where its kernels take
-    the descriptors' width (D % 4 == 0, D <= 128), from the width alone,
-    before any launch, as the JAX package picks its path from the config."""
+    the descriptors' width (D <= 128), from the width alone, before any
+    launch, as the JAX package picks its path from the config; where the
+    width alone sends a streamed configuration to the dense loss, it
+    warns."""
+    import warnings
+
     from posfeat_tpu_torch.losses import DiskLoss
 
     cfg = dict(_SHIPPED_LOSS, use_pallas="auto")
     assert rf.kernels_take(D) is takes
-    assert DiskLoss(cfg)._use_streamed(D) is takes
-    assert DiskLoss(dict(cfg, use_pallas=False))._use_streamed(D) is False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert DiskLoss(cfg)._use_streamed(D) is takes
+        assert DiskLoss(dict(cfg, use_pallas=False))._use_streamed(D) is False
+    assert [str(w.message) for w in caught] == ([] if takes else [
+        f"DiskLoss: descriptor width {D} is wider than the streamed reduction's kernels take (128); "
+        "taking the dense loss"])
 
 
 # configs/train_kp.yaml's DiskLoss_config, the streamed path's configuration
@@ -319,7 +338,8 @@ def test_wide_descriptors_take_the_dense_loss(monkeypatch):
         raise AssertionError("the streamed reduction ran at D = 130")
 
     monkeypatch.setattr(dl, "reinforce_reduction", never)
-    l_auto, c_auto, g_auto = step(dict(_SHIPPED_LOSS, use_pallas="auto"))
+    with pytest.warns(UserWarning, match="descriptor width 130"):
+        l_auto, c_auto, g_auto = step(dict(_SHIPPED_LOSS, use_pallas="auto"))
     l_dense, c_dense, g_dense = step(dict(_SHIPPED_LOSS, use_pallas=False))
     assert np.isfinite(l_auto) and l_auto == l_dense
     assert set(c_auto) == set(c_dense) and "cor max" in c_auto
@@ -354,10 +374,11 @@ def test_3xtf32_lse_model_matches_pallas_interpret(D):
 @pytest.mark.parametrize(
     "shape",
     [(2, 150, 97, 128), (1, 64, 64, 16), (3, 37, 200, 36), (2, 129, 257, 16), (1, 129, 257, 128),
-     (2, 150, 97, 36), (1, 300, 130, 128), (2, 150, 600, 36), (2, 389, 261, 128), (1, 517, 300, 20)],
+     (2, 150, 97, 36), (1, 300, 130, 128), (2, 150, 600, 36), (2, 389, 261, 128), (1, 517, 300, 20),
+     (2, 150, 97, 126), (1, 260, 131, 30), (2, 129, 70, 5)],
     ids=["ragged_d128", "one_tile_d16", "ragged_d36", "ragged_129x257_d16", "ragged_129x257_d128",
          "ragged_d36_b", "three_row_tiles_d128", "five_column_tiles_d36", "four_row_tiles_d128",
-         "five_row_tiles_d20"],
+         "five_row_tiles_d20", "ragged_depth_d126", "ragged_depth_d30", "ragged_depth_d5"],
 )
 def test_cuda_kernels_match_plain_versions(shape):
     """Each kernel against its plain version on the same inputs (the

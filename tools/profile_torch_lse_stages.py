@@ -23,8 +23,10 @@ through its wrapper on one split of f1 and f2 (the kernels alone, as
 ``reinforce_reduction`` runs them) with chip_smoke.py's timer (CUDA events
 around 20 launches after 3) in the order full, no_epi, no_stage, then once
 more in reverse. Prints ptxas' registers and spills per build and kernel
-and a last JSON line {"ms": {pass: {build: [ms, ms]}}, "device": ...,
-"power_limit": ...}. Without a CUDA card it exits 2 and prints no result.
+(and fails where a build has fewer than the product's 192 accumulator
+registers: its wgmmas were dropped) and a last JSON line
+{"ms": {pass: {build: [ms, ms]}}, "device": ..., "power_limit": ...}.
+Without a CUDA card it exits 2 and prints no result.
 """
 
 import ctypes
@@ -90,6 +92,9 @@ def main() -> int:
         for k in KERNELS:
             print(f"{name}: {k} {summary[k]['regs']} regs, spills {summary[k]['spill_stores']}/"
                   f"{summary[k]['spill_loads']} B")
+            # the product's three 64-float accumulator sets live in registers:
+            # a build with fewer has lost its wgmmas to dead-code elimination
+            assert summary[k]["regs"] >= 192, (name, k, summary[k])
         libs[name] = _build.bind(ctypes.CDLL(so))
 
     args = reduction_problem(torch, np.random.default_rng(SEED))
