@@ -61,6 +61,18 @@ Phases, one line each (more for the build):
      it (and K1's, which must stay 0);
  11. the per-stage head bench (tools/bench_torch_fused_parts.py) at its
      point, with the launches of K1, K3, T1, T2 and K2 read around it;
+ 12. stage-1 descriptor training at the flagship width: configs/train_desc.yaml
+     with the flagship model in f32, SyntheticPairs 480x640 in batches of
+     8; one step on the card against the same step on the CPU (2 pairs of
+     240x320, same weights, batch and draws: the loss and the backbone's
+     gradient norm under unit weights, percent_w and the running
+     statistics under the shipped std weights too), the fused
+     engine's window expectation against the reference engine's at the
+     flagship shapes on the same centres (rtol 1e-3 / atol 1e-4), then a
+     Trainer run of a warm-up step and 4 timed steps: every loss finite,
+     the backbone and all its running statistics moved, the head
+     bit-identical, the checkpoint files written; it runs no
+     hand-written kernel (the JAX stage 1 reaches no Pallas kernel);
 then a ``kernels`` JSON line (K1, K2, K3, T1, T2 and the two reduction
 kernels), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
@@ -99,6 +111,10 @@ H, W, BATCH, NUM_PTS, N_IMAGES = 480, 640, 16, 8192, 128
 N_IMAGES_V1 = 64  # the v1 path: 4 batches of 16
 # stage 2 (configs/train_kp.yaml): batch 6 pairs, grid 8 -> m = n = 60 * 80
 TRAIN_BATCH, GRID, TRAIN_STEPS = 6, 8, 6
+# stage 1 (configs/train_desc.yaml): batch 8 pairs, grid 16 -> m = n = 30 * 40;
+# its card-vs-CPU step check at 2 pairs of 240x320
+DESC_BATCH, DESC_GRID, DESC_STEPS = 8, 16, 5
+H_CHECK, W_CHECK, CHECK_BATCH = 240, 320, 2
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores, f32 CUDA cores, HBM3
 PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 SEED = 0
@@ -750,6 +766,222 @@ def phase_training(torch, records):
           f"{metrics[0]['total_loss']:.5g} -> {metrics[-1]['total_loss']:.5g}; launches {launches}")
 
 
+def desc_config(height=H, width=W, batch=DESC_BATCH, steps=DESC_STEPS):
+    """configs/train_desc.yaml as shipped (Adam 1e-4 on the backbone, the
+    fused Line2Window preprocess with grid 16, window 0.1 and T = 60,
+    EpipolarLoss_full), with the flagship model in f32, random weights
+    from the seed, ``val_config`` and ``load_path`` removed and
+    SyntheticPairs in place of MegaDepth; one epoch of ``steps`` steps,
+    every step logged."""
+    from posfeat_tpu_torch.core.config import load_config
+
+    cfg = load_config("configs/train_desc.yaml")
+    cfg.pop("val_config")
+    cfg.pop("load_path", None)
+    cfg.update(
+        checkpoint_name="smoke_desc", model_config=copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
+        compute_dtype="float32", seed=SEED, epoch=1, epoch_step=steps, log_freq=1, data="SyntheticPairs",
+    )
+    cfg["data_config_train"].update(num_pairs=64, height=height, width=width, batch_size=batch)
+    pp = cfg["preprocess_train_config"]
+    assert cfg["optimal_modules"] == ["backbone"] and cfg["optimizer"] == "Adam"
+    assert pp.get("engine", "fused") == "fused" and pp["kps_generator_config"]["grid_size"] == DESC_GRID
+    assert pp["window_size"] == 0.1 and pp["temperature_base"] == pp["temperature_max"] == 60
+    return cfg
+
+
+def _step_on_both(torch, cfg, root, batch_np=None, draws=None):
+    """One stage-1 step of ``cfg`` on the card and on the CPU from the same
+    weights (both drawn from the seed), batch and draws (made on the card
+    unless given): (results per device, batch, draws, trainers)."""
+    from posfeat_tpu_torch.data.loader import collate
+    from posfeat_tpu_torch.train import Trainer
+
+    trs = {d: Trainer(copy.deepcopy(cfg), ckpt_root=f"{root}/{d}", device=d) for d in ("cuda", "cpu")}
+    for k, v in trs["cpu"].model.state_dict().items():
+        assert torch.equal(v, trs["cuda"].model.state_dict()[k].cpu()), k
+    if batch_np is None:
+        batch_np = collate([trs["cpu"].train_dataset[i] for i in range(CHECK_BATCH)])
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        ones = {"local_point": torch.ones((CHECK_BATCH, H_CHECK, W_CHECK, 1), device="cuda")}
+        # map_init identity: the draws read only the score maps' shape
+        draws = trs["cuda"].preprocess.draw(trs["cuda"].to_device(batch_np), {"preds1": ones, "preds2": ones}, gen)
+    res = {}
+    for d, tr in trs.items():
+        dd = {"kps": tuple(x.to(d) for x in draws["kps"]), "jitter1": draws["jitter1"].to(d),
+              "jitter2": draws["jitter2"].to(d)}
+        t0 = time.perf_counter()
+        total, comps, gn, finite = tr.train_step(tr.to_device(batch_np), 1, preprocess_draws=dd)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        assert finite, d
+        res[d] = dict(total=float(total), percent_w=float(comps["percent_w"]), gn=float(gn["backbone"]),
+                      s=time.perf_counter() - t0, draws=dd,
+                      stats={k: v.cpu() for k, v in tr.model.backbone.state_dict().items() if "running" in k})
+    return res, batch_np, draws, trs
+
+
+def stage1_card_vs_cpu(torch, tmp):
+    """One stage-1 step on the card against the same step on the CPU, 2
+    pairs of 240x320 at the flagship width.
+
+    Held: with unit weights (``use_std_as_weight: False``), the loss and
+    the backbone's gradient norm; with the shipped std weights, percent_w
+    and the running statistics. The shipped std-weighted loss is printed
+    beside the count of its weights in f32's rounding regime, not held:
+    each window or grid std is Σ sqrt(E[x²] − E[x]²), which in a peaked
+    softmax cancels to rounding (the window's variance to ~1e-6, the grid's
+    to its 1e-6 clamp), and such a query's inverse-std weight is up to
+    hundreds of times the others', whichever rounding the device makes."""
+    cfg = desc_config(H_CHECK, W_CHECK, CHECK_BATCH, 1)
+    unit = copy.deepcopy(cfg)
+    unit["EpipolarLoss_full_config"]["use_std_as_weight"] = False
+    res_u, batch_np, draws, _ = _step_on_both(torch, unit, f"{tmp}/unit")
+    res, _, _, trs = _step_on_both(torch, cfg, f"{tmp}/shipped", batch_np, draws)
+    # tolerances: both f32, TF32 off; the convolutions sum in other orders
+    # through 50 layers, so the maps differ by ~1e-5 relative. The loss and
+    # the gradient norm at rtol 1e-3; percent_w is a share of the
+    # 2 x 2 x 300 window costs under their threshold, held to 4 of them;
+    # the running statistics, 0.9·init + 0.1·(batch stats) twice, at
+    # rtol 1e-3 / atol 1e-5
+    n_terms = 2 * CHECK_BATCH * (H_CHECK // DESC_GRID) * (W_CHECK // DESC_GRID)
+    cu, cc = res_u["cuda"], res_u["cpu"]
+    d_loss = abs(cu["total"] - cc["total"]) / abs(cc["total"])
+    d_gn = abs(cu["gn"] - cc["gn"]) / cc["gn"]
+    g, c = res["cuda"], res["cpu"]
+    d_pw = max(abs(r["cuda"]["percent_w"] - r["cpu"]["percent_w"]) for r in (res, res_u))
+    worst = max(((r["cuda"]["stats"][k] - v).abs() / (v.abs() * 1e-3 + 1e-5)).max().item()
+                for r in (res, res_u) for k, v in r["cpu"]["stats"].items())
+
+    # the shipped weights' inputs: the stds of a training-mode forward
+    # (after the step) on the same batch and draws
+    rounding = {}
+    for d, tr in trs.items():
+        b = tr.to_device(batch_np)
+        with torch.no_grad():
+            out = tr.model(b, train=True)
+            out["epoch"] = 1
+            pr = tr.preprocess(b, out, draws=res[d]["draws"])
+        rounding[d] = (int(sum((pr[f"feat{i}w_std"] < 2e-3).sum() for i in (1, 2))),
+                       int(sum((pr[f"feat{i}g_std"] < 2.1e-3).sum() for i in (1, 2))))
+    print(f"[12] one stage-1 step, card vs CPU, same weights, batch and draws ({CHECK_BATCH} pairs of "
+          f"{H_CHECK}x{W_CHECK}, flagship width), unit weights: loss {cu['total']:.7g} vs {cc['total']:.7g} "
+          f"(rel {d_loss:.3g}), backbone grad norm {cu['gn']:.7g} vs {cc['gn']:.7g} (rel {d_gn:.3g}); "
+          f"percent_w {g['percent_w']:.5f} vs {c['percent_w']:.5f}; running stats at {worst:.3g} of their "
+          f"tolerance; step {cu['s']:.3f} s on the card, {cc['s']:.3f} s on the CPU")
+    print(f"[12] shipped std weights (not held): loss {g['total']:.7g} vs {c['total']:.7g} (rel "
+          f"{abs(g['total'] - c['total']) / abs(c['total']):.3g}), grad norm {g['gn']:.7g} vs {c['gn']:.7g}; "
+          f"window stds below 2e-3 and grid stds at their clamp, of {n_terms}: card {rounding['cuda']}, "
+          f"CPU {rounding['cpu']}")
+    assert d_loss <= 1e-3 and d_gn <= 1e-3, (d_loss, d_gn)
+    assert d_pw <= 4 / n_terms + 1e-7, d_pw
+    assert worst <= 1.0, worst
+
+
+def stage1_window_check(torch, tr, batch):
+    """At the flagship shapes on the card: the fused engine's window
+    expectation against the reference engine's
+    get_expected_correspondence_within_window on the fused engine's own
+    centres (direction 1 of the preprocess), with both engines' times."""
+    from posfeat_tpu_torch.ops.coords import denormalize_coords
+    from posfeat_tpu_torch.ops.epipolar import get_expected_correspondence_within_window
+    from posfeat_tpu_torch.ops.grid_sample import l2_normalize, sample_feat_by_coord
+    from posfeat_tpu_torch.ops.line_window import fused_line_window
+    from posfeat_tpu_torch.ops.samplers import generate_kpts_regular_grid_random
+
+    pp = tr.preprocess
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        out = tr.model(batch, train=False)
+        draws = pp.draw(batch, out, gen)
+        c1n, _, _, _ = generate_kpts_regular_grid_random(
+            out["preds1"]["local_point"], out["preds2"]["local_point"], pp.grid_size, draws["kps"],
+            pp.random_select)
+        c1n = c1n.reshape(DESC_BATCH, -1, 2)
+        coord1 = denormalize_coords(c1n, H, W)
+        feat1 = sample_feat_by_coord(out["preds1"]["local_map"], c1n, True)
+        T, ws = 60.0, pp.config["window_size"]
+        xf2_n = T * l2_normalize(out["preds2"]["local_map"])
+
+        def fused():
+            return fused_line_window(xf2_n, feat1, coord1, batch["F1"], H, W, window_size=ws,
+                                     jitter_u=draws["jitter1"])
+
+        centres, _, valid, exp_f, std_f = fused()
+
+        def reference():
+            return get_expected_correspondence_within_window(feat1, xf2_n, centres, ws, with_std=True)
+
+        exp_r, _, std_r, _ = reference()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(exp_f, exp_r, rtol=1e-3, atol=1e-4)  # tests/test_line_window.py:30
+        # the std: Σ sqrt(E[x²] − E[x]²), which cancels to ~1e-6 in f32, so up to 1e-3 per axis
+        torch.testing.assert_close(std_f, std_r, rtol=1e-3, atol=2e-3)
+        fused_ms, ref_ms = _time_ms(fused, n=5, warmup=1), _time_ms(reference, n=5, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fused()
+        fused_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        reference()
+        ref_peak = torch.cuda.max_memory_allocated() - base
+    n = centres.shape[1]
+    print(f"[12] window stage at B={DESC_BATCH}, {n} queries, {H // 4}x{W // 4} maps, D=128, window "
+          f"{int(ws * H // 4)}x{int(ws * W // 4)}: fused vs reference expectation max|d| "
+          f"{(exp_f - exp_r).abs().max().item():.3g}, std max|d| {(std_f - std_r).abs().max().item():.3g} "
+          f"on the fused engine's centres ({int(valid.sum())} of {valid.numel()} valid); fused line+window "
+          f"{fused_ms:.3f} ms (peak +{fused_peak / 2**30:.2f} GiB), reference window alone {ref_ms:.3f} ms "
+          f"(peak +{ref_peak / 2**30:.2f} GiB), one direction, no graph")
+
+
+def phase_stage1(torch, smi):
+    """Stage-1 descriptor training at the flagship width (phase 12)."""
+    from posfeat_tpu_torch.data.loader import collate
+    from posfeat_tpu_torch.train import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        stage1_card_vs_cpu(torch, tmp)
+        cfg = desc_config()
+        tr = Trainer(cfg, ckpt_root=tmp, device="cuda")
+        assert tr.device.type == "cuda" and tr.train_backbone
+        head, backbone = tr.model.localheader, tr.model.backbone
+        head0 = {k: v.clone() for k, v in head.state_dict().items()}
+        bb0 = {k: v.clone() for k, v in backbone.state_dict().items()}
+        stage1_window_check(torch, tr, tr.to_device(collate([tr.train_dataset[i] for i in range(DESC_BATCH)])))
+
+        # the main path: Trainer.train, as the CLI runs it
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        run = f"{tmp}/{cfg['checkpoint_name']}"
+        steps = [json.loads(x) for x in open(f"{run}/step_times.jsonl")]
+        metrics = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+        assert len(steps) == len(metrics) == DESC_STEPS, (len(steps), len(metrics))
+        assert all(np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm/backbone"]) for r in metrics)
+        assert not [f for f in os.listdir(run) if f.startswith("error_step")]
+        assert sorted(os.listdir(f"{run}/001")) == ["backbone.pth", "localheader.pth", "opt_state.pth"]
+        sd = backbone.state_dict()
+        moved = sum(not torch.equal(v, bb0[k]) for k, v in sd.items() if "running" not in k)
+        stats_moved = sum(not torch.equal(v, bb0[k]) for k, v in sd.items() if "running" in k)
+        n_stats = sum("running" in k for k in sd)
+        assert moved > 0, "the backbone's parameters did not move"
+        assert stats_moved == n_stats, (stats_moved, n_stats)
+        assert all(torch.equal(v, head0[k]) for k, v in head.state_dict().items()), "the head moved"
+    timed = [s["step_time_s"] for s in steps[1:]]
+    s_step = float(np.mean(timed))
+    m = (H // DESC_GRID) * (W // DESC_GRID)
+    print(f"[12] stage-1 training: {DESC_STEPS} Trainer steps at {H}x{W}, batch {DESC_BATCH} pairs, f32, "
+          f"m = n = {m}: warm-up {steps[0]['step_time_s']:.4f} s, then {s_step:.4f} s/step over {len(timed)} "
+          f"steps (min {min(timed):.4f}, max {max(timed):.4f}), {DESC_BATCH / s_step:.3f} pairs/s; wall "
+          f"{wall:.3f} s with checkpoints; peak memory {peak / 2**30:.2f} GiB; loss "
+          f"{metrics[0]['total_loss']:.5g} -> {metrics[-1]['total_loss']:.5g}, percent_w "
+          f"{metrics[0]['percent_w']:.4f} -> {metrics[-1]['percent_w']:.4f}; {moved} backbone tensors and all "
+          f"{n_stats} running statistics moved, head unchanged; {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -807,6 +1039,7 @@ def main() -> int:
     phase_head_vs_reference(torch, rng, mode="v1", tag="[9]")
     phase_v1_path(torch, fh, rng, v1)
     phase_head_bench(torch, fh, v1)
+    phase_stage1(torch, smi)
     records += v1 + reduction
 
     print(json.dumps({"kernels": records}))

@@ -107,23 +107,21 @@ class PoSFeat(nn.Module):
     def extract(self, tensor: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Single-image feature extraction in eval mode, without a graph:
         NHWC image [B, H, W, 3] -> the reference output dict."""
+        self.eval()
         return self._outputs(self.backbone(tensor), tensor)
 
     def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False):
-        """Two-view forward (PoSFeat_model.py:136-147) that keeps autograd
-        through the head: the stage-2 training forward. ``train=False``
-        keeps the backbone's BatchNorm in eval mode, as the JAX trainer
-        runs stage 2 (trainer.py:285-291); the backbone runs without a
-        graph unless one of its parameters requires a gradient, and
-        ``align_local_grad: False`` detaches the head's input as the JAX
-        ``stop_gradient`` does (posfeat.py:100-101). Backbone training
-        (BatchNorm updates) belongs to stage 1, and the head's bf16
-        dataflows and fused kernels have no backward yet."""
-        if train:
-            raise NotImplementedError(
-                "PoSFeat.forward(train=True): backbone training with BatchNorm updates is "
-                "stage 1, not ported yet; see ROADMAP.md slice C"
-            )
+        """Two-view forward (PoSFeat_model.py:136-147) with autograd, the
+        training forward of both stages. ``train=True`` (stage 1) runs the
+        backbone's BatchNorm in training mode: each view is normalized by
+        its own batch's statistics and updates the running statistics,
+        image 1's call first, as the JAX forward with ``mutable_bn``
+        (posfeat.py:141-147); ``train=False`` (stage 2) keeps them in eval
+        mode (trainer.py:285-291). The backbone builds a graph only when
+        one of its parameters requires a gradient. The head runs in eval
+        mode in both stages, and ``align_local_grad: False`` detaches its
+        input as the JAX ``stop_gradient`` does (posfeat.py:100-101). The
+        head's bf16 dataflows and fused kernels have no backward."""
         if torch.is_grad_enabled() and (
             self.dtype != torch.float32 or self.localheader.fused_upsample == "pallas"
         ):
@@ -132,6 +130,7 @@ class PoSFeat(nn.Module):
                 "kernels K1/K2 have no backward; see ROADMAP.md"
             )
         self.eval()
+        self.backbone.train(train)
         backbone_grad = torch.is_grad_enabled() and any(
             p.requires_grad for p in self.backbone.parameters()
         )

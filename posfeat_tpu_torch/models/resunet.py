@@ -8,6 +8,11 @@ reference ``backbone.pth`` files load as they are. The public forward
 takes and returns NHWC; convolutions run NCHW views of it, which are
 ``channels_last`` in memory.
 
+BatchNorm trains as flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
+(resunet.py:37-45): normalized by the batch's biased variance, and the
+running variance updated with that same biased variance (``BatchNorm2d``
+below), not with torch's unbiased one.
+
 Both dtypes run the reference concat dataflow. The JAX package's bf16
 ladder (``accum_f32``, ``split*``, ``splitcat``, ``_tail_plan``,
 resunet.py:398-558) is left out, so at bf16 this backbone rounds where
@@ -31,17 +36,36 @@ _ENCODERS = {
 }
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step updates the running
+    statistics as flax does: running = 0.9 · running + 0.1 · batch, with
+    the batch's biased variance (torch's own update uses the unbiased
+    one, n/(n−1) larger: a few percent at the deepest layers of small
+    images). Evaluation and the state_dict are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _downsample(cin, cout, stride):
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), nn.BatchNorm2d(cout))
+    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin, planes, stride=1, downsample=False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = _downsample(cin, planes, stride) if downsample else None
         self.out_ch = planes
 
@@ -57,11 +81,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         width = planes * width_mult
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = _downsample(cin, planes * 4, stride) if downsample else None
         self.out_ch = planes * 4
 
@@ -79,7 +103,7 @@ class ConvBNElu(nn.Module):
     def __init__(self, cin, cout, kernel, stride=1):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2)
-        self.bn = nn.BatchNorm2d(cout)
+        self.bn = BatchNorm2d(cout)
 
     def forward(self, x):
         return F.elu(self.bn(self.conv(x)))
@@ -127,7 +151,7 @@ class ResUNet(nn.Module):
             )
         kind, counts, width_mult = _ENCODERS[encoder]
         self.firstconv = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.firstbn = nn.BatchNorm2d(64)
+        self.firstbn = BatchNorm2d(64)
         cin = 64
         for li, (n_blocks, planes, stride) in enumerate(zip(counts, (64, 128, 256), (1, 2, 2))):
             blocks = []

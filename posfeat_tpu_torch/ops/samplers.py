@@ -1,5 +1,6 @@
-"""Stochastic keypoint samplers of the stage-2 loss
-(posfeat_tpu/ops/samplers.py:17-96; reference kploss.py:20-48).
+"""Stochastic keypoint samplers of the stage-2 loss and the stage-1 grid
+sampler (posfeat_tpu/ops/samplers.py:17-169; reference kploss.py:20-48,
+preprocess_utils.py:598-659).
 
 Drawing and scoring are split: the ``draw_*`` functions take a
 ``torch.Generator`` and return indices or accepts without a graph, and
@@ -13,6 +14,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .coords import gen_grid
+from .grid_sample import grid_sample
 
 
 def unfold(x: torch.Tensor, grid_size: int) -> torch.Tensor:
@@ -101,3 +105,65 @@ def cell_coords_pixel(H: int, W: int, grid_size: int, proposals: torch.Tensor) -
     cy = torch.arange(hg, device=dev)[None, :, None] * g + proposals // g
     cx = torch.arange(wg, device=dev)[None, None, :] * g + proposals % g
     return torch.stack([cx, cy], dim=-1).float()
+
+
+def cell_coords_normalized(H: int, W: int, grid_size: int, proposals: torch.Tensor) -> torch.Tensor:
+    """Normalized (x, y) of the proposed pixels, [B, hg, wg, 2], read from
+    the [-1, 1] linspace grid as the JAX version gathers them."""
+    g = grid_size
+    B, hg, wg = proposals.shape
+    dev = proposals.device
+    cy = torch.arange(hg, device=dev)[None, :, None] * g + proposals // g
+    cx = torch.arange(wg, device=dev)[None, None, :] * g + proposals % g
+    xs = torch.linspace(-1, 1, W, device=dev)
+    ys = torch.linspace(-1, 1, H, device=dev)
+    return torch.stack([xs[cx], ys[cy]], dim=-1)
+
+
+def draw_grid_random(kp_map: torch.Tensor, grid_size: int, random_select: str,
+                     generator: torch.Generator) -> torch.Tensor:
+    """The stage-1 grid sampler's draw for one image, without a graph:
+    ``random``, a Categorical pixel per cell (proposals [B, hg, wg]
+    int64); ``regular_random``, one uniform [0, 1) pair per image
+    ([B, 1, 1, 2]) that jitters the regular grid."""
+    if random_select == "random":
+        return draw_categorical(grid_cells(kp_map, grid_size), generator)
+    if random_select == "regular_random":
+        return torch.rand((kp_map.shape[0], 1, 1, 2), generator=generator, device=kp_map.device)
+    raise ValueError(f"unsupported random_select: {random_select}")
+
+
+def regular_grid_random_single(kp_map: torch.Tensor, grid_size: int, random_select: str,
+                               draw: torch.Tensor):
+    """Stage-1 grid sampler on a given draw (putils:624-659): kp_map
+    [B, H, W, 1] -> (kps_n [B, hg, wg, 2], score [B, hg, wg, 1]).
+    ``random``: the drawn pixel of each cell, scored by its raw map value;
+    ``regular_random``: the regular grid shifted by the image's jitter,
+    scored by bilinear sampling."""
+    B, H, W, _ = kp_map.shape
+    if random_select == "random":
+        score = torch.gather(grid_cells(kp_map, grid_size), -1, draw[..., None])
+        return cell_coords_normalized(H, W, grid_size, draw), score
+    if random_select == "regular_random":
+        start = 0.5 * grid_size / H
+        num_h, num_w = H // grid_size, W // grid_size
+        base = gen_grid(-1 + start, 1 - start, -1 + start, 1 - start, num_h, num_w,
+                        dtype=kp_map.dtype, device=kp_map.device).reshape(1, num_h, num_w, 2)
+        kps = base.expand(B, num_h, num_w, 2) + start * (2 * draw.to(kp_map.dtype) - 1)
+        return kps, grid_sample(kp_map, kps, padding_mode="zeros")
+    raise ValueError(f"unsupported random_select: {random_select}")
+
+
+@torch.no_grad()
+def generate_kpts_regular_grid_random(kp_map1: torch.Tensor, kp_map2: torch.Tensor, grid_size: int,
+                                      draws, random_select: str = "random", keep_spatial: bool = True):
+    """Two-image grid sampler on given draws (putils:598-622), without a
+    graph: (kps1, kps2, score1, score2), [B, hg, wg, ...] or, without
+    ``keep_spatial``, [B, hg·wg, ...]."""
+    kps1, s1 = regular_grid_random_single(kp_map1, grid_size, random_select, draws[0])
+    kps2, s2 = regular_grid_random_single(kp_map2, grid_size, random_select, draws[1])
+    if not keep_spatial:
+        B = kps1.shape[0]
+        kps1, kps2 = kps1.reshape(B, -1, 2), kps2.reshape(B, -1, 2)
+        s1, s2 = s1.reshape(B, -1, 1), s2.reshape(B, -1, 1)
+    return kps1, kps2, s1, s2

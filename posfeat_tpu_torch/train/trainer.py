@@ -1,24 +1,27 @@
-"""Stage-2 detector trainer on one device (posfeat_tpu/train/trainer.py:52-551;
+"""The trainer of both stages on one device (posfeat_tpu/train/trainer.py:52-551;
 reference managers/trainer.py:41-544).
 
   * module freezing as the reference (optimal_modules, trainer.py:78-87):
-    only the optimised modules' parameters require gradients; the
-    backbone runs in eval mode without a graph;
+    only the optimised modules' parameters require gradients. Stage 1
+    optimises the backbone, which then runs with BatchNorm in training
+    mode and keeps its updated running statistics (trainer.py:490-505);
+    stage 2 freezes it, in eval mode and without a graph;
   * one optimizer per module (SGD, Adam, AdamW with optax's defaults),
     the StepLR schedule stepped per update as optax counts it, optional
     per-module global-norm clipping written as optax writes it;
   * the non-finite guard: gradients are zeroed and the optimizer still
     steps, as the JAX step calls ``optimizer.update`` (trainer.py:312-323),
     so step counts advance and Adam's moments decay while the parameters
-    stay as they were; the batch goes to ``error_step<N>.npz``;
+    stay as they were; BatchNorm's running statistics keep the step's
+    update, as the JAX trainer writes them back on any step
+    (trainer.py:501-505); the batch goes to ``error_step<N>.npz``;
   * epoch-directory checkpoints (``<checkpoint_name>/<epoch:03d>/``) with
     ``backbone.pth``, ``localheader.pth`` and ``opt_state.pth``, ``000/``
     at the start, resume from the latest, the reference's
     ``FileExistsError`` rule, ``config.yaml``, ``metrics.jsonl`` and
     ``step_times.jsonl``.
 
-Not ported yet (ROADMAP.md): stage 1 (backbone training with BatchNorm
-updates, the correspondence preprocess), bf16 training, ``multihost:``
+Not ported yet (ROADMAP.md): bf16 training, ``multihost:``
 (slice E), the visual validation dumps ``val_and_vis``, device traces
 (``profile_trace_dir``) and the TensorBoard writer (metrics.jsonl holds
 every logged value).
@@ -105,11 +108,7 @@ class Trainer:
             )
         self.optimal_modules = list(cfg["optimal_modules"])
         self.optimal_lrs = [float(lr) for lr in cfg["optimal_lrs"]]
-        if "backbone" in self.optimal_modules:
-            raise NotImplementedError(
-                "training the backbone (BatchNorm updates) is stage 1, not ported yet; "
-                "see ROADMAP.md slice C"
-            )
+        self.train_backbone = "backbone" in self.optimal_modules
         self.device = resolve_device(device)
 
         self.save_root = os.path.join(ckpt_root, cfg["checkpoint_name"])
@@ -155,10 +154,6 @@ class Trainer:
 
         # --------------------------------------------------------- losses
         pp_name = cfg.get("preprocess_train") or "Preprocess_Skip"
-        if pp_name not in PREPROCESSES:
-            raise NotImplementedError(
-                f"preprocess {pp_name}: stage 1, not ported yet; see ROADMAP.md slice C"
-            )
         self.preprocess = PREPROCESSES[pp_name](cfg.get("preprocess_train_config", {}))
         self.loss_fns = [
             (name, float(weight), LOSSES[name](cfg[f"{name}_config"]))
@@ -180,7 +175,7 @@ class Trainer:
             dataset, batch_size=self.batch_size, shuffle=True,
             num_workers=dcfg.get("workers", 4), seed=seed, infinite=True,
         )
-        # the draws of the loss (the JAX trainer's PRNGKey(seed + 1))
+        # the draws of the preprocess and the losses (the JAX trainer's PRNGKey(seed + 1))
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         if cfg.get("val_config"):
             self.logger.warning("val_and_vis is not ported yet (ROADMAP.md): no visual dumps")
@@ -236,13 +231,16 @@ class Trainer:
 
     # --------------------------------------------------------- train step
 
-    def loss(self, batch: Dict[str, torch.Tensor], epoch: int, draws=None):
+    def loss(self, batch: Dict[str, torch.Tensor], epoch: int, draws=None, preprocess_draws=None):
         """(total, components) of one batch on the device, with the graph
-        of the optimised modules (trainer.py:276-305). ``draws`` are handed
-        to the losses instead of drawing from the trainer's generator."""
-        outputs = self.model(batch, train=False)
+        of the optimised modules (trainer.py:276-305); the backbone's
+        BatchNorm trains when the backbone is optimised. ``draws`` are
+        handed to the losses and ``preprocess_draws`` to the preprocess
+        instead of drawing from the trainer's generator (the preprocess
+        draws first)."""
+        outputs = self.model(batch, train=self.train_backbone)
         outputs["epoch"] = epoch
-        processed = self.preprocess(batch, outputs, self.generator)
+        processed = self.preprocess(batch, outputs, self.generator, draws=preprocess_draws)
         total, components = 0.0, {}
         for name, weight, fn in self.loss_fns:
             li, comps = fn(batch, outputs, processed, generator=self.generator, draws=draws)
@@ -251,11 +249,12 @@ class Trainer:
             components.update(comps)
         return total, components
 
-    def train_step(self, batch: Dict[str, torch.Tensor], epoch: int, draws=None):
+    def train_step(self, batch: Dict[str, torch.Tensor], epoch: int, draws=None,
+                   preprocess_draws=None):
         """One update. Returns (total, components, grad_norms, finite)."""
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=True)
-        total, components = self.loss(batch, epoch, draws)
+        total, components = self.loss(batch, epoch, draws, preprocess_draws)
         total.backward()
         grads = {}
         for mod, params in self.params.items():

@@ -186,8 +186,18 @@ def test_posfeat_training_forward_keeps_the_head_graph(rng):
     assert out["preds1"]["local_point"].requires_grad
     assert not out["preds1"]["local_map"].requires_grad  # frozen backbone: no graph
     torch.testing.assert_close(out["preds2"]["local_point"], tmodel.extract(im)["local_point"])
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        tmodel({"im1": im, "im2": im}, train=True)
+    # stage 1: BatchNorm trains, each view updating the running statistics,
+    # with a graph through the backbone once its parameters require one
+    tmodel.backbone.requires_grad_(True)
+    mean0 = tmodel.backbone.firstbn.running_mean.clone()
+    out = tmodel({"im1": im, "im2": im}, train=True)
+    assert out["preds1"]["local_map"].requires_grad and tmodel.backbone.training
+    out["preds1"]["local_point"].sum().backward()  # the head's input is detached
+    assert all(p.grad is None for p in tmodel.backbone.parameters())
+    assert int(tmodel.backbone.firstbn.num_batches_tracked) == 2
+    assert not torch.equal(tmodel.backbone.firstbn.running_mean, mean0)
+    tmodel.extract(im)
+    assert not tmodel.backbone.training  # extraction runs in eval mode again
     # the bf16 head has no backward in the port; extraction still runs
     bf = tm.PoSFeat(SMALL_CONFIG, dtype=torch.bfloat16, device="cpu")
     with pytest.raises(NotImplementedError, match="bf16"):

@@ -220,9 +220,19 @@ def test_cli_and_deferred_options(tmp_path):
         main(["--config", str(path), "--device", "cpu", "--overwrite"])
     finally:
         os.chdir(cwd)
-    for over in ({"compute_dtype": "bfloat16"}, {"optimal_modules": ["backbone", "localheader"],
-                                                 "optimal_lrs": [1e-3, 1e-3]},
-                 {"multihost": {"num_processes": 2}}, {"data": "MegaDepth_SIFT"}):
+    for over in ({"compute_dtype": "bfloat16"}, {"multihost": {"num_processes": 2}},
+                 {"data": "MegaDepth_SIFT"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(_config(checkpoint_name="x", **over), ckpt_root=str(tmp_path / "d"), device="cpu")
+    # the backbone in optimal_modules now trains with BatchNorm in training
+    # mode; DiskLoss reaches it only through the head's detached input and
+    # the detached match distribution, so its gradient is 0, as in JAX
+    tr = Trainer(_config(checkpoint_name="bb", optimal_modules=["backbone", "localheader"],
+                         optimal_lrs=[1e-3, 1e-3]), ckpt_root=str(tmp_path / "d"), device="cpu")
+    bb0 = {k: v.clone() for k, v in tr.model.backbone.state_dict().items()}
+    batch = tr.to_device(collate([tr.train_dataset[i] for i in range(2)]))
+    total, _, grad_norms, finite = tr.train_step(batch, 1)
+    assert finite and float(grad_norms["backbone"]) == 0 and float(grad_norms["localheader"]) > 0
+    moved = {k for k, v in tr.model.backbone.state_dict().items() if not torch.equal(v, bb0[k])}
+    assert moved == {k for k in bb0 if "running" in k or "num_batches" in k}
     assert isinstance(SyntheticPairs(_config()["data_config_train"])[0]["im1"], np.ndarray)

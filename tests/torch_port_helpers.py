@@ -94,3 +94,52 @@ def torch_draws(draws):
     import torch
 
     return [(torch.from_numpy(p).long(), torch.from_numpy(a)) for p, a in draws]
+
+
+def jax_line2window_draws(pp, inputs, outputs, key, chunk=64):
+    """JAX Preprocess_Line2Window's draws for preprocess key ``key``
+    (k_pp of the trainer's split into (k_pp, k_loss)), in its key order
+    (preprocess.py:88-91, samplers.py:136-150, line_window.py:224,
+    epipolar.py:176-180): ``key`` splits into (k_kps, k_ls1, k_ls2);
+    k_kps into the two images; with the fused engine each k_ls into one
+    key per ``chunk`` queries. ``pp`` is the JAX preprocess, whose own
+    score maps the grid draws read. Returns the port's draws dict as
+    numpy arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    from posfeat_tpu.ops.samplers import unfold
+
+    cfg = pp.config
+    gcfg = cfg["kps_generator_config"]
+    g, select = gcfg["grid_size"], gcfg.get("random_select", "random")
+    k_kps, k_ls1, k_ls2 = jax.random.split(key, 3)
+    kps = []
+    for kp, k in zip(pp._kp_maps(inputs, outputs), jax.random.split(k_kps)):
+        if select == "random":
+            kps.append(np.array(jax.random.categorical(k, unfold(kp, g)[:, :, :, 0, :], axis=-1)))
+        else:
+            kps.append(np.array(jax.random.uniform(k, (kp.shape[0], 1, 1, 2), kp.dtype)))
+    draws = {"kps": kps, "jitter1": None, "jitter2": None}
+    lcfg = cfg.get("line_search_config") or {}
+    if cfg["use_line_search"] and lcfg.get("loc_rand", True):
+        for name, k, im in (("jitter1", k_ls1, "im1"), ("jitter2", k_ls2, "im2")):
+            B, H, W = inputs[im].shape[:3]
+            n = (H // g) * (W // g)
+            if cfg.get("engine", "fused") == "fused":
+                keys = jax.random.split(k, -(-n // chunk))
+                u = jnp.concatenate([jax.random.uniform(kk, (B, chunk, 2), jnp.float32) for kk in keys], 1)
+                draws[name] = np.array(u[:, :n])
+            else:
+                draws[name] = np.array(jax.random.uniform(k, (B, n, 2), jnp.float32))
+    return draws
+
+
+def torch_line2window_draws(draws):
+    """jax_line2window_draws' numpy arrays as the port's tensors."""
+    import torch
+
+    kps = tuple(torch.from_numpy(np.asarray(d)) for d in draws["kps"])
+    kps = tuple(d.long() if d.dtype in (torch.int32, torch.int64) else d for d in kps)
+    return {"kps": kps, **{k: None if draws[k] is None else torch.from_numpy(draws[k])
+                           for k in ("jitter1", "jitter2")}}

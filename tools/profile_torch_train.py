@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time goes in posfeat_tpu_torch's stage-2 training, on one CUDA card.
+"""Where the time goes in posfeat_tpu_torch's training, on one CUDA card.
 
-    python3 tools/profile_torch_train.py [--steps 5] [--trace PATH]
+    python3 tools/profile_torch_train.py [--stage 1|2] [--steps 5] [--trace PATH]
 
-Builds chip_smoke.py's training setup (``chip_smoke.train_config``:
-configs/train_kp.yaml with the flagship model in f32, SyntheticPairs at
-480x640, batch 6 pairs) and measures three things:
+Builds chip_smoke.py's training setup of the stage: 2 (the default),
+``chip_smoke.train_config`` (configs/train_kp.yaml with the flagship
+model in f32, SyntheticPairs at 480x640, batch 6 pairs); 1,
+``chip_smoke.desc_config`` (configs/train_desc.yaml, the same model and
+data, batch 8 pairs). It measures:
   1. the input pipeline alone: seconds per batch of the PrefetchLoader
-     (6 worker threads) and of one sample built on the calling thread;
+     and of one sample built on the calling thread;
   2. the step alone: ``Trainer.train_step`` on batches already on the
-     card, host clock around synchronized steps;
+     card, host clock around synchronized steps; and the head's forward
+     alone on one view's maps (CUDA events), which a stage-1 step runs
+     twice though its loss reads no score map;
   3. ``Trainer.train`` (a warm-up step, then ``--steps`` steps, loader
      included) under torch.profiler: the device's busy and idle share of
-     the window, device time by kernel class and the top kernels.
+     the window, device time by kernel class (cuDNN's convolutions apart
+     from cuBLAS's matmuls, which in stage 1 are mostly the
+     correspondence engine's correlations) and the top kernels.
 ``--trace`` keeps the Chrome trace at PATH.
 """
 
@@ -27,7 +33,7 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from chip_smoke import TRAIN_BATCH, train_config  # noqa: E402
+from chip_smoke import DESC_BATCH, TRAIN_BATCH, desc_config, train_config  # noqa: E402
 from profile_torch_extract import _busy_us  # noqa: E402
 
 # kernel-name fragments -> class, first match wins
@@ -35,8 +41,10 @@ CLASSES = (
     ("K4-K6 split (shared by both passes)", ("lse_split_kernel",)),
     ("K4+K5 lse_pass", ("lse_pass_kernel",)),
     ("K6 reward_pass", ("reward_pass_kernel",)),
-    ("conv / gemm (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "implicit",
-                                     "wgrad", "dgrad")),
+    # cuDNN's FFT convolutions run complex GEMMs (cf32) and pointwise complex products
+    ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft", "cudnn", "cf32",
+                      "complex")),
+    ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90", "sm80")),
     ("batch/instance norm", ("batch_norm", "bn_", "norm")),
     ("upsample / grid_sample", ("upsample", "grid_sampler")),
     ("reduce", ("reduce",)),
@@ -61,13 +69,15 @@ def main() -> int:
     from posfeat_tpu_torch.train import Trainer
 
     p = argparse.ArgumentParser()
+    p.add_argument("--stage", type=int, choices=(1, 2), default=2)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--trace", default=None, help="keep the Chrome trace here")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    cfg = train_config()
+    cfg, batch_size = (desc_config(), DESC_BATCH) if args.stage == 1 else (train_config(), TRAIN_BATCH)
+    print(f"stage {args.stage}: {torch.cuda.get_device_name(0)}")
     with tempfile.TemporaryDirectory() as tmp:
         tr = Trainer(cfg, ckpt_root=tmp)
         ds = tr.train_dataset
@@ -84,10 +94,10 @@ def main() -> int:
         loader_s = (time.perf_counter() - t0) / args.steps
         it.close()
         print(f"input: one sample {one:.4f} s on the calling thread; PrefetchLoader "
-              f"{loader_s:.4f} s per batch of {TRAIN_BATCH} ({cfg['data_config_train']['workers']} threads)")
+              f"{loader_s:.4f} s per batch of {batch_size} ({cfg['data_config_train']['workers']} threads)")
 
         # 2. the step alone, batches already on the card
-        batches = [tr.to_device(collate([ds[i + TRAIN_BATCH * k] for i in range(TRAIN_BATCH)]))
+        batches = [tr.to_device(collate([ds[i + batch_size * k] for i in range(batch_size)]))
                    for k in range(2)]
         tr.train_step(batches[0], 1)
         torch.cuda.synchronize()
@@ -96,8 +106,22 @@ def main() -> int:
             tr.train_step(batches[k % 2], 1)
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / args.steps
-        print(f"step without the loader: {step_s:.4f} s ({TRAIN_BATCH / step_s:.3f} pairs/s), "
+        print(f"step without the loader: {step_s:.4f} s ({batch_size / step_s:.3f} pairs/s), "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        model, im = tr.model, batches[0]["im1"]
+        with torch.no_grad():
+            feats = model.backbone(im)
+            local_input = torch.cat([feats[n] for n in model.local_input_elements], dim=-1)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            model.localheader(local_input, im)
+            e0.record()
+            for _ in range(args.steps):
+                model.localheader(local_input, im)
+            e1.record()
+            torch.cuda.synchronize()
+        head_ms = e0.elapsed_time(e1) / args.steps
+        print(f"head forward alone, one view of {batch_size} images: {head_ms:.3f} ms "
+              f"(two per step: {2 * head_ms / (step_s * 1e3):.1%} of the step)")
 
     # 3. Trainer.train under the profiler
     cfg["epoch_step"] = args.steps + 1
