@@ -73,7 +73,20 @@ Phases, one line each (more for the build):
      the backbone and all its running statistics moved, the head
      bit-identical, the checkpoint files written; it runs no
      hand-written kernel (the JAX stage 1 reaches no Pallas kernel);
-then a ``kernels`` JSON line (K1, K2, K3, T1, T2 and the two reduction
+ 13. the bf16 ΔMMA probe (tools/selection_stability_torch.py): stage 1
+     (200 steps) then stage 2 (100 steps, K4-K6 launched) of the small
+     head192 model on SyntheticPairs 96x128, batch 4; then at two points,
+     480x640 with 8 sequences x 6 images and 8192 points, and 96x128 with
+     4 x 6 and 512 points, the synthetic-HPatches fixture extracted in
+     three arms (f32 reference dataflow; bf16 reference dataflow, no
+     kernels; bf16 fused head, K1 + K2 launched) and scored with
+     evals.hpatches on the card: |ΔMMA@3| of the fused arm against the f32
+     arm and against the plain bf16 arm at most 0.01, top-k overlap at
+     least 0.75 and match agreement at least 0.60 (the JAX test's
+     thresholds, tests/test_selection_stability.py:67-71); plus MMA@3 of
+     random weights at both points and mnn_matcher's time at 8192 x 8192,
+     D = 128;
+then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2 and the two reduction
 kernels), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
 exit code is non-zero; without a CUDA card it exits 2 and prints no
@@ -115,6 +128,11 @@ TRAIN_BATCH, GRID, TRAIN_STEPS = 6, 8, 6
 # its card-vs-CPU step check at 2 pairs of 240x320
 DESC_BATCH, DESC_GRID, DESC_STEPS = 8, 16, 5
 H_CHECK, W_CHECK, CHECK_BATCH = 240, 320, 2
+# the ΔMMA probe (phase 13): training steps, then (height, width, sequences, points) of each point
+PROBE_STEPS1, PROBE_STEPS2 = 200, 100
+PROBE_POINTS = ((H, W, 8, NUM_PTS), (96, 128, 4, 512))
+# tests/test_selection_stability.py:67-71
+MAX_DELTA_MMA3, MIN_TOPK_OVERLAP, MIN_MATCH_AGREEMENT = 0.01, 0.75, 0.60
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores, f32 CUDA cores, HBM3
 PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 SEED = 0
@@ -483,13 +501,18 @@ def phase_v1_path(torch, fh, rng, records):
           f"{max(counts)}, launches {launches}")
 
 
+def _load_tool(name):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_head_bench(torch, fh, records):
     """The per-stage head bench as its CLI runs it, with every fused-head
     kernel's launches read around it: the path of T1 and T2."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "bench_torch_fused_parts.py")
-    spec = importlib.util.spec_from_file_location("bench_torch_fused_parts", path)
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
+    bench = _load_tool("bench_torch_fused_parts")
     _zero_counts(fh)
     res = bench.run(torch)
     torch.cuda.synchronize()
@@ -982,7 +1005,89 @@ def phase_stage1(torch, smi):
           f"{n_stats} running statistics moved, head unchanged; {smi}")
 
 
+def _stage_record(run):
+    """(seconds in the steps, first and last metrics records) of a Trainer run."""
+    steps = [json.loads(x) for x in open(f"{run}/step_times.jsonl")]
+    metrics = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+    return sum(s["step_time_s"] for s in steps), len(steps), metrics[0], metrics[-1]
+
+
+def phase_probe(torch, smi):
+    """The bf16 ΔMMA probe on trained weights (phase 13)."""
+    from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.ops.matchers import mnn_matcher
+
+    probe = _load_tool("selection_stability_torch")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        # 1. train stage 1, then stage 2 (stage 1 runs no reduction kernel)
+        rf.lse_pass.launches = rf.reward_pass.launches = rf._split_operands.launches = 0
+        t0 = time.perf_counter()
+        ckpt = probe.train_probe_ckpt(work, PROBE_STEPS1, PROBE_STEPS2, device="cuda")
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {"K4+K5 lse_pass": rf.lse_pass.launches, "K6 reward_pass": rf.reward_pass.launches,
+                    "split": rf._split_operands.launches}
+        assert all(v > 0 for v in launches.values()), launches
+        for stage, steps, keys in (("desc", PROBE_STEPS1, ("total_loss", "loss_w1")),
+                                   ("kp", PROBE_STEPS2, ("total_loss", "reinforce"))):
+            secs, n, first, last = _stage_record(f"{work}/ckpts/conv_{stage}")
+            assert n == steps and all(np.isfinite(first[k]) and np.isfinite(last[k]) for k in keys)
+            shown = ", ".join(f"{k} {first[k]:.6g} -> {last[k]:.6g}" for k in keys)
+            print(f"[13] probe stage {1 if stage == 'desc' else 2} ({stage}): {n} steps at {probe.H}x{probe.W}, "
+                  f"batch 4, {secs:.1f} s in the steps; steps {first['global_step']} -> {last['global_step']}: "
+                  f"{shown}")
+        print(f"[13] probe training: {t_train:.1f} s for both stages; stage 2's reduction launches {launches}")
+
+        # 2.-4. per point: the fixture, the three arms, the checks
+        t_fixture = t_arms = 0.0
+        failed = []
+        for h, w, n_seq, num_pts in PROBE_POINTS:
+            point = f"{work}/p{h}x{w}"
+            t0 = time.perf_counter()
+            probe.make_eval_fixture(f"{point}/hpatches", n_seq=n_seq, h=h, w=w)
+            t_fixture += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec = probe.trained_probe(ckpt, point, num_pts=num_pts, n_seq=n_seq, h=h, w=w, device="cuda")
+            # the f32 arm with random weights: what training on the card changed
+            _, mma3_random, _ = probe.run_arm("random", None, point, f"{point}/hpatches", "float32", False,
+                                              num_pts, "cuda")
+            t_arms += time.perf_counter() - t0
+            print(f"[13] probe at {h}x{w}, {n_seq} sequences x 6 images, {num_pts} points: {json.dumps(rec)}")
+            print(f"[13]   {h}x{w}: MMA@3 f32, trained {rec['mma3_f32']:.6g}, random weights {mma3_random:.6g}")
+            assert rec["launches_bf16"]["K1"] > 0 and rec["launches_bf16"]["K2"] > 0, rec
+            assert not any(rec[f"launches_{a}"][k] for a in ("f32", "bf16_plain") for k in ("K1", "K2")), rec
+            checks = {
+                "|delta_mma3| (bf16 fused - f32)": (abs(rec["delta_mma3"]), "<=", MAX_DELTA_MMA3),
+                "topk_overlap_mean (bf16 fused vs f32)": (rec["topk_overlap_mean"], ">=", MIN_TOPK_OVERLAP),
+                "match_agreement_mean (bf16 fused vs f32)": (rec["match_agreement_mean"], ">=",
+                                                             MIN_MATCH_AGREEMENT),
+                "|delta_mma3_kernels| (bf16 fused - bf16 plain)": (abs(rec["delta_mma3_kernels"]), "<=",
+                                                                   MAX_DELTA_MMA3),
+            }
+            for name, (value, op, limit) in checks.items():
+                ok = value <= limit if op == "<=" else value >= limit
+                print(f"[13]   {h}x{w}: {name} {value:.6g} {op} {limit}: {'ok' if ok else 'MISSED'}")
+                if not ok:
+                    failed.append(f"{h}x{w} {name} {value:.6g}")
+
+    # 5. the matcher alone
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    d1, d2 = (torch.nn.functional.normalize(torch.randn(NUM_PTS, 128, generator=gen, device="cuda"), dim=1)
+              for _ in range(2))
+    match_ms = _time_ms(lambda: mnn_matcher(d1, d2, device="cuda"), n=20, warmup=3)
+    t_match = time.perf_counter() - t0
+    print(f"[13] mnn_matcher at {NUM_PTS} x {NUM_PTS}, D = 128, on the card: {match_ms:.4f} ms per call "
+          f"(f32 product, argmax both ways, indices to the host)")
+    print(f"[13] probe seconds: training {t_train:.1f}, fixtures {t_fixture:.1f}, arms {t_arms:.1f} (four at "
+          f"each point, random weights included), matcher {t_match:.2f}, phase "
+          f"{time.perf_counter() - t_phase:.1f}; {smi}")
+    assert not failed, f"the probe missed: {failed}"
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1040,8 +1145,10 @@ def main() -> int:
     phase_v1_path(torch, fh, rng, v1)
     phase_head_bench(torch, fh, v1)
     phase_stage1(torch, smi)
+    phase_probe(torch, smi)
     records += v1 + reduction
 
+    print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

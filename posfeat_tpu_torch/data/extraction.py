@@ -5,14 +5,17 @@ aachen.py, ETH_local_feature.py).
 Each item is {'im1': None, 'im1_ori': uint8 HWC, 'coord1': [0, 2],
 'name1': str, 'pad1': (0, 0, 0, 0)} after the %16 crop: the extractor
 normalizes on the device. Host SIFT keypoints (for the SIFT passthrough)
-and multi-host sharding of the image list are not ported yet
-(ROADMAP.md queue 1, item 7). ``cv2`` is imported where an image is read.
+and multi-host sharding of the image list are not ported yet (ROADMAP.md:
+extraction and model remainders, and distribution and host plumbing).
+Binary PPM (P6, maxval 255: the HPatches images) is read with numpy;
+every other file goes to ``cv2``, imported where such an image is read.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import re
 from typing import Dict
 
 import numpy as np
@@ -20,7 +23,35 @@ import numpy as np
 from .utils import crop_mod16
 
 
+# "P6", width, height and maxval, separated by whitespace and "#" comments,
+# then one whitespace byte before the pixels
+_SEP = rb"(?:\s|#[^\n]*\n)+"
+_P6_HEADER = re.compile(rb"P6" + _SEP + rb"(\d+)" + _SEP + rb"(\d+)" + _SEP + rb"(\d+)\s")
+
+
+def read_ppm_p6(path: str):
+    """uint8 [H, W, 3] RGB of a binary PPM with maxval 255, or None for any
+    other file."""
+    with open(path, "rb") as f:
+        if f.read(2) != b"P6":
+            return None
+        data = b"P6" + f.read()
+    m = _P6_HEADER.match(data)
+    if m is None:
+        raise ValueError(f"{path}: bad PPM header")
+    w, h, maxval = (int(g) for g in m.groups())
+    if maxval != 255:
+        return None
+    n = h * w * 3
+    if len(data) - m.end() < n:
+        raise ValueError(f"{path}: PPM holds {len(data) - m.end()} pixel bytes, not {n}")
+    return np.frombuffer(data, np.uint8, count=n, offset=m.end()).reshape(h, w, 3).copy()
+
+
 def _imread_rgb(path: str) -> np.ndarray:
+    im = read_ppm_p6(path)
+    if im is not None:
+        return im
     import cv2
 
     im = cv2.imread(path, cv2.IMREAD_UNCHANGED)

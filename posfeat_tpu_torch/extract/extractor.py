@@ -13,10 +13,12 @@ are written from a pool, so device, decode and IO overlap.
 Feature files match the reference: ``np.savez(keypoints [n,2] px,
 scores [n,1], descriptors [n,C])``, float32 (extractor.py:267-271).
 
-Not ported yet (ROADMAP.md queue 1, item 7): the h5 / feat.h5 writers,
-the SIFT passthrough, ``output_img``, spatial sharding, multi-host
-sharding (``num_shards``) and ``detector_config_query``. A config that
-asks for one raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md: extraction and model remainders, and
+distribution and host plumbing): the h5 / feat.h5 writers, the SIFT
+passthrough, ``output_img``, spatial sharding and multi-host sharding
+(``num_shards``). A config that asks for one raises
+``NotImplementedError``. ``detector_config_query`` applies to Aachen
+Day-Night query images, as in the JAX extractor.
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class Extractor:
         for key in _DEFERRED:
             if self.config.get(key):
                 raise NotImplementedError(
-                    f"{key}: not ported yet; see ROADMAP.md queue 1, item 7"
+                    f"{key}: not ported yet; see ROADMAP.md: extraction and model remainders"
                 )
         self.device = resolve_device(device)
         self.save_root = os.path.join(ckpt_root, self.config["output_root"])
@@ -83,7 +85,7 @@ class Extractor:
         dcfg = dict(self.config["data_config_extract"])
         if int(dcfg.get("num_shards", 1)) > 1:
             raise NotImplementedError(
-                "num_shards: not ported yet; see ROADMAP.md queue 1, item 7"
+                "num_shards: not ported yet; see ROADMAP.md: distribution and host plumbing"
             )
         dtype = _DTYPES[self.config.get("compute_dtype", "float32")]
 
@@ -172,14 +174,14 @@ class Extractor:
         return self._programs[key]
 
     def _det_cfg_key(self, inputs: Dict) -> str:
+        """Aachen Day-Night query images take ``detector_config_query``
+        where the config has it (posfeat_tpu/extract/extractor.py:513-522)."""
         if (
             self.config["data"] == "Aachen_Day_Night"
             and inputs["name1"].split("/")[0] == "query"
             and "detector_config_query" in self.config
         ):
-            raise NotImplementedError(
-                "detector_config_query is not ported yet; see ROADMAP.md queue 1, item 2"
-            )
+            return "detector_config_query"
         return "detector_config"
 
     # ------------------------------------------------------------ writers

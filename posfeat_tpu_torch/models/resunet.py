@@ -147,7 +147,7 @@ class ResUNet(nn.Module):
         if desc_tail:
             raise NotImplementedError(
                 f"desc_tail={desc_tail!r}: the bf16 descriptor-tail ladder is not "
-                "ported; see ROADMAP.md queue 1, item 7"
+                "ported; see ROADMAP.md: extraction and model remainders"
             )
         kind, counts, width_mult = _ENCODERS[encoder]
         self.firstconv = nn.Conv2d(3, 64, 7, 2, 3, bias=False)

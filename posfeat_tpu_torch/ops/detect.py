@@ -58,12 +58,12 @@ def generate_kpts_single(
     normalized, scores [B, num_pts, 1], valid_count [B] int32)."""
     if not stable:
         raise NotImplementedError(
-            "Gumbel sampling (stable=False) is a training path; see ROADMAP.md "
-            "queue 1, item 6"
+            "Gumbel sampling (stable=False) is a training path; see ROADMAP.md: "
+            "sub-pixel refiners"
         )
     if refine != "avg3":
         raise NotImplementedError(
-            f"refine={refine!r} is not ported yet; see ROADMAP.md queue 1, item 6"
+            f"refine={refine!r} is not ported yet; see ROADMAP.md: sub-pixel refiners"
         )
     B, H, W, _ = kp_map.shape
     interior = kp_map[:, 1:-1, 1:-1, :]  # [B, H-2, W-2, 1]

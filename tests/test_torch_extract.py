@@ -21,21 +21,11 @@ from posfeat_tpu.ops.coords import denormalize_coords
 from posfeat_tpu.ops.detect import generate_kpts_single
 from posfeat_tpu.ops.grid_sample import sample_feat_by_coord
 from posfeat_tpu_torch.extract import Extractor
-from torch_port_helpers import SMALL_CONFIG, jax_posfeat
+from torch_port_helpers import SMALL_CONFIG, pairs_close as _pairs_close, save_both_checkpoints
 
 H, W, NUM_PTS = 64, 96, 128
 DET = {"num_pts": NUM_PTS, "stable": True, "use_nms": True, "nms_radius": 1,
        "thr": 0.9, "thr_mod": "abs"}
-
-
-def _pairs_close(kp_a, sc_a, de_a, kp_b, sc_b, de_b):
-    assert kp_a.shape == kp_b.shape and de_a.shape == de_b.shape
-    d = np.linalg.norm(kp_a[:, None, :] - kp_b[None, :, :], axis=-1)
-    j = d.argmin(axis=1)
-    assert len(set(j.tolist())) == len(j), "keypoints pair up one to one"
-    assert d[np.arange(len(j)), j].max() < 1e-3
-    np.testing.assert_allclose(sc_a, sc_b[j], rtol=1e-3, atol=1e-6)
-    np.testing.assert_allclose(de_a, de_b[j], atol=1e-4)
 
 
 def _config(tmp_path, tag, load_path):
@@ -60,13 +50,8 @@ def _config(tmp_path, tag, load_path):
 @pytest.fixture
 def weights(tmp_path):
     """One set of random weights saved in both checkpoint formats."""
-    from posfeat_tpu_torch.core.jax_weights import from_jax_variables
-
-    jmodel, variables = jax_posfeat(seed=7, im_shape=(1, H, W, 3))
     ck = tmp_path / "ck_in"
-    jmodel.save_checkpoint(jax.tree.map(jnp.asarray, variables), str(ck))
-    for name, sd in from_jax_variables(variables).items():
-        torch.save(sd, ck / f"{name}.pth")
+    jmodel, variables = save_both_checkpoints(ck, seed=7, im_shape=(1, H, W, 3))
     return jmodel, variables, ck
 
 

@@ -15,7 +15,8 @@ ROOT = PKG.parent
 SCRIPTS = [ROOT / "chip_smoke.py"] + [
     ROOT / "tools" / f"{name}.py"
     for name in ("bench_torch_fused_parts", "profile_torch_extract", "profile_torch_train",
-                 "profile_torch_conv_stages", "profile_torch_lse_stages", "compare_torch_trees")
+                 "profile_torch_conv_stages", "profile_torch_lse_stages", "compare_torch_trees",
+                 "selection_stability_torch")
 ]
 
 

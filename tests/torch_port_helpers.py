@@ -59,6 +59,37 @@ def jax_posfeat(config=SMALL_CONFIG, seed=0, im_shape=(1, 64, 96, 3)):
     return model, randomize(jax.tree.map(np.asarray, variables), np.random.RandomState(seed))
 
 
+def pairs_close(kp_a, sc_a, de_a, kp_b, sc_b, de_b):
+    """Two extractions of one image agree: keypoints paired one to one by
+    nearest neighbour within 1e-3 px, scores within rtol 1e-3 and
+    descriptors within atol 1e-4 (a swap of two near-equal scores in the
+    top-k passes; a missing or moved keypoint fails)."""
+    assert kp_a.shape == kp_b.shape and de_a.shape == de_b.shape
+    d = np.linalg.norm(kp_a[:, None, :] - kp_b[None, :, :], axis=-1)
+    j = d.argmin(axis=1)
+    assert len(set(j.tolist())) == len(j), "keypoints pair up one to one"
+    assert d[np.arange(len(j)), j].max() < 1e-3
+    np.testing.assert_allclose(sc_a, sc_b[j], rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(de_a, de_b[j], atol=1e-4)
+
+
+def save_both_checkpoints(ck, config=SMALL_CONFIG, seed=7, im_shape=(1, 64, 96, 3)):
+    """One set of random weights written into the directory ``ck`` in both
+    checkpoint formats (the JAX msgpack files and the port's .pth files);
+    returns (JAX model, numpy variables)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from posfeat_tpu_torch.core.jax_weights import from_jax_variables
+
+    jmodel, variables = jax_posfeat(config, seed=seed, im_shape=im_shape)
+    jmodel.save_checkpoint(jax.tree.map(jnp.asarray, variables), str(ck))
+    for name, sd in from_jax_variables(variables).items():
+        torch.save(sd, f"{ck}/{name}.pth")
+    return jmodel, variables
+
+
 def port_posfeat(variables, config=SMALL_CONFIG):
     """The port's PoSFeat on the CPU carrying the same weights."""
     from posfeat_tpu_torch.core.jax_weights import from_jax_variables

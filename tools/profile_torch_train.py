@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time goes in posfeat_tpu_torch's training, on one CUDA card.
 
-    python3 tools/profile_torch_train.py [--stage 1|2] [--steps 5] [--trace PATH]
+    python3 tools/profile_torch_train.py [--stage 1|2] [--probe] [--steps 5] [--trace PATH]
 
 Builds chip_smoke.py's training setup of the stage: 2 (the default),
 ``chip_smoke.train_config`` (configs/train_kp.yaml with the flagship
 model in f32, SyntheticPairs at 480x640, batch 6 pairs); 1,
 ``chip_smoke.desc_config`` (configs/train_desc.yaml, the same model and
-data, batch 8 pairs). It measures:
+data, batch 8 pairs). ``--probe`` takes the ΔMMA probe's training
+instead (tools/selection_stability_torch.py ``train_config``: the
+head192 model, SyntheticPairs at 96x128, batch 4 pairs; stage 2 from
+random weights). It measures:
   1. the input pipeline alone: seconds per batch of the PrefetchLoader
      and of one sample built on the calling thread;
   2. the step alone: ``Trainer.train_step`` on batches already on the
@@ -72,12 +75,19 @@ def main() -> int:
     p.add_argument("--stage", type=int, choices=(1, 2), default=2)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--trace", default=None, help="keep the Chrome trace here")
+    p.add_argument("--probe", action="store_true", help="the ΔMMA probe's training (96x128, batch 4)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    cfg, batch_size = (desc_config(), DESC_BATCH) if args.stage == 1 else (train_config(), TRAIN_BATCH)
-    print(f"stage {args.stage}: {torch.cuda.get_device_name(0)}")
+    if args.probe:
+        from selection_stability_torch import train_config as probe_config
+
+        cfg = probe_config(None, "desc" if args.stage == 1 else "kp", args.steps)
+        batch_size = cfg["data_config_train"]["batch_size"]
+    else:
+        cfg, batch_size = (desc_config(), DESC_BATCH) if args.stage == 1 else (train_config(), TRAIN_BATCH)
+    print(f"stage {args.stage}{' (probe)' if args.probe else ''}: {torch.cuda.get_device_name(0)}")
     with tempfile.TemporaryDirectory() as tmp:
         tr = Trainer(cfg, ckpt_root=tmp)
         ds = tr.train_dataset
