@@ -86,6 +86,20 @@ Phases, one line each (more for the build):
      thresholds, tests/test_selection_stability.py:67-71); plus MMA@3 of
      random weights at both points and mnn_matcher's time at 8192 x 8192,
      D = 128;
+ 14. training as shipped, the slice-E path: a MegaDepth-layout fixture
+     (tools/make_megadepth_fixture.py, 2 scenes x 4 images at 480x640),
+     the MegaDepth_SIFT loader alone (6 threads) per stage, then
+     ``python -m posfeat_tpu_torch.train`` (its ``main``, in this process,
+     so that the kernels' counts are read) on configs/train_desc.yaml
+     (batch 8) and then configs/train_kp.yaml (batch 6) from stage 1's
+     checkpoint, as shipped but for the data paths, 4 steps logged every
+     2 and ``compute_dtype``: in f32, then in bf16. Every loss finite;
+     the split, the lse and the reward pass launched once in every stage-2
+     step and never in stage 1; K1-K3, T1 and T2 never (the head trains
+     through its dilated composite); the six visual-dump folders of both
+     validation samples hold a file for every logged step; stage 2's
+     backbone equal to stage 1's bit for bit; checkpoints f32. Prints
+     each run's s/step and its wait for the loader. Budget: 120 s;
 then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2 and the two reduction
 kernels), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
@@ -128,6 +142,12 @@ TRAIN_BATCH, GRID, TRAIN_STEPS = 6, 8, 6
 # its card-vs-CPU step check at 2 pairs of 240x320
 DESC_BATCH, DESC_GRID, DESC_STEPS = 8, 16, 5
 H_CHECK, W_CHECK, CHECK_BATCH = 240, 320, 2
+# training as shipped (phase 14): steps and log frequency of each CLI run, on a
+# MegaDepth-layout fixture of SCENES x IMAGES at 480x640; its budget in seconds
+SHIPPED_STEPS, SHIPPED_LOG_FREQ, SHIPPED_SCENES, SHIPPED_IMAGES = 4, 2, 2, 4
+SHIPPED_BUDGET_S = 120.0
+VIS_FOLDERS = ("0_original_images", "1_score_maps", "2_all_keypoints", "3_matched_keypoints",
+               "4_matches_less", "5_matches_all")
 # the ΔMMA probe (phase 13): training steps, then (height, width, sequences, points) of each point
 PROBE_STEPS1, PROBE_STEPS2 = 200, 100
 PROBE_POINTS = ((H, W, 8, NUM_PTS), (96, 128, 4, 512))
@@ -685,11 +705,13 @@ def phase_reduction(torch, rng):
 
 def train_config():
     """configs/train_kp.yaml as shipped, with the flagship model in f32,
-    random weights from the seed and SyntheticPairs at 480x640, one epoch
-    of TRAIN_STEPS steps, every step logged."""
+    random weights from the seed, ``val_config`` removed and
+    SyntheticPairs at 480x640, one epoch of TRAIN_STEPS steps, every step
+    logged."""
     from posfeat_tpu_torch.core.config import load_config
 
     cfg = load_config("configs/train_kp.yaml")
+    cfg.pop("val_config")  # no visual dumps: s/step stays comparable with earlier runs
     cfg.update(
         checkpoint_name="smoke_kp", model_config=copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
         compute_dtype="float32", load_path=None, epoch=1, epoch_step=TRAIN_STEPS, log_freq=1,
@@ -1086,6 +1108,125 @@ def phase_probe(torch, smi):
     assert not failed, f"the probe missed: {failed}"
 
 
+def shipped_config(stage, fixture, dtype, load_path=None):
+    """configs/train_desc.yaml (stage "desc") or configs/train_kp.yaml
+    ("kp") as shipped, with only the data paths, the step counts
+    (SHIPPED_STEPS, logged every SHIPPED_LOG_FREQ), ``compute_dtype`` and
+    stage 2's ``load_path`` changed."""
+    from posfeat_tpu_torch.core.config import load_config
+
+    cfg = load_config(f"configs/train_{stage}.yaml")
+    cfg.update(epoch=1, epoch_step=SHIPPED_STEPS, log_freq=SHIPPED_LOG_FREQ, compute_dtype=dtype)
+    cfg["data_config_train"]["data_path"] = fixture
+    if "data_config_val" in cfg["val_config"]:
+        cfg["val_config"]["data_config_val"]["data_path"] = fixture
+    if stage == "kp":
+        cfg["load_path"] = load_path
+    assert cfg["data"] == "MegaDepth_SIFT" and cfg["checkpoint_name"] == {"desc": "descriptor", "kp": "keypoint"}[stage]
+    return cfg
+
+
+def _loader_s_per_batch(dataset_cls, dcfg, seed, n_batches=3):
+    """Seconds per batch of the PrefetchLoader alone on ``dcfg`` (its batch
+    size and workers), over n_batches after the first."""
+    from posfeat_tpu_torch.data.loader import PrefetchLoader
+
+    ds = dataset_cls(dcfg, is_train=True, seed=seed)
+    it = iter(PrefetchLoader(ds, batch_size=dcfg["batch_size"], num_workers=dcfg["workers"], seed=seed,
+                             infinite=True))
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            next(it)
+        return (time.perf_counter() - t0) / n_batches
+    finally:
+        it.close()
+
+
+def phase_shipped(torch, fh, smi):
+    """Training as shipped (phase 14): the two CLI runs of the README,
+    stage 1 then stage 2 from its checkpoint, on a MegaDepth-layout
+    fixture, in f32 and then in bf16."""
+    import yaml
+
+    from posfeat_tpu_torch.data.megadepth import MegaDepth_SIFT
+    from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.train.__main__ import main as train_cli
+
+    fixture_tool = _load_tool("make_megadepth_fixture")
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = fixture_tool.write_megadepth_fixture(f"{tmp}/megadepth", SHIPPED_SCENES, SHIPPED_IMAGES, H, W)
+        t_fixture = time.perf_counter() - t_phase
+        dcfgs = {stage: shipped_config(stage, fixture, "float32")["data_config_train"] for stage in ("desc", "kp")}
+        loader = {stage: _loader_s_per_batch(MegaDepth_SIFT, dcfg, SEED) for stage, dcfg in dcfgs.items()}
+        print(f"[14] MegaDepth-layout fixture: {SHIPPED_SCENES} scenes x {SHIPPED_IMAGES} images at {H}x{W} in "
+              f"{t_fixture:.2f} s; the loader alone ({dcfgs['desc']['workers']} threads, SIFT and jitter): stage 1 "
+              f"{loader['desc']:.4f} s a batch of {dcfgs['desc']['batch_size']}, stage 2 {loader['kp']:.4f} s a "
+              f"batch of {dcfgs['kp']['batch_size']}")
+        _zero_counts(fh)
+        logged = sorted({1, *range(SHIPPED_LOG_FREQ, SHIPPED_STEPS + 1, SHIPPED_LOG_FREQ)})
+        for dtype in ("float32", "bfloat16"):
+            work = f"{tmp}/{dtype}"
+            os.makedirs(work)
+            runs = {}
+            for stage in ("desc", "kp"):
+                cfg = shipped_config(stage, fixture, dtype, load_path=f"{work}/ckpts/descriptor/001")
+                path = f"{work}/train_{stage}.yaml"
+                with open(path, "w") as f:
+                    yaml.safe_dump(cfg, f)
+                rf.lse_pass.launches = rf.reward_pass.launches = rf._split_operands.launches = 0
+                t0 = time.perf_counter()
+                os.chdir(work)
+                try:
+                    train_cli(["--config", path])
+                finally:
+                    os.chdir(cwd)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = (rf._split_operands.launches, rf.lse_pass.launches, rf.reward_pass.launches)
+                run = f"{work}/ckpts/{cfg['checkpoint_name']}"
+                steps = [json.loads(x) for x in open(f"{run}/step_times.jsonl")]
+                metrics = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+                assert len(steps) == SHIPPED_STEPS and [m["global_step"] for m in metrics] == logged, metrics
+                assert all(np.isfinite(m["total_loss"]) for m in metrics), metrics
+                assert not [f for f in os.listdir(run) if f.startswith("error_step")]
+                if stage == "desc":
+                    assert launches == (0, 0, 0), launches
+                else:  # one reduction a step: its split, the lse pass and the reward pass
+                    assert launches == (SHIPPED_STEPS,) * 3, launches
+                for si in range(2):
+                    for folder in VIS_FOLDERS:
+                        files = sorted(os.listdir(f"{run}/vis/sample{si}/{folder}"))
+                        assert files == sorted(f"{g}.jpg" for g in logged), (run, si, folder, files)
+                        assert all(os.path.getsize(f"{run}/vis/sample{si}/{folder}/{f}") > 0 for f in files)
+                timed = [r["step_time_s"] for r in steps[1:]]
+                runs[stage] = run
+                print(f"[14] {dtype} {'stage 1' if stage == 'desc' else 'stage 2'} (configs/train_{stage}.yaml, "
+                      f"batch {cfg['data_config_train']['batch_size']}): {SHIPPED_STEPS} steps, first "
+                      f"{steps[0]['step_time_s']:.4f} s, then {np.mean(timed):.4f} s/step (min {min(timed):.4f}, "
+                      f"max {max(timed):.4f}); wait for the loader {np.mean([r['data_wait_s'] for r in steps[1:]]):.4f} "
+                      f"s/step; loss {metrics[0]['total_loss']:.6g} -> {metrics[-1]['total_loss']:.6g}; "
+                      f"K4-K6 launches (split, lse, reward) {launches}; vis {len(logged)} x 6 folders x 2 samples; "
+                      f"wall {wall:.2f} s")
+            # stage 2 read stage 1's backbone, running statistics included, bit for bit
+            bb1 = torch.load(f"{runs['desc']}/001/backbone.pth", weights_only=True)
+            for epoch in ("000", "001"):
+                bb2 = torch.load(f"{runs['kp']}/{epoch}/backbone.pth", weights_only=True)
+                assert bb1.keys() == bb2.keys() and all(torch.equal(bb1[k], bb2[k]) for k in bb1), epoch
+            dtypes = {v.dtype for m in ("backbone", "localheader")
+                      for v in torch.load(f"{runs['kp']}/001/{m}.pth", weights_only=True).values()}
+            assert dtypes <= {torch.float32, torch.int64}, dtypes
+        counts = _read_counts(fh)
+        assert not any(counts.values()), f"a fused-head kernel launched under autograd or in the dumps: {counts}"
+    seconds = time.perf_counter() - t_phase
+    print(f"[14] training as shipped: fixture, loader, 2 x (stage 1 + stage 2) in {seconds:.1f} s (budget "
+          f"{SHIPPED_BUDGET_S:.0f}); stage 2 loaded stage 1's backbone bit for bit in both dtypes, checkpoints f32; "
+          f"K1-K3, T1, T2 launches {counts}; {smi}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1146,6 +1287,7 @@ def main() -> int:
     phase_head_bench(torch, fh, v1)
     phase_stage1(torch, smi)
     phase_probe(torch, smi)
+    phase_shipped(torch, fh, smi)
     records += v1 + reduction
 
     print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")

@@ -43,10 +43,13 @@ class PoSFeat(nn.Module):
 
     config keys (reference PoSFeat_model.py:16-46): backbone,
     backbone_config, localheader, localheader_config, align_local_grad,
-    local_input_elements, local_with_img. The backbone's parameters take
-    ``dtype``; the head keeps f32 parameters and casts per op. Weights
-    are drawn from a ``torch.Generator`` seeded with ``seed`` unless a
-    checkpoint is loaded over them.
+    local_input_elements, local_with_img. ``dtype`` is the compute dtype:
+    backbone and head keep f32 parameters and BatchNorm statistics and
+    cast per op, as the JAX modules' ``param_dtype=float32``
+    (posfeat_tpu/models/resunet.py:43,59), so an optimizer updates f32
+    parameters and a checkpoint is f32 at either dtype. Weights are drawn
+    from a ``torch.Generator`` seeded with ``seed`` unless a checkpoint is
+    loaded over them.
     """
 
     module_names = ("backbone", "localheader")
@@ -64,7 +67,7 @@ class PoSFeat(nn.Module):
                 "KeypointDet requires local_with_img=True (reference DeteNet "
                 "forward consumes [feat, image])"
             )
-        backbone = BACKBONES[config["backbone"]](**(config.get("backbone_config") or {}))
+        backbone = BACKBONES[config["backbone"]](**(config.get("backbone_config") or {}), dtype=dtype)
         head_name = config.get("localheader")
         if head_name and head_name != "None":
             head = HEADS[head_name](**(config.get("localheader_config") or {}), dtype=dtype)
@@ -73,7 +76,7 @@ class PoSFeat(nn.Module):
         g = torch.Generator().manual_seed(seed)
         init_parameters(backbone, g)
         init_parameters(head, g)
-        self.backbone = backbone.to(device=dev, dtype=dtype)
+        self.backbone = backbone.to(device=dev)
         self.localheader = head.to(device=dev)
         self.eval()
 
@@ -120,14 +123,15 @@ class PoSFeat(nn.Module):
         mode (trainer.py:285-291). The backbone builds a graph only when
         one of its parameters requires a gradient. The head runs in eval
         mode in both stages, and ``align_local_grad: False`` detaches its
-        input as the JAX ``stop_gradient`` does (posfeat.py:100-101). The
-        head's bf16 dataflows and fused kernels have no backward."""
-        if torch.is_grad_enabled() and (
-            self.dtype != torch.float32 or self.localheader.fused_upsample == "pallas"
-        ):
+        input as the JAX ``stop_gradient`` does (posfeat.py:100-101). At
+        bf16 the head takes its bf16 dataflow, by default the dilated
+        composite, as the JAX head does; the fused kernels K1/K2
+        (``fused_upsample="pallas"``) have no backward and are refused
+        here."""
+        if torch.is_grad_enabled() and self.localheader.fused_upsample == "pallas":
             raise NotImplementedError(
-                "training runs the f32 reference head only: the bf16 head and the fused "
-                "kernels K1/K2 have no backward; see ROADMAP.md"
+                "fused_upsample='pallas' under autograd: the fused head's kernels K1/K2 have no "
+                "backward; train with the head's other dataflows (see ROADMAP.md)"
             )
         self.eval()
         self.backbone.train(train)

@@ -13,8 +13,16 @@ BatchNorm trains as flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
 running variance updated with that same biased variance (``BatchNorm2d``
 below), not with torch's unbiased one.
 
-Both dtypes run the reference concat dataflow. The JAX package's bf16
-ladder (``accum_f32``, ``split*``, ``splitcat``, ``_tail_plan``,
+Parameters and running statistics stay f32 at every compute dtype, as
+the JAX modules' ``param_dtype=float32`` (resunet.py:43,59): a bf16
+backbone casts each conv's weight to bf16 where it runs (``Conv2d``),
+and its BatchNorm normalizes in f32 with f32 statistics and returns
+bf16, as flax's does. An optimizer therefore updates f32 parameters in
+either dtype.
+
+Both dtypes run the reference concat dataflow, the one JAX trains with
+at bf16 (resunet.py:501-507). The JAX package's bf16 extraction ladder
+(``accum_f32``, ``split*``, ``splitcat``, ``_tail_plan``,
 resunet.py:398-558) is left out, so at bf16 this backbone rounds where
 the concat dataflow rounds.
 """
@@ -36,12 +44,23 @@ _ENCODERS = {
 }
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs at its input's dtype: the f32 weight and
+    bias are cast to it for the call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training step updates the running
     statistics as flax does: running = 0.9 · running + 0.1 · batch, with
     the batch's biased variance (torch's own update uses the unbiased
     one, n/(n−1) larger: a few percent at the deepest layers of small
-    images). Evaluation and the state_dict are torch's."""
+    images). Evaluation and the state_dict are torch's. A bf16 input is
+    normalized with the f32 parameters and statistics and comes out
+    bf16."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -56,15 +75,15 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 def _downsample(cin, cout, stride):
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
+    return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin, planes, stride=1, downsample=False):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
         self.downsample = _downsample(cin, planes, stride) if downsample else None
         self.out_ch = planes
@@ -80,11 +99,11 @@ class Bottleneck(nn.Module):
     def __init__(self, cin, planes, stride=1, downsample=False, width_mult=1):
         super().__init__()
         width = planes * width_mult
-        self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
+        self.conv1 = Conv2d(cin, width, 1, bias=False)
         self.bn1 = BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(width)
-        self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(width, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = _downsample(cin, planes * 4, stride) if downsample else None
         self.out_ch = planes * 4
@@ -102,7 +121,7 @@ class ConvBNElu(nn.Module):
 
     def __init__(self, cin, cout, kernel, stride=1):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2)
+        self.conv = Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2)
         self.bn = BatchNorm2d(cout)
 
     def forward(self, x):
@@ -137,11 +156,12 @@ class ResUNet(nn.Module):
 
     forward(x [B, H, W, 3]) -> {'global_map' [B, H/16, W/16, coarse_out_ch],
     'local_map' [B, H/4, W/4, fine_out_ch], 'local_map_small'
-    [B, H/4, W/4, 64]}, NHWC, in the module's dtype."""
+    [B, H/4, W/4, 64]}, NHWC, in the compute dtype ``dtype``."""
 
     def __init__(self, encoder="resnet50", pretrained=True, coarse_out_ch=128,
-                 fine_out_ch=128, desc_tail=""):
+                 fine_out_ch=128, desc_tail="", dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         if encoder not in _ENCODERS:
             raise ValueError(f"Incorrect encoder type {encoder}")
         if desc_tail:
@@ -150,7 +170,7 @@ class ResUNet(nn.Module):
                 "ported; see ROADMAP.md: extraction and model remainders"
             )
         kind, counts, width_mult = _ENCODERS[encoder]
-        self.firstconv = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.firstconv = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.firstbn = BatchNorm2d(64)
         cin = 64
         for li, (n_blocks, planes, stride) in enumerate(zip(counts, (64, 128, 256), (1, 2, 2))):
@@ -181,8 +201,7 @@ class ResUNet(nn.Module):
         return [self.fine_out_ch, self.coarse_out_ch]
 
     def forward(self, x: torch.Tensor):
-        dt = self.firstconv.weight.dtype
-        x = x.to(dt).permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
         x = F.relu(self.firstbn(self.firstconv(x)))
         x_first = F.max_pool2d(x, 3, 2, 1)
         x1 = self.layer1(x_first)

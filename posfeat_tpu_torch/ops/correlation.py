@@ -2,7 +2,9 @@
 matchers: log-space Sinkhorn OT and dual softmax
 (posfeat_tpu/ops/correlation.py:32-153; reference
 preprocess_utils.py:55-194). The m×n products are f32 matmuls, which
-stay out of TF32 on the card (``core/device.py``)."""
+stay out of TF32 on the card (``core/device.py``); a bf16 operand is
+widened first, as JAX's ``preferred_element_type=float32`` products take
+it (correlation.py:20-31)."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ def compute_prob(feat1: torch.Tensor, feat2: torch.Tensor, loss_distance: str = 
         raise ValueError(f"unsupported loss_distance {loss_distance!r}")
     if return_sim and loss_distance != "cos":
         raise ValueError("return_sim needs loss_distance 'cos'")
+    feat1, feat2 = feat1.float(), feat2.float()
     if loss_distance == "cos":
         sim = torch.bmm(feat1, feat2.transpose(1, 2))
         scale = math.sqrt(feat2.shape[1]) if with_scale else 1.0

@@ -54,9 +54,11 @@ def _window_geometry(Hf: int, Wf: int, ws: float, device):
 
 
 def _correlation_maps(fm_flat: torch.Tensor, f1k: torch.Tensor, Hf: int, Wf: int) -> torch.Tensor:
-    """fm_flat [B, Hf·Wf, D], f1k [B, C, D] -> pf [B, C, Hf, Wf]."""
+    """fm_flat [B, Hf·Wf, D], f1k [B, C, D] -> pf [B, C, Hf, Wf] f32: a bf16
+    operand is widened, so the product is exact and f32 as JAX's
+    ``preferred_element_type=float32`` makes it (line_window.py:58-68)."""
     B, C, _ = f1k.shape
-    return torch.bmm(f1k, fm_flat.transpose(1, 2)).reshape(B, C, Hf, Wf)
+    return torch.bmm(f1k.float(), fm_flat.float().transpose(1, 2)).reshape(B, C, Hf, Wf)
 
 
 def _window_from_pf(pf: torch.Tensor, centers_n: torch.Tensor, geometry):

@@ -45,12 +45,14 @@ def _sample_scalar_maps(pf: torch.Tensor, pos: torch.Tensor, padding: str) -> to
 def sampled_similarity(featmap: torch.Tensor, feat1: torch.Tensor, pos: torch.Tensor,
                        padding: str = "zeros", chunk: int = 256) -> torch.Tensor:
     """featmap [B, H, W, D], feat1 [B, N, D], pos [B, N, S, 2] normalized
-    (x, y), align_corners=False -> sim [B, N, S] f32."""
+    (x, y), align_corners=False -> sim [B, N, S] f32; bf16 operands are
+    widened before the product (sampled_sim.py:84-90)."""
     if padding not in ("zeros", "border"):
         raise ValueError(f"unsupported padding {padding!r}")
     B, H, W, D = featmap.shape
     S = pos.shape[2]
-    fm_t = featmap.reshape(B, H * W, D).transpose(1, 2)
+    fm_t = featmap.reshape(B, H * W, D).transpose(1, 2).float()
+    feat1 = feat1.float()
     sims = []
     for s in range(0, feat1.shape[1], chunk):
         pf = torch.bmm(feat1[:, s:s + chunk], fm_t)  # [B, c, H·W]

@@ -1,6 +1,7 @@
-"""Training CLI (reference train.py).
+"""Training CLI (reference train.py), both stages.
 
-Usage: python -m posfeat_tpu_torch.train --config configs/train_kp.yaml [--device cpu]
+Usage: python -m posfeat_tpu_torch.train --config configs/train_desc.yaml [--device cpu]  # stage 1
+       python -m posfeat_tpu_torch.train --config configs/train_kp.yaml [--device cpu]    # stage 2
 """
 
 import argparse
@@ -9,7 +10,8 @@ from .trainer import Trainer
 
 
 def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description="PoSFeat stage-2 training (PyTorch/CUDA)")
+    parser = argparse.ArgumentParser(
+        description="PoSFeat training, stage 1 (descriptors) or stage 2 (keypoints) (PyTorch/CUDA)")
     parser.add_argument("--config", type=str, required=True, help="yaml config file")
     parser.add_argument("--overwrite", action="store_true", help="allow existing run dir")
     parser.add_argument("--device", type=str, default=None,

@@ -1,4 +1,5 @@
-"""The trainer of both stages on one device (posfeat_tpu/train/trainer.py:52-551;
+"""The trainer of both stages on one device, stage 1 (the descriptor
+backbone) and stage 2 (the keypoint head) (posfeat_tpu/train/trainer.py:52-766;
 reference managers/trainer.py:41-544).
 
   * module freezing as the reference (optimal_modules, trainer.py:78-87):
@@ -15,14 +16,20 @@ reference managers/trainer.py:41-544).
     stay as they were; BatchNorm's running statistics keep the step's
     update, as the JAX trainer writes them back on any step
     (trainer.py:501-505); the batch goes to ``error_step<N>.npz``;
+  * ``compute_dtype: bfloat16`` computes in bf16 while parameters,
+    BatchNorm statistics and optimizer state stay f32, as the JAX model's
+    ``param_dtype=float32``; checkpoints are f32 in either dtype;
   * epoch-directory checkpoints (``<checkpoint_name>/<epoch:03d>/``) with
     ``backbone.pth``, ``localheader.pth`` and ``opt_state.pth``, ``000/``
     at the start, resume from the latest, the reference's
     ``FileExistsError`` rule, ``config.yaml``, ``metrics.jsonl`` and
-    ``step_times.jsonl``.
+    ``step_times.jsonl`` (each step's time and its wait for the loader);
+  * the visual validation dumps of ``val_config`` (``val_and_vis``): six
+    image folders per validation sample at every logged step, written
+    after the step's timer stops; a failing dump logs a warning and never
+    stops training.
 
-Not ported yet (ROADMAP.md): bf16 training, ``multihost:``
-(slice E), the visual validation dumps ``val_and_vis``, device traces
+Not ported yet (ROADMAP.md): ``multihost:``, device traces
 (``profile_trace_dir``) and the TensorBoard writer (metrics.jsonl holds
 every logged value).
 """
@@ -54,6 +61,15 @@ _DEVICE_KEYS = (
 )
 # optax.adamw's default weight decay (torch.optim.AdamW defaults to 1e-2)
 ADAMW_WEIGHT_DECAY = 1e-4
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# datasets whose per-sample draws derive from the run's seed
+_SEEDED_DATASETS = ("MegaDepth_SIFT",)
+
+
+def make_dataset(name: str, configs: Dict, is_train: bool, seed: int):
+    """``DATASETS[name]`` on ``configs``, seeded where it draws."""
+    kwargs = {"seed": seed} if name in _SEEDED_DATASETS else {}
+    return DATASETS[name](configs=configs, is_train=is_train, **kwargs)
 
 
 def _to_cpu(obj):
@@ -86,9 +102,12 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 
 class Trainer:
-    """``config``: a train config dict or the path of its YAML file.
-    ``device``: None for the card. ``dataset``: an indexable of training
-    pair dicts used instead of the configured dataset."""
+    """Trains stage 1 (``optimal_modules: ['backbone']``,
+    configs/train_desc.yaml) or stage 2 (``['localheader']``,
+    configs/train_kp.yaml). ``config``: a train config dict or the path of
+    its YAML file. ``device``: None for the card. ``dataset``: an
+    indexable of training pair dicts used instead of the configured
+    dataset."""
 
     def __init__(self, config, ckpt_root: str = "./ckpts", overwrite: bool = False,
                  device=None, dataset=None):
@@ -101,11 +120,6 @@ class Trainer:
         for key in ("profile_trace_dir",):
             if cfg.get(key):
                 raise NotImplementedError(f"{key}: not ported yet; see ROADMAP.md")
-        if cfg.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                "bf16 training: the bf16 head and its fused kernels have no backward; "
-                "see ROADMAP.md"
-            )
         self.optimal_modules = list(cfg["optimal_modules"])
         self.optimal_lrs = [float(lr) for lr in cfg["optimal_lrs"]]
         self.train_backbone = "backbone" in self.optimal_modules
@@ -131,7 +145,8 @@ class Trainer:
         # ---------------------------------------------------------- model
         seed = int(cfg.get("seed", 0))
         self.model = MODELS[cfg.get("model", "PoSFeat")](
-            cfg["model_config"], dtype=torch.float32, device=self.device, seed=seed
+            cfg["model_config"], dtype=_DTYPES[cfg.get("compute_dtype", "float32")],
+            device=self.device, seed=seed,
         )
         load_path = cfg.get("load_path")
         if load_path and os.path.isdir(str(load_path)):
@@ -163,12 +178,7 @@ class Trainer:
         # ----------------------------------------------------------- data
         dcfg = cfg["data_config_train"]
         if dataset is None:
-            if cfg["data"] not in DATASETS:
-                raise NotImplementedError(
-                    f"dataset {cfg['data']}: not ported yet (MegaDepth_SIFT waits for "
-                    "MegaDepth files); pass dataset= or use SyntheticPairs; see ROADMAP.md"
-                )
-            dataset = DATASETS[cfg["data"]](configs=dcfg, is_train=True)
+            dataset = make_dataset(cfg["data"], dcfg, True, seed)
         self.train_dataset = dataset
         self.batch_size = int(dcfg["batch_size"])
         self.train_loader = PrefetchLoader(
@@ -177,8 +187,7 @@ class Trainer:
         )
         # the draws of the preprocess and the losses (the JAX trainer's PRNGKey(seed + 1))
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        if cfg.get("val_config"):
-            self.logger.warning("val_and_vis is not ported yet (ROADMAP.md): no visual dumps")
+        self._val_samples = None
         self._ckpt_thread = None
 
     # ------------------------------------------------------------ helpers
@@ -344,12 +353,14 @@ class Trainer:
                 t_epoch = time.time()
                 for idx in range(self.steps_per_epoch):
                     timer.start()
+                    t_data = time.perf_counter()
                     batch_np = next(data_iter)
+                    data_wait = time.perf_counter() - t_data
                     total, components, grad_norms, finite = self.train_step(
                         self.to_device(batch_np), epoch
                     )
                     global_step += 1
-                    timer.stop(step=global_step, epoch=epoch)
+                    timer.stop(step=global_step, epoch=epoch, data_wait_s=data_wait)
                     if not finite:
                         self.save_error_dump(batch_np, total, global_step)
                         continue
@@ -370,6 +381,7 @@ class Trainer:
                             f"epoch {epoch} step {idx} total {rec['total_loss']:.4f} "
                             f"{shown} ({rec['sec_per_step']:.3f}s/step)"
                         )
+                        self.val_and_vis(epoch, global_step)
                     if global_step % ckpt_freq == 0:
                         self.save_checkpoint(epoch, block=False)
                 self.save_checkpoint(epoch)
@@ -379,3 +391,197 @@ class Trainer:
             if self._ckpt_thread is not None:
                 self._ckpt_thread.join()
                 self._ckpt_thread = None
+
+    # ------------------------------------------------------ visualization
+
+    _VIS_FOLDERS = (
+        "0_original_images",
+        "1_score_maps",
+        "2_all_keypoints",
+        "3_matched_keypoints",
+        "4_matches_less",
+        "5_matches_all",
+    )
+
+    def _load_val_samples(self):
+        """Validation samples (reference trainer.py:136-145): drawn from
+        ``val_config['data_config_val']`` when present, else the train
+        set, up to ``n_vis`` (2), and cached in ``val_data.npz`` so that
+        every run and every resume validates on the same samples."""
+        if self._val_samples is not None:
+            return self._val_samples
+        path = os.path.join(self.save_root, "val_data.npz")
+        if os.path.exists(path):
+            self._val_samples = list(np.load(path, allow_pickle=True)["val_data"])
+            return self._val_samples
+        vcfg = self.config.get("val_config") or {}
+        n_vis = int(vcfg.get("n_vis", 2))
+        dccfg = vcfg.get("data_config_val")
+        if dccfg:
+            ds = make_dataset(self.config["data"], dccfg, False, int(self.config.get("seed", 0)))
+        else:
+            ds = self.train_dataset
+        samples = []
+        for i in range(len(ds)):
+            s = ds[i]
+            if s is not None:
+                samples.append(s)
+            if len(samples) >= n_vis:
+                break
+        self._val_samples = samples
+        if not samples:
+            self.logger.warning(f"val_and_vis: none of the {len(ds)} validation pairs passed the filters")
+            return samples
+        arr = np.empty(len(samples), dtype=object)
+        for i, s in enumerate(samples):
+            arr[i] = s
+        np.savez(path, val_data=arr)
+        return samples
+
+    def val_and_vis(self, epoch: int, step: int):
+        """Visual validation dumps (reference trainer.py:380-544), the
+        reference's stopping criterion for stage 2 (README.md:72-77): per
+        validation sample the original pair, the score maps, all
+        keypoints, the matched keypoints, the top-k matches and all
+        matches coloured by epipolar error, as ``vis/sample<i>/<folder>/
+        <step>.jpg``. ``val_config['detector']`` is honoured: ``'sift'``
+        (train_desc.yaml) takes the sample's query points with unit
+        scores, ``generate_kpts_single`` (train_kp.yaml) detects on the
+        f32 score map. A failure is logged and training goes on."""
+        vcfg = self.config.get("val_config")
+        if not vcfg:
+            return
+        try:
+            with torch.no_grad():
+                for si, sample in enumerate(self._load_val_samples()):
+                    self._vis_sample(si, sample, vcfg, step)
+        except Exception as e:  # a dump never stops training
+            self.logger.warning(f"val_and_vis failed: {e}", exc_info=True)
+
+    def _vis_sample(self, si: int, sample: Dict, vcfg: Dict, step: int):
+        import cv2
+
+        from ..data.utils import tensor2array
+        from ..ops.coords import denormalize_coords, normalize_coords
+        from ..ops.detect import DETECTORS
+        from ..ops.grid_sample import sample_feat_by_coord
+        from ..ops.matchers import mnn_matcher
+
+        mid_pad = 20  # reference trainer.py:385
+        # the two images of a MegaDepth pair may differ in size: each
+        # image's coordinates use its own dims, the canvases pad to the
+        # larger height
+        dims = {t: sample[t].shape[:2] for t in ("im1", "im2") if t in sample}
+        sample_dir = os.path.join(self.save_root, "vis", f"sample{si}")
+        for folder in self._VIS_FOLDERS:
+            os.makedirs(os.path.join(sample_dir, folder), exist_ok=True)
+
+        outs = {}
+        for tag in ("im1", "im2"):
+            if tag not in sample:
+                return
+            im = torch.from_numpy(np.ascontiguousarray(sample[tag], np.float32))[None]
+            outs[tag] = self.model.extract(im.to(self.device))
+
+        cos = vcfg.get("loss_distance", "cos") == "cos"
+        det_name = vcfg.get("detector", "sift")
+        feats = {}
+        for tag, ctag in (("im1", "coord1"), ("im2", "coord2")):
+            o = outs[tag]
+            h, w = dims[tag]
+            if det_name == "sift":
+                # SIFT passthrough (reference trainer.py:459-466): the
+                # sample's query points, unit scores
+                kps = np.asarray(sample[ctag], np.float32)[:, :2]
+                score = np.ones((len(kps), 1), np.float32)
+                kps_n = normalize_coords(torch.from_numpy(kps).to(self.device)[None], h, w)
+            else:
+                det_cfg = dict(
+                    vcfg.get("detector_config")
+                    or {"num_pts": 512, "nms_radius": 1, "use_nms": True, "thr": False}
+                )
+                det_cfg.pop("scale", None)
+                kps_n, score_t, valid = DETECTORS[det_name](o["local_point"].float(), **det_cfg)
+                n = max(min(int(valid[0]), kps_n.shape[1]), 8)
+                kps_n = kps_n[:, :n]
+                kps = denormalize_coords(kps_n, h, w)[0].float().cpu().numpy()
+                score = score_t[0, :n].float().cpu().numpy()
+            desc = sample_feat_by_coord(o["local_map"], kps_n, cos)[0].float().cpu().numpy()
+            feats[tag] = (kps, score, desc)
+
+        k1, s1, d1 = feats["im1"]
+        k2, s2, d2 = feats["im2"]
+        matches = mnn_matcher(d1, d2, device=self.device)
+        mk1 = k1[matches[:, 0]] if len(matches) else np.zeros((0, 2), np.float32)
+        mk2 = k2[matches[:, 1]] if len(matches) else np.zeros((0, 2), np.float32)
+        mscore = (s1[matches[:, 0], 0] + s2[matches[:, 1], 0] if len(matches)
+                  else np.zeros((0,), np.float32))
+        topk = min(int(vcfg.get("vis_topk", 50)), len(matches))
+        topk_idx = np.argsort(-mscore)[:topk]
+
+        # epipolar error of the matched pairs, clamped (reference :491-500)
+        thr_px = float(vcfg.get("vis_err_thr", 5))
+        F12 = np.asarray(sample["F1"], np.float64)
+        if len(matches):
+            p1h = np.concatenate([mk1, np.ones((len(mk1), 1))], 1)
+            lines = p1h @ F12.T  # epipolar lines in image 2
+            lines = lines / np.maximum(np.linalg.norm(lines[:, :2], axis=1, keepdims=True), 1e-8)
+            p2h = np.concatenate([mk2, np.ones((len(mk2), 1))], 1)
+            epi_dist = np.clip(np.abs((p2h * lines).sum(1)), 0, thr_px)
+        else:
+            epi_dist = np.zeros((0,))
+        # RdYlGn: green is a small error (reference :502-506)
+        colors = tensor2array((thr_px - epi_dist)[:, None], max_value=thr_px, colormap="RdYlGn")
+        colors = (255 * colors[:, :, 0].T).astype(np.uint8)  # [m, 3] RGB
+
+        im1 = np.asarray(sample["im1_ori"], np.uint8)
+        im2 = np.asarray(sample["im2_ori"], np.uint8)
+        hmax = max(im1.shape[0], im2.shape[0])
+
+        def vpad(a, h_to):  # bottom-pad to the canvas height
+            return np.pad(a, ((0, h_to - a.shape[0]),) + ((0, 0),) * (a.ndim - 1))
+
+        gap = np.zeros((hmax, mid_pad, 3), np.uint8)
+        comb = np.concatenate([vpad(im1, hmax), gap, vpad(im2, hmax)], axis=1)
+
+        def save(folder, img_rgb):
+            cv2.imwrite(os.path.join(sample_dir, folder, f"{step}.jpg"),
+                        cv2.cvtColor(img_rgb, cv2.COLOR_RGB2BGR))
+
+        save("0_original_images", comb)
+
+        sc1 = outs["im1"]["local_point"][0, :, :, 0].float().cpu().numpy()
+        sc2 = outs["im2"]["local_point"][0, :, :, 0].float().cpu().numpy()
+        shmax = max(sc1.shape[0], sc2.shape[0])
+        sgap = np.zeros((shmax, mid_pad), np.float32)
+        comb_score = np.concatenate([vpad(sc1, shmax), sgap, vpad(sc2, shmax)], axis=1)
+        save("1_score_maps", (255 * tensor2array(comb_score).transpose(1, 2, 0)).astype(np.uint8))
+
+        x_off = im1.shape[1] + mid_pad
+        green = (0, 255, 0)
+        img = comb.copy()
+        for x, y in k1:
+            cv2.circle(img, (int(x), int(y)), 2, green, -1)
+        for x, y in k2:
+            cv2.circle(img, (int(x) + x_off, int(y)), 2, green, -1)
+        save("2_all_keypoints", img)
+
+        img = comb.copy()
+        for (x1p, y1p), (x2p, y2p) in zip(mk1, mk2):
+            cv2.circle(img, (int(x1p), int(y1p)), 2, green, -1)
+            cv2.circle(img, (int(x2p) + x_off, int(y2p)), 2, green, -1)
+        save("3_matched_keypoints", img)
+
+        def draw_matches(idxs):
+            img = comb.copy()
+            for mi in idxs:
+                p1 = (int(mk1[mi][0]), int(mk1[mi][1]))
+                p2 = (int(mk2[mi][0]) + x_off, int(mk2[mi][1]))
+                cv2.line(img, p1, p2, tuple(int(c) for c in colors[mi]), 2)
+                cv2.circle(img, p1, 2, green, -1)
+                cv2.circle(img, p2, 2, green, -1)
+            return img
+
+        # 4: the top-k matches by summed keypoint score; 5: all matches
+        save("4_matches_less", draw_matches(topk_idx))
+        save("5_matches_all", draw_matches(range(len(matches))))

@@ -198,9 +198,16 @@ def test_posfeat_training_forward_keeps_the_head_graph(rng):
     assert not torch.equal(tmodel.backbone.firstbn.running_mean, mean0)
     tmodel.extract(im)
     assert not tmodel.backbone.training  # extraction runs in eval mode again
-    # the bf16 head has no backward in the port; extraction still runs
+    # bf16 trains with f32 parameters through the head's dilated composite;
+    # the fused kernels K1/K2 have no backward and are refused under autograd
     bf = tm.PoSFeat(SMALL_CONFIG, dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    assert all(p.dtype == torch.float32 for p in bf.parameters())
+    out = bf({"im1": im, "im2": im})
+    assert out["preds1"]["local_map"].dtype == torch.bfloat16 and out["preds1"]["local_point"].requires_grad
+    out["preds1"]["local_point"].sum().backward()
+    assert bf.localheader.conv2.weight.grad.dtype == torch.float32
+    bf.localheader.fused_upsample = "pallas"
+    with pytest.raises(NotImplementedError, match="pallas"):
         bf({"im1": im, "im2": im})
     with torch.no_grad():
         assert bf({"im1": im, "im2": im})["preds1"]["local_point"].shape == (1, 64, 96, 1)

@@ -220,10 +220,25 @@ def test_cli_and_deferred_options(tmp_path):
         main(["--config", str(path), "--device", "cpu", "--overwrite"])
     finally:
         os.chdir(cwd)
-    for over in ({"compute_dtype": "bfloat16"}, {"multihost": {"num_processes": 2}},
-                 {"data": "MegaDepth_SIFT"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(_config(checkpoint_name="x", **over), ckpt_root=str(tmp_path / "d"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(_config(checkpoint_name="x", multihost={"num_processes": 2}), ckpt_root=str(tmp_path / "d"),
+                device="cpu")
+    # bf16 and MegaDepth_SIFT, once refused, now construct: a bf16 model with
+    # f32 parameters, and the MegaDepth loader on a fixture in its layout
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+    from make_megadepth_fixture import write_megadepth_fixture
+
+    md = write_megadepth_fixture(str(tmp_path / "md"), n_scenes=1, n_images=3, height=H, width=W)
+    dcfg = {"data_path": md, "prune_kp": False, "num_pts": 16, "random_percent": 0.5, "rot_thr": 80,
+            "batch_size": 2, "workers": 2}
+    for over in ({"compute_dtype": "bfloat16"}, {"data": "MegaDepth_SIFT", "data_config_train": dcfg}):
+        tr = Trainer(_config(checkpoint_name="y", **over), ckpt_root=str(tmp_path / "e"), device="cpu",
+                     overwrite=True)
+        assert all(p.dtype == torch.float32 for p in tr.model.parameters())
+        assert tr.model.dtype == getattr(torch, over.get("compute_dtype", "float32"))
+        assert type(tr.train_dataset).__name__ == _config(**over)["data"] and len(tr.train_dataset) > 0
     # the backbone in optimal_modules now trains with BatchNorm in training
     # mode; DiskLoss reaches it only through the head's detached input and
     # the detached match distribution, so its gradient is 0, as in JAX

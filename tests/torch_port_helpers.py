@@ -174,3 +174,22 @@ def torch_line2window_draws(draws):
     kps = tuple(d.long() if d.dtype in (torch.int32, torch.int64) else d for d in kps)
     return {"kps": kps, **{k: None if draws[k] is None else torch.from_numpy(draws[k])
                            for k in ("jitter1", "jitter2")}}
+
+
+def write_jax_init(ck, config, seed=0):
+    """The JAX PoSFeat's initial weights for ``seed`` (JaxTrainer's
+    ``model.init(PRNGKey(seed))``) as the port's ``backbone.pth`` and
+    ``localheader.pth`` in the directory ``ck``; returns ``ck``."""
+    import os
+
+    import jax
+    import torch
+
+    from posfeat_tpu.models import PoSFeat
+    from posfeat_tpu_torch.core.jax_weights import from_jax_variables
+
+    os.makedirs(ck, exist_ok=True)
+    variables = PoSFeat(copy.deepcopy(config)).init(jax.random.PRNGKey(seed))
+    for name, sd in from_jax_variables(jax.tree.map(np.asarray, variables)).items():
+        torch.save(sd, os.path.join(ck, f"{name}.pth"))
+    return ck

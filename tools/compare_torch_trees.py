@@ -6,13 +6,16 @@ compared with its parent on the same card and under the same conditions.
     python3 tools/compare_torch_trees.py PARENT_DIR CHANGE_DIR
 
 Each turn is a process of its own, started in that checkout: it builds
-the checkout's kernels and runs its chip_smoke.phase_kernels (K1, K2 at
-B=16, 480x640), phase_v1_kernels (K3, T1, T2) and phase_reduction (the
-lse and reward passes at B=6, m=n=4800), which check every kernel
+the checkout's kernels and runs its chip_smoke.py phases in the order
+and on the random stream of ``chip_smoke.main`` (so that each check sees
+the inputs it sees there): phase_kernels (K1, K2 at B=16, 480x640),
+phase_head_vs_reference, phase_main_path (v3 extraction im/s),
+phase_reduction (the lse and reward passes at B=6, m=n=4800),
+phase_training (stage-2 s/step), phase_v1_kernels (K3, T1, T2), the v1
+head against the reference, phase_v1_path (v1 extraction im/s) and
+phase_stage1 (stage-1 s/step). The kernel phases check every kernel
 against its plain version and time it with CUDA events (ms per launch);
-then its phase_main_path (v3 extraction im/s), phase_v1_path (v1
-extraction im/s) and phase_training (stage-2 s/step), read from the
-lines those phases print. Prints one JSON line per turn, then
+the end-to-end numbers are read from the lines the phases print. Prints one JSON line per turn, then
 nvidia-smi's name and power limit, and a last JSON line
 {"results": {name: {"A": [x, x], "B": [x, x]}}}. Without a CUDA card it
 exits 2 and prints no result.
@@ -34,18 +37,23 @@ from posfeat_tpu_torch import resolve_device
 from posfeat_tpu_torch.ops import fused_head as fh
 resolve_device("cuda")
 rng = np.random.default_rng(chip_smoke.SEED)
-head, v1 = chip_smoke.phase_kernels(torch, fh, rng), chip_smoke.phase_v1_kernels(torch, fh, rng)
-reduction = chip_smoke.phase_reduction(torch, rng)
-print("TURN " + json.dumps({r["name"]: r["ms"] for r in head + v1 + reduction}), flush=True)
+head = chip_smoke.phase_kernels(torch, fh, rng)
+chip_smoke.phase_head_vs_reference(torch, rng)
 chip_smoke.phase_main_path(torch, fh, rng, head)
-chip_smoke.phase_v1_path(torch, fh, rng, v1)
+reduction = chip_smoke.phase_reduction(torch, rng)
 chip_smoke.phase_training(torch, reduction)
+v1 = chip_smoke.phase_v1_kernels(torch, fh, rng)
+chip_smoke.phase_head_vs_reference(torch, rng, mode="v1", tag="[9]")
+chip_smoke.phase_v1_path(torch, fh, rng, v1)
+chip_smoke.phase_stage1(torch, "")
+print("TURN " + json.dumps({r["name"]: r["ms"] for r in head + v1 + reduction}), flush=True)
 """
 # the end-to-end metrics, read from the lines that the phases print
 E2E = {
     "v3 extraction im/s": r"^\[5\] main path: .*?: ([0-9.]+) im/s",
     "v1 extraction im/s": r"^\[10\] v1 path: .*?: ([0-9.]+) im/s",
     "stage-2 s/step": r"^\[7\] training: .*? then ([0-9.]+) s/step",
+    "stage-1 s/step": r"^\[12\] stage-1 training: .*? then ([0-9.]+) s/step",
 }
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in posfeat_tpu_torch's training, on one CUDA card.
 
-    python3 tools/profile_torch_train.py [--stage 1|2] [--probe] [--steps 5] [--trace PATH]
+    python3 tools/profile_torch_train.py [--stage 1|2] [--probe] [--data synthetic|megadepth]
+        [--dtype float32|bfloat16] [--steps 5] [--trace PATH]
 
 Builds chip_smoke.py's training setup of the stage: 2 (the default),
 ``chip_smoke.train_config`` (configs/train_kp.yaml with the flagship
@@ -10,18 +11,24 @@ model in f32, SyntheticPairs at 480x640, batch 6 pairs); 1,
 data, batch 8 pairs). ``--probe`` takes the ΔMMA probe's training
 instead (tools/selection_stability_torch.py ``train_config``: the
 head192 model, SyntheticPairs at 96x128, batch 4 pairs; stage 2 from
-random weights). It measures:
+random weights). ``--data megadepth`` feeds the same configuration
+MegaDepth_SIFT on a MegaDepth-layout fixture at 480x640 written by
+tools/make_megadepth_fixture.py (2 scenes x 4 images), with the shipped
+config's data section (SIFT query points, colour jitter); ``--dtype``
+sets ``compute_dtype``. It measures:
   1. the input pipeline alone: seconds per batch of the PrefetchLoader
-     and of one sample built on the calling thread;
+     and of one sample built on the calling thread (with ``--data
+     megadepth``, SyntheticPairs' PrefetchLoader beside it);
   2. the step alone: ``Trainer.train_step`` on batches already on the
      card, host clock around synchronized steps; and the head's forward
      alone on one view's maps (CUDA events), which a stage-1 step runs
      twice though its loss reads no score map;
   3. ``Trainer.train`` (a warm-up step, then ``--steps`` steps, loader
-     included) under torch.profiler: the device's busy and idle share of
-     the window, device time by kernel class (cuDNN's convolutions apart
-     from cuBLAS's matmuls, which in stage 1 are mostly the
-     correspondence engine's correlations) and the top kernels.
+     included) under torch.profiler: each step's time and its wait for
+     the loader, the device's busy and idle share of the window, device
+     time by kernel class (cuDNN's convolutions apart from cuBLAS's
+     matmuls, which in stage 1 are mostly the correspondence engine's
+     correlations) and the top kernels.
 ``--trace`` keeps the Chrome trace at PATH.
 """
 
@@ -76,6 +83,8 @@ def main() -> int:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--trace", default=None, help="keep the Chrome trace here")
     p.add_argument("--probe", action="store_true", help="the ΔMMA probe's training (96x128, batch 4)")
+    p.add_argument("--data", choices=("synthetic", "megadepth"), default="synthetic")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -87,10 +96,38 @@ def main() -> int:
         batch_size = cfg["data_config_train"]["batch_size"]
     else:
         cfg, batch_size = (desc_config(), DESC_BATCH) if args.stage == 1 else (train_config(), TRAIN_BATCH)
-    print(f"stage {args.stage}{' (probe)' if args.probe else ''}: {torch.cuda.get_device_name(0)}")
+    cfg["compute_dtype"] = args.dtype
+    fixture_dir = tempfile.TemporaryDirectory()
+    synthetic = None
+    if args.data == "megadepth":
+        from make_megadepth_fixture import write_megadepth_fixture
+
+        from posfeat_tpu_torch.core.config import load_config
+
+        synthetic = dict(cfg["data_config_train"])
+        shipped = load_config(f"configs/train_{'desc' if args.stage == 1 else 'kp'}.yaml")
+        h, w = synthetic["height"], synthetic["width"]
+        cfg["data"] = "MegaDepth_SIFT"
+        cfg["data_config_train"] = {**shipped["data_config_train"], "batch_size": batch_size,
+                                    "data_path": write_megadepth_fixture(fixture_dir.name, 2, 4, h, w)}
+    print(f"stage {args.stage}{' (probe)' if args.probe else ''}, {cfg['data']}, {args.dtype}: "
+          f"{torch.cuda.get_device_name(0)}")
     with tempfile.TemporaryDirectory() as tmp:
         tr = Trainer(cfg, ckpt_root=tmp)
         ds = tr.train_dataset
+        if synthetic is not None:
+            from posfeat_tpu_torch.data import SyntheticPairs
+            from posfeat_tpu_torch.data.loader import PrefetchLoader
+
+            it = iter(PrefetchLoader(SyntheticPairs(synthetic), batch_size=batch_size,
+                                     num_workers=synthetic["workers"], infinite=True))
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                next(it)
+            print(f"input: SyntheticPairs PrefetchLoader {(time.perf_counter() - t0) / args.steps:.4f} s per "
+                  f"batch of {batch_size} ({synthetic['workers']} threads)")
+            it.close()
 
         # 1. the input pipeline alone
         t0 = time.perf_counter()
@@ -107,7 +144,7 @@ def main() -> int:
               f"{loader_s:.4f} s per batch of {batch_size} ({cfg['data_config_train']['workers']} threads)")
 
         # 2. the step alone, batches already on the card
-        batches = [tr.to_device(collate([ds[i + batch_size * k] for i in range(batch_size)]))
+        batches = [tr.to_device(collate([ds[(i + batch_size * k) % len(ds)] for i in range(batch_size)]))
                    for k in range(2)]
         tr.train_step(batches[0], 1)
         torch.cuda.synchronize()
@@ -159,9 +196,13 @@ def main() -> int:
     busy = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
     total = sum(by_class.values())
     n = len(steps)
+    fixture_dir.cleanup()
     print(f"device: {torch.cuda.get_device_name(0)}; Trainer.train, {n} steps (1 warm-up), window "
           f"{wall_us / 1e3:.3f} ms (host clock, checkpoints included); step times "
-          f"{[round(s['step_time_s'], 4) for s in steps]}")
+          f"{[round(s['step_time_s'], 4) for s in steps]}; waits for the loader "
+          f"{[round(s['data_wait_s'], 4) for s in steps]}; mean after the warm-up "
+          f"{sum(s['step_time_s'] for s in steps[1:]) / (n - 1):.4f} s/step, of it "
+          f"{sum(s['data_wait_s'] for s in steps[1:]) / (n - 1):.4f} s waiting for the loader")
     print(f"device busy {busy / 1e3:.3f} ms = {100 * busy / wall_us:.1f}% of the window; "
           f"idle {100 * (1 - busy / wall_us):.1f}%; kernel time {total / 1e3:.3f} ms in {len(kernels)} launches "
           f"({len(kernels) / n:.0f} per step)")

@@ -88,13 +88,14 @@ def write_ppm(path, im):
         f.write(np.ascontiguousarray(im, np.uint8).tobytes())
 
 
-def make_eval_fixture(root, n_seq=4, n_img=6, seed=77, h=None, w=None):
+def make_eval_fixture(root, n_seq=4, n_img=6, seed=77, h=None, w=None, rot_max=ROT_MAX,
+                      scale_range=SCALE_RANGE, photo_strength=PHOTO_STRENGTH):
     """HPatches-layout sequences (``i_syn0``, ``v_syn1``, ... alternating)
     from the nuisance distribution SyntheticPairs trains on, with unseen
     textures: image 1 a texture, images 2..n_img its warp by a rotation,
     scale and shift ``H_1_i`` with gain, gamma and noise, drawn in the
     order of tools/convergence_experiment.py:70-130. ``h``, ``w`` default
-    to the training resolution."""
+    to the training resolution; the nuisance magnitudes to the probe's."""
     from posfeat_tpu_torch.data.synthetic import _texture, rotation_matrix_2d, warp_perspective_reflect
 
     fh, fw = h or H, w or W
@@ -106,14 +107,14 @@ def make_eval_fixture(root, n_seq=4, n_img=6, seed=77, h=None, w=None):
         base = _texture(rng, fh, fw)
         write_ppm(os.path.join(seq, "1.ppm"), base)
         for ii in range(2, n_img + 1):
-            angle = rng.uniform(-ROT_MAX, ROT_MAX)
-            scale = rng.uniform(*SCALE_RANGE)
+            angle = rng.uniform(-rot_max, rot_max)
+            scale = rng.uniform(*scale_range)
             Hm = np.eye(3)
             Hm[:2, :] = rotation_matrix_2d((fw / 2, fh / 2), angle, scale)
             Hm[0, 2] += rng.uniform(-0.05, 0.05) * fw
             Hm[1, 2] += rng.uniform(-0.05, 0.05) * fh
             warped = warp_perspective_reflect(base, Hm, fw, fh)
-            s = PHOTO_STRENGTH
+            s = photo_strength
             wf = warped.astype(np.float32) / 255.0
             gain = 1.0 + (rng.uniform(0.5, 1.6, size=3) - 1.0) * s
             gamma = 1.0 + (rng.uniform(0.6, 1.6) - 1.0) * s
