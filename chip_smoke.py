@@ -29,11 +29,15 @@ Phases, one line each (more for the build):
      (K4-K6) at the training path's shapes (B=6, m=n=4800, D=128, T=60,
      thr=2, rewards 1 / -0.25) on seeded unit descriptors with planted
      matches, half of them on each other's epipolar lines so that the
-     outputs carry the good reward, against their plain versions (rtol
-     2e-4 on all seven outputs, flipped good/bad decisions at most 1e-3
-     of the good pairs; the operands' TF32 split bit for bit; the reward
-     pass on the lse pass's outputs, as the reduction runs it, the plain
-     version on the plain log-sum-exps), with
+     outputs carry the good reward, against their plain versions (the
+     operands' TF32 split bit for bit; the reward pass on the plain
+     log-sum-exps over five draws, this stream's, the one that
+     tools/compare_torch_trees.py's former phase order gave and seeds
+     1-3: s0 within its error-model bound (``s0_bound``), the six other
+     outputs at rtol 2e-4, flipped good/bad decisions at most 1e-3 of the
+     good pairs, the worst |d s0| / bound printed; the reward pass on the
+     lse pass's outputs, as the reduction runs it, all seven at rtol
+     2e-4 against the plain run on the plain log-sum-exps), with
      times, bounds, plain times and one PyTorch logsumexp expression;
      each pass's TFLOP/s and share of its bound, its product's three TF32
      products (3xTF32) on the tensor cores, with the same work as f32
@@ -100,22 +104,40 @@ Phases, one line each (more for the build):
      validation samples hold a file for every logged step; stage 2's
      backbone equal to stage 1's bit for bit; checkpoints f32. Prints
      each run's s/step and its wait for the loader. Budget: 120 s;
-then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2 and the two reduction
-kernels), nvidia-smi's line, and the final
+ 15. slice F: (a) each sub-pixel refiner (avg3, quad, quad5, soft, soft5)
+     in the flagship bf16 extraction, 32 images at 480x640, batch 16, 8192
+     points: im/s, K1/K2 launched, the detector's ms per batch of 16 on
+     the head's score map and its output against the CPU's on that map
+     (slot by slot within 1e-5); (b) MMA@3 of each refiner in the fused
+     bf16 arm on phase 13's trained weights and 480x640 fixture; (c)
+     stage 2 (configs/train_kp.yaml, 480x640, batch 6, 3 steps) with
+     ``loc_weight: 10`` and ``reward_at_refined: true`` in f32 and bf16:
+     the dense loss, K4-K6 launched 0 times, finite loss and loc_pen, the
+     head moved and the backbone not, s/step and peak memory; (d)
+     ResUNetHR extraction in f32 and bf16 (its H/2 local map takes the
+     head's reference dataflow, as the JAX head does; K1/K2 launched 0
+     times); (e) the SIFT passthrough, the h5 writers (where h5py is
+     installed) and the image dumps on a 2 x 2-image fixture at 240x320,
+     the files checked. Budget: 90 s;
+then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2, T3 and the two
+reduction kernels), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
 exit code is non-zero; without a CUDA card it exits 2 and prints no
 result.
 """
 
+import contextlib
 import copy
 import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -217,6 +239,23 @@ def _rate(r, tflop):
             f"{r['bound_ms'] / r['ms']:.1%} of the bound")
 
 
+def _k2_times(torch, fh, z, mu, sc, a, w3, b3):
+    """K2 (head_tail) on z [B, h, w, 16·Cout] bf16: (ms per launch, its
+    plain version's ms, one PyTorch expression's ms, bytes, bound)."""
+    bf = torch.bfloat16
+    B, cout, out_ch = z.shape[0], mu.shape[1], w3.shape[1]
+    ms = _time_ms(lambda: fh.head_tail(z, mu, sc, a, w3, b3))
+    plain = _time_ms(lambda: fh.head_tail_plain(z, mu, sc, a, w3, b3), n=5)
+    zb = z.view(B, -1, 16, cout)
+    mu_b, sc_b, w3t = mu[:, None, None].to(bf), sc[:, None, None].to(bf), w3.t().to(bf).contiguous()
+    lib = _time_ms(lambda: torch.nn.functional.linear(
+        torch.nn.functional.prelu((zb - mu_b) * sc_b, a.to(bf)), w3t, b3.to(bf)))
+    outs = fh.head_tail(z, mu, sc, a, w3, b3)
+    nbytes = 2 * z.numel() + 4 * (mu.numel() + sc.numel() + 1 + w3.numel() + b3.numel()
+                                  + sum(o.numel() for o in outs))
+    return ms, plain, lib, nbytes, _bound(z.numel() * (3.0 + 2 * out_ch), PEAK_F32, nbytes)
+
+
 def phase_kernels(torch, fh, rng):
     """K1/K2 against their plain versions at the main path's shapes, plus
     times; returns the kernel records (launches filled in later)."""
@@ -285,20 +324,12 @@ def phase_kernels(torch, fh, rng):
     kph4 = kph.reshape(3, 3, C, N).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     tp_nchw = tp.permute(0, 3, 1, 2)  # channels_last view
     k1_lib = _time_ms(lambda: torch.nn.functional.conv2d(tp_nchw, kph4))
-    k2_ms = _time_ms(lambda: fh.head_tail(z, mu, sc, a, w3, b3))
-    k2_plain = _time_ms(lambda: fh.head_tail_plain(z, mu, sc, a, w3, b3), n=5)
-    zb = z.view(B, -1, kk, cout)
-    mu_b, sc_b, w3t = mu[:, None, None].to(bf), sc[:, None, None].to(bf), w3.t().to(bf).contiguous()
-    k2_lib = _time_ms(lambda: torch.nn.functional.linear(
-        torch.nn.functional.prelu((zb - mu_b) * sc_b, a.to(bf)), w3t, b3.to(bf)))
+    k2_ms, k2_plain, k2_lib, k2_bytes, k2_bound = _k2_times(torch, fh, z, mu, sc, a, w3, b3)
 
     M = B * h * w
     k1_bytes = 2 * (tp.numel() + kph.numel() + pat.numel() + wm.numel() + z.numel()) + 4 * (
         b2b.numel() + s.numel() + q.numel())
     k1_bound = _bound(2.0 * M * N * (9 * C + KP), PEAK_BF16, k1_bytes)
-    k2_bytes = 2 * z.numel() + 4 * (mu.numel() + sc.numel() + 1 + w3.numel() + b3.numel()
-                                    + u.numel() + us.numel() + uq.numel())
-    k2_bound = _bound(z.numel() * (3.0 + 2 * out_ch), PEAK_F32, k2_bytes)
     records = [
         {"name": "K1 conv_phase", "route": "cuda", "source": "posfeat_tpu_torch/csrc/fused_head.cu",
          "replaces": "posfeat_tpu/ops/pallas/fused_head.py:148", "launches": 0,
@@ -531,7 +562,8 @@ def _load_tool(name):
 
 def phase_head_bench(torch, fh, records):
     """The per-stage head bench as its CLI runs it, with every fused-head
-    kernel's launches read around it: the path of T1 and T2."""
+    kernel's launches read around it: the path of T1, T2 and T3 (K2
+    timed alone, whose record it appends to ``records``)."""
     bench = _load_tool("bench_torch_fused_parts")
     _zero_counts(fh)
     res = bench.run(torch)
@@ -544,6 +576,21 @@ def phase_head_bench(torch, fh, records):
     stages = ", ".join(f"{k} {v:.4f}" for k, v in res.items())
     print(f"[11] head bench (tools/bench_torch_fused_parts.py, B={bench.B}): ms/img {stages}; "
           f"launches {launches}")
+    # T3: K2 timed alone on the bench's inputs, held against its plain version there
+    inp = bench.make_inputs(torch)
+    hd = inp["head"]
+    args = (inp["z"], inp["mu"], inp["sc"], hd["prelu_a"], hd["w3"].reshape(bench.COUT, bench.OUT_CH), hd["b3"])
+    u, ur = fh.head_tail(*args)[0], fh.head_tail_plain(*args)[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(u, ur, rtol=1e-4, atol=1e-4)
+    _, plain, lib, _, bound = _k2_times(torch, fh, *args)
+    records.append({
+        "name": "T3 head_tail (head bench)", "route": "cuda", "source": "posfeat_tpu_torch/csrc/fused_head.cu",
+        "replaces": "tools/bench_fused_parts.py:289", "launches": launches["K2 head_tail"],
+        "max_abs_err": (u - ur).abs().max().item(), "ms": res["K2"] * bench.B, "plain_ms": plain,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
+    })
+    del inp, u, ur
 
 
 def _unit(torch, x):
@@ -595,9 +642,112 @@ def reduction_problem(torch, rng):
     return f1, f2, line1, homogenize(c2), epipolar_lines(F2, c2).contiguous(), homogenize(c1), a1, a2
 
 
-def phase_reduction(torch, rng):
+# phase 6's error model of K6's s0 against its plain version on the same
+# inputs (the plain log-sum-exps). Per pair, lp = 2 aff - row_lse - col_lse
+# with aff = T dot - T; both sides round their dot, aff and lp, the kernel
+# its exp2 and W, and both sum W lp in their own orders:
+# - the dot: the kernel's 3xTF32 leaves S0_C_DOT_K units of S0_EPS = 2^-22
+#   of sum|x y| (= 1 at most for unit rows): 3 from the split (each lo
+#   rounded to TF32, lo.lo dropped), 5.5 from the tensor cores' truncating
+#   adds inside an 8-deep step (11 adds at 2^-23), 4 from the 16 rounded f32
+#   adds of D = 128's steps (2^-24 each); the plain f32 product up to
+#   S0_C_DOT_P = D 2^-24 = 32 units at D = 128, its sequential worst case;
+# - aff and lp: up to 2u (T + 3|aff| + |aff - row_lse| + |aff - col_lse| + |lp|),
+#   u = 2^-24, on both sides;
+# - p and W: ex2.approx's 2 ulp (2^-22), lp log2(e)'s rounding (u |lp|
+#   relative in p) and W's three products (6u on both sides);
+# - the sums: S0_K_SUM u sum|W lp| (the kernel's fmaf chains of 64 per tile,
+#   its 38 column tiles, shuffles and 38 row tiles, and the plain reduction);
+# - a pair within 8u sum|l c| of the reward threshold may flip between the
+#   good and the bad reward: its whole |good - bad| p |lp| counts.
+# So |d s0| <= sum |W| ((1 + |lp|) d_lp + |lp| e_p) + S0_K_SUM u sum|W lp| + flips,
+# d_lp = 2 T (S0_C_DOT_K + S0_C_DOT_P) S0_EPS + 2u (...), e_p = 2^-22 + 6u + u |lp|.
+S0_EPS, S0_U = 2.0 ** -22, 2.0 ** -24
+S0_C_DOT_K, S0_C_DOT_P, S0_K_SUM = 12.5, 32.0, 512
+S0_BOUND_NOTE = (f"sum|W|((1+|lp|) d_lp + |lp| e_p) + {S0_K_SUM}u sum|W lp| + flips at thr, d_lp = 2T "
+                 f"({S0_C_DOT_K:g}+{S0_C_DOT_P:g}) 2^-22 + 2u(T + 3|aff| + |aff-rl| + |aff-cl| + |lp|)")
+
+
+def s0_bound(torch, args, row_lse, col_lse, kw):
+    """The error-model bound [B] on |s0(kernel) - s0(plain)| for the
+    reward pass on the same inputs (see S0_EPS above), from the dense
+    terms of the plain run, one batch element at a time."""
+    f1, f2, line1, c2h, line2, c1h, a1, a2 = args
+    T, thr, u = kw["temperature"], kw["thr"], S0_U
+    out = []
+    for b in range(f1.shape[0]):
+        aff = T * (f1[b] @ f2[b].T) - T
+        arl, acl = aff - row_lse[b, :, None], aff - col_lse[b, None, :]
+        lp = arl + acl
+        alp = lp.abs()
+        p = torch.exp(lp)
+
+        def dist(a, c):  # |a . c| and sum |a_k c_k|, [m, n]
+            prods = a[:, None, :] * c[None, :, :]
+            return prods.sum(-1).abs(), prods.abs().sum(-1)
+
+        d1, m1 = dist(line1[b], c2h[b])
+        d2, m2 = dist(c1h[b], line2[b])
+        good = (d1 < thr) & (d2 < thr)
+        near = ((d1 - thr).abs() <= 8 * u * m1) | ((d2 - thr).abs() <= 8 * u * m2)
+        acc = a1[b, :, None] * a2[b, None, :]
+        w = acc * torch.where(good, kw["good_reward"], kw["bad_reward"]) * p
+        d_lp = 2 * T * (S0_C_DOT_K + S0_C_DOT_P) * S0_EPS + 2 * u * (T + 3 * aff.abs() + arl.abs() + acl.abs() + alp)
+        e_p = S0_EPS + 6 * u + u * alp
+        flip = (near * acc * abs(kw["good_reward"] - kw["bad_reward"]) * p * alp).sum()
+        out.append((w.abs() * ((1 + alp) * d_lp + alp * e_p)).sum() + S0_K_SUM * u * (w * lp).abs().sum() + flip)
+    return torch.stack(out)
+
+
+def reward_same_inputs(torch, rf, args, row_lse, col_lse, kw, tiles=None):
+    """K6 against its plain version on the same inputs: rowW, colW, the
+    p sums and max at rtol 2e-4 / atol 1e-5, the flipped decisions at
+    most 1e-3 of the good pairs, s0 within its error-model bound (a draw
+    over it is a kernel fault). Returns (kernel outputs, plain outputs,
+    (max |d s0| / bound, min bound / |s0|), flips)."""
+    out = rf.reward_pass(*args, row_lse, col_lse, **kw, tiles=tiles)
+    torch.cuda.synchronize()
+    ref = rf.reward_pass_plain(*args, row_lse, col_lse, **kw)
+    for o, r in zip(out[1:7], ref[1:7]):
+        torch.testing.assert_close(o, r, rtol=2e-4, atol=1e-5)
+    flip = (out[7] - ref[7]).abs().sum().item()
+    assert flip <= 1e-3 * ref[7].sum().item(), (flip, ref[7].sum().item())
+    bound = s0_bound(torch, args, row_lse, col_lse, kw)
+    ratio = ((out[0] - ref[0]).abs() / bound).max().item()
+    assert ratio <= 1.0, f"K6's s0 is {ratio:.4g} x its error-model bound: a kernel fault"
+    return out, ref, (ratio, (bound / ref[0].abs()).min().item()), flip
+
+
+def former_order_stream():
+    """The random stream that tools/compare_torch_trees.py's former phase
+    order handed phase_reduction: numpy's Generator of SEED after the
+    draws of phase_kernels and phase_v1_kernels (their shapes, in their
+    order), replayed on the host in chunks; no card work."""
+    rng = np.random.default_rng(SEED)
+    B, h, w, C, cout, out_ch, KP = BATCH, H // 4, W // 4, 192, 128, 1, 192
+    N = 16 * cout
+    shapes = [
+        # phase_kernels: K1, K2, then the whole fused head
+        (B, h + 2, w + 2, C), (9, C, N), (B, h, w, KP), (B, KP, N), (B, N), (cout, out_ch), (out_ch,),
+        (B, h, w, C), (B, 4 * h, 4 * w, 3), (3, 3, 3, 64), (64,), (3, 3, C, cout), (3, 3, 64, cout), (cout,),
+        (1, 1, cout, out_ch), (out_ch,),
+        # phase_v1_kernels: the trunk, kph, b2, K3's z_img, T2's z_img
+        (B, h + 2, w + 2, C), (9, C, N), (N,), (B, H, W, cout), (B, h, w, N),
+    ]
+    for shape in shapes:
+        n = int(np.prod(shape))
+        while n:  # a chunked draw continues the stream as one draw would
+            k = min(n, 1 << 24)
+            rng.standard_normal(k, dtype=np.float32)
+            n -= k
+    return rng
+
+
+def phase_reduction(torch, rng, extra_draws=()):
     """The lse and reward passes against their plain versions at the
-    training path's shapes, plus times; returns their kernel records."""
+    training path's shapes, plus times; returns their kernel records.
+    ``extra_draws``: (name, numpy Generator) pairs of further problems on
+    which the reward pass is held to its plain version."""
     from posfeat_tpu_torch.ops import reinforce as rf
 
     args = reduction_problem(torch, rng)
@@ -619,22 +769,36 @@ def phase_reduction(torch, rng):
     torch.cuda.synchronize()
     rlp, clp = rf.lse_pass_plain(f1, f2, T)
     err_lse = max(close(rl, rlp), close(cl, clp))
-    # the reward kernel and its plain version on the same inputs (the plain
-    # log-sum-exps), all seven outputs and the decisions; then the kernel as
-    # the reduction runs it, on the lse kernel's outputs, against the same
-    # plain run (its 3xTF32 dots' error partly cancels in lp there)
-    ref = rf.reward_pass_plain(*args, rlp, clp, **kw)
+    # the reward kernel against its plain version on the same inputs (the
+    # plain log-sum-exps) over several draws: this one, the one that
+    # tools/compare_torch_trees.py's former phase order gave, and three
+    # more; s0 to its error-model bound, the other outputs at rtol 2e-4
+    draws = [("main", args)] + [(name, reduction_problem(torch, g)) for name, g in extra_draws]
+    s0_ratios, flips = [], []
+    for name, a in draws:
+        rl_d, cl_d = (rlp, clp) if a is args else rf.lse_pass_plain(a[0], a[1], T)
+        out, ref_d, ratio, flip = reward_same_inputs(torch, rf, a, rl_d, cl_d, kw, tiles if a is args else None)
+        s0_ratios.append((name, ratio))
+        flips.append(flip)
+        if a is args:
+            ref, err_rw = ref_d, max((o - r).abs().max().item() for o, r in zip(out[:7], ref_d[:7]))
+        del out, ref_d
     n_good = ref[7].sum().item()
-    errs, s0_rel, flips = [], [], []
-    for lse in ((rlp, clp), (rl, cl)):
-        out = rf.reward_pass(*args, *lse, **kw, tiles=tiles)
-        torch.cuda.synchronize()
-        errs.append(max(close(o, r) for o, r in zip(out[:7], ref[:7])))
-        s0_rel.append(((out[0] - ref[0]).abs() / ref[0].abs()).max().item())
-        # pairs at exactly thr may flip good <-> bad between kernel and plain
-        flips.append((out[7] - ref[7]).abs().sum().item())
-        assert flips[-1] <= 1e-3 * n_good, (flips, n_good)
-    err_rw = errs[0]
+    worst = max(s0_ratios, key=lambda x: x[1][0])
+    print(f"[6] reward pass vs plain on the same inputs, {len(draws)} draws: |d s0| / bound (bound / |s0|) "
+          + ", ".join(f"{n} {r[0]:.4g} ({r[1]:.4g})" for n, r in s0_ratios)
+          + f"; worst {worst[1][0]:.4g} ({worst[0]}); flipped "
+          + ", ".join(f"{f:g}" for f in flips) + f" (bound: {S0_BOUND_NOTE})")
+    # then the kernel as the reduction runs it, on the lse kernel's outputs,
+    # against the same plain run (its 3xTF32 dots' error partly cancels in
+    # lp there): all seven outputs at rtol 2e-4
+    out = rf.reward_pass(*args, rl, cl, **kw, tiles=tiles)
+    torch.cuda.synchronize()
+    err_fed = max(close(o, r) for o, r in zip(out[:7], ref[:7]))
+    s0_fed = ((out[0] - ref[0]).abs() / ref[0].abs()).max().item()
+    flips.append((out[7] - ref[7]).abs().sum().item())
+    assert flips[-1] <= 1e-3 * n_good, (flips, n_good)
+    del out
     # the planted good matches carry the good reward: a column whose
     # match is good and accepted has colW near good_reward * p
     assert ref[2].amax().item() > 0.5 * kw["good_reward"], ref[2].amax().item()
@@ -643,10 +807,10 @@ def phase_reduction(torch, rng):
     whole_ref = rf.reinforce_reduction_plain(*args, **kw)
     err_whole = max(close(o, r) for o, r in zip(whole, whole_ref))
     print(f"[6] reduction at B={B} m={m} n={n} D={D} T={T:g} thr={kw['thr']:g}: lse max|err| {err_lse:.3g}, "
-          f"reward outputs max|err| {errs[0]:.3g} on the plain lse (s0 rel {s0_rel[0]:.3g}), {errs[1]:.3g} on "
-          f"the lse kernel's (s0 rel {s0_rel[1]:.3g}), "
+          f"reward outputs max|err| {err_rw:.3g} on the plain lse (s0 to its bound, above), {err_fed:.3g} on "
+          f"the lse kernel's (s0 rel {s0_fed:.3g}), "
           f"whole reduction max|err| {err_whole:.3g}; good pairs "
-          f"{int(n_good)} of {B * m * n}, flipped {flips[0]:g} / {flips[1]:g}; max colW {ref[2].amax().item():.4g}, "
+          f"{int(n_good)} of {B * m * n}, flipped {flips[0]:g} / {flips[-1]:g}; max colW {ref[2].amax().item():.4g}, "
           f"s0 {whole_ref[0].min().item():.5g}..{whole_ref[0].max().item():.5g}, "
           f"p_max {whole_ref[5].min().item():.4g}..{whole_ref[5].max().item():.4g}, "
           f"p_sum/m {(whole_ref[6] / m).mean().item():.4g}")
@@ -1034,6 +1198,18 @@ def _stage_record(run):
     return sum(s["step_time_s"] for s in steps), len(steps), metrics[0], metrics[-1]
 
 
+@contextlib.contextmanager
+def _kept_on_success():
+    """A temporary directory that is removed if its block raises and kept
+    otherwise (its owner removes it)."""
+    work = tempfile.mkdtemp()
+    try:
+        yield work
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
 def phase_probe(torch, smi):
     """The bf16 ΔMMA probe on trained weights (phase 13)."""
     from posfeat_tpu_torch.ops import reinforce as rf
@@ -1041,7 +1217,8 @@ def phase_probe(torch, smi):
 
     probe = _load_tool("selection_stability_torch")
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
+    mma3_fused = {}
+    with _kept_on_success() as work:
         # 1. train stage 1, then stage 2 (stage 1 runs no reduction kernel)
         rf.lse_pass.launches = rf.reward_pass.launches = rf._split_operands.launches = 0
         t0 = time.perf_counter()
@@ -1077,6 +1254,7 @@ def phase_probe(torch, smi):
             t_arms += time.perf_counter() - t0
             print(f"[13] probe at {h}x{w}, {n_seq} sequences x 6 images, {num_pts} points: {json.dumps(rec)}")
             print(f"[13]   {h}x{w}: MMA@3 f32, trained {rec['mma3_f32']:.6g}, random weights {mma3_random:.6g}")
+            mma3_fused[(h, w)] = rec["mma3_bf16"]
             assert rec["launches_bf16"]["K1"] > 0 and rec["launches_bf16"]["K2"] > 0, rec
             assert not any(rec[f"launches_{a}"][k] for a in ("f32", "bf16_plain") for k in ("K1", "K2")), rec
             checks = {
@@ -1105,7 +1283,12 @@ def phase_probe(torch, smi):
     print(f"[13] probe seconds: training {t_train:.1f}, fixtures {t_fixture:.1f}, arms {t_arms:.1f} (four at "
           f"each point, random weights included), matcher {t_match:.2f}, phase "
           f"{time.perf_counter() - t_phase:.1f}; {smi}")
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
     assert not failed, f"the probe missed: {failed}"
+    # phase 15 scores the refiners on the trained weights and the 480x640
+    # fixture, then removes the directory
+    return {"work": work, "ckpt": ckpt, "point": f"{work}/p{H}x{W}", "mma3_avg3": mma3_fused[(H, W)]}
 
 
 def shipped_config(stage, fixture, dtype, load_path=None):
@@ -1227,6 +1410,265 @@ def phase_shipped(torch, fh, smi):
           f"K1-K3, T1, T2 launches {counts}; {smi}")
 
 
+# slice F (phase 15): images per refiner, training steps with the levers, HR images
+N_REFINE_IMAGES, LEVER_STEPS, N_HR_IMAGES = 32, 3, 32
+LEVERS = {"loc_weight": 10, "reward_at_refined": True}
+SLICE_F_BUDGET_S = 90.0
+
+
+def _check_npz(path, n_max, width=128, margin=0):
+    """One npz feature file: f32 keypoints in the frame (or within
+    ``margin`` px of it), unit descriptors."""
+    f = np.load(path)
+    kp, sc, de = f["keypoints"], f["scores"], f["descriptors"]
+    assert kp.dtype == sc.dtype == de.dtype == np.float32, path
+    assert kp.ndim == 2 and kp.shape[1] == 2 and 0 < kp.shape[0] <= n_max, (path, kp.shape)
+    assert sc.shape == (kp.shape[0], 1) and de.shape == (kp.shape[0], width), path
+    assert np.isfinite(kp).all() and np.isfinite(sc).all() and np.isfinite(de).all(), path
+    assert ((kp >= -margin) & (kp <= [W - 1 + margin, H - 1 + margin])).all(), path
+    assert np.abs(np.linalg.norm(de, axis=1) - 1).max() < 1e-3, path
+    return kp, sc, de
+
+
+def _slates_equal(got, ref, atol=1e-5):
+    """The card's detector output against the CPU's on the same score map:
+    valid counts equal, every slot's keypoint within atol (normalized) in
+    the same order, scores within rtol 1e-6. Returns the max |d| of the
+    keypoints."""
+    import torch
+
+    (kg, sg, vg), (kr, sr, vr) = ([t.cpu() for t in x] for x in (got, ref))
+    assert torch.equal(vg, vr), (vg, vr)
+    d = (kg - kr).abs().max().item()
+    assert d <= atol, d
+    assert ((sg - sr).abs() <= 1e-6 * sr.abs() + 1e-12).all()
+    return d
+
+
+def slice_f_refiners(torch, fh, ex, data):
+    """(a) Each refiner in the flagship bf16 extraction through K1 + K2:
+    im/s over the images, the detector's ms per batch of 16 (CUDA events)
+    on the head's score map, its output against the CPU's on that map."""
+    from functools import partial
+
+    from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
+    from posfeat_tpu_torch.ops.detect import DETECTORS, REFINERS
+
+    ims = torch.from_numpy(np.stack([d["im1_ori"] for d in data[:BATCH]])).cuda()
+    mean, std = (torch.as_tensor(x, device="cuda") for x in (IMAGENET_MEAN, IMAGENET_STD))
+    smap = ex.model.extract((ims.float() / 255.0 - mean) / std)["local_point"]
+    assert smap.shape == (BATCH, H, W, 1) and smap.dtype == torch.float32, (smap.shape, smap.dtype)
+    smap_cpu = smap.cpu()
+    det_cfg = ex.config["detector_config"]
+    rows = {}
+    for refine in REFINERS:
+        det = partial(DETECTORS["generate_kpts_single"], **{**det_cfg, "refine": refine})
+        d = _slates_equal(det(smap), det(smap_cpu))
+        det_ms = _time_ms(lambda: det(smap), n=10, warmup=2)
+        det_cfg["refine"] = refine
+        ex._programs.clear()
+        ex.dataset = data
+        _zero_counts(fh)
+        t0 = time.perf_counter()
+        n, _ = ex.extract()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _read_counts(fh)
+        assert n == len(data) and launches["K1 conv_phase"] > 0 and launches["K2 head_tail"] > 0, launches
+        for it in data:
+            # soft5's window reaches 2 px from a candidate on the interior's edge: 1 px beyond the frame
+            _check_npz(f"{ex.desc_root}/{it['name1']}.npz", NUM_PTS, margin=1 if refine == "soft5" else 0)
+        rows[refine] = (n / dt, det_ms, d, launches["K1 conv_phase"], launches["K2 head_tail"])
+    det_cfg["refine"] = "avg3"
+    ex._programs.clear()
+    print(f"[15] (a) refiners in the bf16 extraction at {H}x{W}, batch {BATCH}, {NUM_PTS} points, "
+          f"{len(data)} images each: "
+          + "; ".join(f"{r} {v[0]:.2f} im/s, detector {v[1]:.4f} ms/batch, card vs CPU max|d| {v[2]:.3g}, "
+                      f"K1/K2 {v[3]}/{v[4]}" for r, v in rows.items()))
+
+
+def slice_f_probe_mma(probe_state):
+    """(b) MMA@3 of each refiner on phase 13's trained weights and its
+    480x640 fixture, in the fused bf16 arm."""
+    from posfeat_tpu_torch.ops.detect import REFINERS
+
+    probe = _load_tool("selection_stability_torch")
+    point, data_root = probe_state["point"], f"{probe_state['point']}/hpatches"
+    mma3 = {"avg3": probe_state["mma3_avg3"]}
+    for refine in REFINERS[1:]:
+        _, mma3[refine], launches = probe.run_arm(f"bf16_{refine}", probe_state["ckpt"], point, data_root,
+                                                  "bfloat16", "pallas", NUM_PTS, "cuda", refine=refine)
+        assert launches["K1"] > 0 and launches["K2"] > 0, (refine, launches)
+    print(f"[15] (b) MMA@3 per refiner, fused bf16 arm on phase 13's trained weights at {H}x{W}, "
+          f"{NUM_PTS} points: " + ", ".join(f"{r} {v:.6g}" for r, v in mma3.items()))
+
+
+def slice_f_levers(torch):
+    """(c) Stage 2 with DiskLoss's levers (loc_weight 10, reward_at_refined)
+    on configs/train_kp.yaml at 480x640, batch 6, in f32 and bf16: the
+    dense loss (K4-K6 never launched), finite loss and loc_pen, the head
+    moved and the backbone not."""
+    from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.train import Trainer
+
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = train_config()
+        cfg.update(checkpoint_name=f"levers_{dtype}", compute_dtype=dtype, epoch_step=LEVER_STEPS)
+        cfg["DiskLoss_config"].update(LEVERS)
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = Trainer(cfg, ckpt_root=tmp, device="cuda")
+            loss_fn = tr.loss_fns[0][2]
+            assert not loss_fn._use_streamed(FLAGSHIP_MODEL_CONFIG["backbone_config"]["fine_out_ch"])
+            head0 = {k: v.clone() for k, v in tr.model.localheader.state_dict().items()}
+            bb0 = {k: v.clone() for k, v in tr.model.backbone.state_dict().items()}
+            rf.lse_pass.launches = rf.reward_pass.launches = rf._split_operands.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            tr.train()
+            torch.cuda.synchronize()
+            launches = (rf._split_operands.launches, rf.lse_pass.launches, rf.reward_pass.launches)
+            assert launches == (0, 0, 0), launches
+            run = f"{tmp}/{cfg['checkpoint_name']}"
+            steps = [json.loads(x) for x in open(f"{run}/step_times.jsonl")]
+            metrics = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+            assert len(steps) == len(metrics) == LEVER_STEPS, (len(steps), len(metrics))
+            loc = [next(v for k, v in r.items() if k.endswith("loc_pen")) for r in metrics]
+            assert all(np.isfinite(r["total_loss"]) for r in metrics) and all(np.isfinite(loc)), (metrics, loc)
+            assert not [f for f in os.listdir(run) if f.startswith("error_step")]
+            moved = sum(not torch.equal(v, head0[k]) for k, v in tr.model.localheader.state_dict().items())
+            assert moved > 0, "the head did not move"
+            assert all(torch.equal(v, bb0[k]) for k, v in tr.model.backbone.state_dict().items()), "backbone moved"
+            s_step = float(np.mean([x["step_time_s"] for x in steps[1:]]))
+            out.append(f"{dtype} {s_step:.4f} s/step (warm-up {steps[0]['step_time_s']:.4f}), peak "
+                       f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss {metrics[0]['total_loss']:.5g} "
+                       f"-> {metrics[-1]['total_loss']:.5g}, loc_pen {loc[0]:.5g} -> {loc[-1]:.5g}, "
+                       f"{moved} head tensors moved")
+            del tr
+    print(f"[15] (c) stage 2 with {LEVERS} at {H}x{W}, batch {TRAIN_BATCH}, {LEVER_STEPS} steps, dense loss "
+          f"(K4-K6 launched 0 times): " + "; ".join(out))
+
+
+def slice_f_hr(torch, fh, data):
+    """(d) ResUNetHR extraction in f32 and bf16: its H/2 local map takes
+    the head's reference dataflow, as the JAX head does; K1/K2 never."""
+    from posfeat_tpu_torch.extract import Extractor
+
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        mc = copy.deepcopy(FLAGSHIP_MODEL_CONFIG)
+        mc["backbone"] = "ResUNetHR"
+        cfg = {
+            "output_root": f"hr_{dtype}", "postfix": "npz", "load_path": None, "loss_distance": "cos",
+            "output_desc": True, "output_img": False, "compute_dtype": dtype, "model": "PoSFeat",
+            "model_config": mc, "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4},
+            "use_sift": False, "detector": "generate_kpts_single",
+            "detector_config": {"num_pts": NUM_PTS, "stable": True, "use_nms": True, "nms_radius": 1,
+                                "thr": 0.9, "thr_mod": "abs"},
+        }
+        with tempfile.TemporaryDirectory() as tmp:
+            ex = Extractor(cfg, ckpt_root=tmp, dataset=data[:BATCH])
+            dataflow = ex.config["model_config"]["localheader_config"].get("fused_upsample", True)
+            assert dataflow == (False if dtype == "bfloat16" else True), dataflow
+            ex.extract()  # warm-up batch
+            ex.dataset = data
+            _zero_counts(fh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            n, _ = ex.extract()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = _read_counts(fh)
+            assert not any(launches.values()), launches
+            for it in data:
+                _check_npz(f"{ex.desc_root}/{it['name1']}.npz", NUM_PTS)
+            out.append(f"{dtype} {n / dt:.2f} im/s, head dataflow {dataflow!r}, peak "
+                       f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del ex
+    print(f"[15] (d) ResUNetHR extraction at {H}x{W}, batch {BATCH}, {len(data)} images, local map at H/2, "
+          f"K1/K2 launched 0 times: " + "; ".join(out))
+
+
+def slice_f_writers(torch, rng):
+    """(e) The SIFT passthrough, the h5 writers and the image dumps on a
+    small HPatches-layout fixture (2 sequences x 2 images at 240x320), the
+    files checked."""
+    from posfeat_tpu_torch.data.utils import sift_keypoints
+    from posfeat_tpu_torch.extract import Extractor
+
+    probe = _load_tool("selection_stability_torch")
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+        print("[15] (e) h5py is not installed on this machine: save_h5 is checked by "
+              "tests/test_torch_extract_remainders.py on the CPU only")
+    with tempfile.TemporaryDirectory() as tmp:
+        names = []
+        for seq in ("i_a", "v_b"):
+            os.makedirs(f"{tmp}/hp/{seq}")
+            for i in (1, 2):
+                im = _images(rng, 1, "w")[0]["im1_ori"][:240, :320]
+                probe.write_ppm(f"{tmp}/hp/{seq}/{i}.ppm", im)
+                names.append((f"{seq}/{i}.ppm", im))
+        base = {
+            "postfix": "npz", "load_path": None, "loss_distance": "cos", "output_desc": True,
+            "output_img": True, "save_h5": h5py is not None, "compute_dtype": "bfloat16", "model": "PoSFeat",
+            "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
+            "data_config_extract": {"data_path": f"{tmp}/hp", "batch_size": 2, "workers": 2},
+            "detector": "generate_kpts_single", "local_thr": 0.99,
+            "detector_config": {"num_pts": 512, "stable": True, "use_nms": True, "nms_radius": 1, "thr": False,
+                                "refine": "quad"},
+        }
+        counts = {}
+        for tag, sift in (("sift", True), ("learned", False)):
+            ex = Extractor({**base, "output_root": tag, "use_sift": sift}, ckpt_root=tmp)
+            ex.extract()
+            for name, im in names:
+                kp, sc, _ = _check_npz(f"{ex.desc_root}/{name}.npz", 10 ** 6)
+                if sift:
+                    assert np.array_equal(kp, sift_keypoints(im)) and (sc == 1).all(), name
+                stem = f"{ex.img_root}/{name.split('.')[0]}"
+                assert os.path.isfile(f"{stem}_image_with_kp.jpg"), stem
+                assert os.path.isfile(f"{stem}_score_map.jpg") == (not sift), stem
+                counts.setdefault(tag, []).append(kp.shape[0])
+                if h5py is not None:
+                    seq, stem_name = name.split(".")[0].split("/")
+                    for fname in ("keypoints", "descriptors", "scores", "scales"):
+                        with h5py.File(f"{ex.desc_root}h5/{seq}/{fname}.h5", "r") as f:
+                            assert f[stem_name].shape[0] == kp.shape[0], (fname, name)
+                    with h5py.File(f"{ex.desc_root}h5/feat.h5", "r") as f:
+                        assert list(f[name]["image_size"][()]) == [320, 240], name
+                        assert f[name]["keypoints"].shape == kp.shape
+            del ex
+    print(f"[15] (e) writers at 240x320, bf16: SIFT passthrough keypoints {counts['sift']} (host SIFT, unit "
+          f"scores), learned with refine quad {counts['learned']}; npz, image dumps"
+          + (", h5 and feat.h5 checked" if h5py is not None else " checked (no h5py)"))
+
+
+def phase_slice_f(torch, fh, rng, smi, probe_state):
+    """Slice F (phase 15): the refiners in the bf16 extraction, their MMA@3
+    on phase 13's trained weights, stage 2 with DiskLoss's levers,
+    ResUNetHR extraction, the SIFT passthrough and the writers."""
+    t_phase = time.perf_counter()
+    data = _images(rng, max(N_REFINE_IMAGES, N_HR_IMAGES), "slice_f")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ex = flagship_extractor(tmp, rng, output_root="refine")
+            slice_f_refiners(torch, fh, ex, data[:N_REFINE_IMAGES])
+            del ex
+        if probe_state is not None:
+            slice_f_probe_mma(probe_state)
+    finally:
+        if probe_state is not None:
+            shutil.rmtree(probe_state["work"], ignore_errors=True)
+    slice_f_levers(torch)
+    slice_f_hr(torch, fh, data[:N_HR_IMAGES])
+    slice_f_writers(torch, rng)
+    seconds = time.perf_counter() - t_phase
+    print(f"[15] slice F: {seconds:.1f} s (budget {SLICE_F_BUDGET_S:g} s); {smi}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1276,18 +1718,25 @@ def main() -> int:
         assert not injected, injected
 
     rng = np.random.default_rng(SEED)
-    records = phase_kernels(torch, fh, rng)
-    phase_head_vs_reference(torch, rng)
-    phase_main_path(torch, fh, rng, records)
-    reduction = phase_reduction(torch, rng)
+    # phase 6's reward-pass draw of the former compare order, replayed on a
+    # host thread (numpy fills without the GIL) while phases 3-5 run
+    with ThreadPoolExecutor(1) as pool:
+        former = pool.submit(former_order_stream)
+        records = phase_kernels(torch, fh, rng)
+        phase_head_vs_reference(torch, rng)
+        phase_main_path(torch, fh, rng, records)
+        extra = [("former compare order", former.result())]
+    extra += [(f"seed {SEED + k}", np.random.default_rng(SEED + k)) for k in (1, 2, 3)]
+    reduction = phase_reduction(torch, rng, extra)
     phase_training(torch, reduction)
     v1 = phase_v1_kernels(torch, fh, rng)
     phase_head_vs_reference(torch, rng, mode="v1", tag="[9]")
     phase_v1_path(torch, fh, rng, v1)
     phase_head_bench(torch, fh, v1)
     phase_stage1(torch, smi)
-    phase_probe(torch, smi)
+    probe_state = phase_probe(torch, smi)
     phase_shipped(torch, fh, smi)
+    phase_slice_f(torch, fh, rng, smi, probe_state)
     records += v1 + reduction
 
     print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")

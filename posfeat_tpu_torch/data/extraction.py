@@ -2,11 +2,14 @@
 (posfeat_tpu/data/extraction.py; reference datasets/hpatches.py,
 aachen.py, ETH_local_feature.py).
 
-Each item is {'im1': None, 'im1_ori': uint8 HWC, 'coord1': [0, 2],
-'name1': str, 'pad1': (0, 0, 0, 0)} after the %16 crop: the extractor
-normalizes on the device. Host SIFT keypoints (for the SIFT passthrough)
-and multi-host sharding of the image list are not ported yet (ROADMAP.md:
-extraction and model remainders, and distribution and host plumbing).
+Each item is {'im1': normalized f32 HWC or None, 'im1_ori': uint8 HWC,
+'coord1': SIFT [N, 2] or [0, 2], 'name1': str, 'pad1': (0, 0, 0, 0)}
+after the %16 crop. Only the SIFT passthrough (the extractor's
+``use_sift``) needs host SIFT keypoints and the host-normalized image:
+``compute_sift`` and ``compute_normalize`` in the config ask for them
+(both default True, as in the JAX datasets; the learned path sets them
+False and normalizes on the device). Multi-host sharding of the image
+list is not ported yet (ROADMAP.md: distribution and host plumbing).
 Binary PPM (P6, maxval 255: the HPatches images) is read with numpy;
 every other file goes to ``cv2``, imported where such an image is read.
 """
@@ -20,7 +23,7 @@ from typing import Dict
 
 import numpy as np
 
-from .utils import crop_mod16
+from .utils import crop_mod16, normalize_image, sift_keypoints
 
 
 # "P6", width, height and maxval, separated by whitespace and "#" comments,
@@ -65,10 +68,13 @@ def _imread_rgb(path: str) -> np.ndarray:
 
 
 class _SingleImageDataset:
-    """Common loader: glob, crop %16."""
+    """Common loader: glob, crop %16, and where asked, host SIFT keypoints
+    and the ImageNet-normalized image."""
 
     def __init__(self, configs: Dict):
         self.configs = configs
+        self.compute_sift = bool(configs.get("compute_sift", True))
+        self.compute_normalize = bool(configs.get("compute_normalize", True))
         self.imfs = self._glob_images(configs)
 
     def _glob_images(self, configs):  # pragma: no cover - overridden
@@ -84,9 +90,9 @@ class _SingleImageDataset:
         imf = self.imfs[item]
         im = crop_mod16(_imread_rgb(imf))
         return {
-            "im1": None,
+            "im1": normalize_image(im) if self.compute_normalize else None,
             "im1_ori": im,
-            "coord1": np.zeros((0, 2), np.float32),
+            "coord1": sift_keypoints(im) if self.compute_sift else np.zeros((0, 2), np.float32),
             "name1": self._name(imf),
             "pad1": (0, 0, 0, 0),
         }

@@ -11,12 +11,21 @@ max(min(num_pts, valid_count), 128) (putils:249-261), and feature files
 are written from a pool, so device, decode and IO overlap.
 
 Feature files match the reference: ``np.savez(keypoints [n,2] px,
-scores [n,1], descriptors [n,C])``, float32 (extractor.py:267-271).
+scores [n,1], descriptors [n,C])``, float32 (extractor.py:267-271);
+``save_h5`` adds the per-sequence ``keypoints.h5``, ``descriptors.h5``,
+``scores.h5``, ``scales.h5`` and an hloc-style ``feat.h5`` with
+``image_size`` under ``desc_root + "h5"`` (needs ``h5py``; without it
+the extractor raises ImportError before any work), and ``output_img``
+dumps each image's score map and keypoints as JPEGs under ``image/``.
+``use_sift`` is the SIFT passthrough: OpenCV SIFT keypoints found on the
+host, descriptors sampled at them on the device, unit scores, one image
+at a time (posfeat_tpu/extract/extractor.py:347-383, 712-735).
 
-Not ported yet (ROADMAP.md: extraction and model remainders, and
-distribution and host plumbing): the h5 / feat.h5 writers, the SIFT
-passthrough, ``output_img``, spatial sharding and multi-host sharding
-(``num_shards``). A config that asks for one raises
+The detector config flows to the detector whole but for ``scale``: its
+``refine`` picks the sub-pixel refiner, which a bf16 extraction runs in
+f32 after the fused head's kernels. Not ported yet (ROADMAP.md:
+distribution and host plumbing): spatial sharding and multi-host
+sharding (``num_shards``); a config that asks for one raises
 ``NotImplementedError``. ``detector_config_query`` applies to Aachen
 Day-Night query images, as in the JAX extractor.
 """
@@ -41,11 +50,11 @@ from ..data import DATASETS
 from ..data.utils import IMAGENET_MEAN, IMAGENET_STD
 from ..models import MODELS
 from ..models.keypoint_det import check_head_dataflow
-from ..ops.coords import denormalize_coords
+from ..ops.coords import denormalize_coords, normalize_coords
 from ..ops.detect import DETECTORS
 from ..ops.grid_sample import sample_feat_by_coord
 
-_DEFERRED = ("use_sift", "save_h5", "output_img", "spatial_shard")
+_DEFERRED = ("spatial_shard",)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -66,9 +75,10 @@ class Extractor:
     ``device``: None for the card. ``dataset``: an object with
     ``__len__`` and ``__getitem__`` yielding the datasets' sample dicts
     ('im1_ori' uint8 HWC, 'name1', ...), used instead of the configured
-    dataset."""
+    dataset. ``seed``: the random init's seed where no checkpoint is
+    loaded."""
 
-    def __init__(self, config, ckpt_root: str = "./ckpts", device=None, dataset=None):
+    def __init__(self, config, ckpt_root: str = "./ckpts", device=None, dataset=None, seed: int = 0):
         if isinstance(config, str):
             config = load_config(config)
         # deep copy: the head selection below must not leak into the caller's dict
@@ -76,8 +86,16 @@ class Extractor:
         for key in _DEFERRED:
             if self.config.get(key):
                 raise NotImplementedError(
-                    f"{key}: not ported yet; see ROADMAP.md: extraction and model remainders"
+                    f"{key}: not ported yet; see ROADMAP.md: distribution and host plumbing"
                 )
+        self.sift_kp = bool(self.config.get("use_sift", False))
+        self.save_h5 = bool(self.config.get("save_h5", False))
+        if self.save_h5:
+            try:
+                import h5py  # noqa: F401
+            except ImportError as e:
+                raise ImportError("save_h5: writing the h5 feature files needs h5py, which is not "
+                                  "installed; set save_h5: False to write the npz files only") from e
         self.device = resolve_device(device)
         self.save_root = os.path.join(ckpt_root, self.config["output_root"])
         self.desc_root = os.path.join(self.save_root, "desc")
@@ -95,9 +113,15 @@ class Extractor:
         # the fused head's "v3" or "v1" dataflow (the JAX package's
         # POSFEAT_HEAD_MODE). Resolved before config.yaml is written, so
         # the run records the dataflow it used.
+        # ResUNetHR's local map is at H/2, where the fused dataflows do not
+        # apply: the JAX extractor picks "pallas" and its head then takes
+        # the reference dataflow (keypoint_det.py:537-539); the port picks
+        # that dataflow (False) outright, so config.yaml records it.
         head_dataflow = self.config.get("head_dataflow")
         head_mode = self.config.get("head_mode")
-        lh_cfg = (self.config.get("model_config") or {}).get("localheader_config")
+        model_cfg = self.config.get("model_config") or {}
+        lh_cfg = model_cfg.get("localheader_config")
+        hr = model_cfg.get("backbone") == "ResUNetHR"
         if isinstance(lh_cfg, dict):
             if head_mode is not None:
                 lh_cfg["fused_head_mode"] = head_mode
@@ -108,7 +132,7 @@ class Extractor:
                 and "fused_upsample" not in lh_cfg
                 and self.device.type == "cuda"
             ):
-                lh_cfg["fused_upsample"] = "pallas"
+                lh_cfg["fused_upsample"] = False if hr else "pallas"
             check_head_dataflow(lh_cfg.get("fused_upsample", True), dtype, self.device.type)
 
         # fail fast on an existing run dir (reference extractor.py:133-140)
@@ -126,18 +150,28 @@ class Extractor:
         os.makedirs(self.img_root, exist_ok=True)
         dump_config(self.config, os.path.join(self.save_root, "config.yaml"))
         self.logger = _make_logger("extractor", os.path.join(self.save_root, "logging_file.txt"))
+        if hr and isinstance(lh_cfg, dict):
+            self.logger.info(f"ResUNetHR: the head's trunk is at H/2, so it takes the reference dataflow "
+                             f"(fused_upsample {lh_cfg.get('fused_upsample', True)!r}); K1/K2 are not launched")
 
         model_name = self.config.get("model", "PoSFeat")
-        self.model = MODELS[model_name](self.config["model_config"], dtype=dtype, device=self.device)
+        self.model = MODELS[model_name](self.config["model_config"], dtype=dtype, device=self.device, seed=seed)
         load_path = self.config.get("load_path")
         if load_path and os.path.isdir(load_path):
             self.model.load_checkpoint(load_path)
         else:
             self.logger.warning(f"load_path {load_path!r} missing — using random init")
 
-        self.detector_name = self.config["detector"]
-        self.logger.info(f"use {self.detector_name} to detect keypoints")
+        if self.sift_kp:
+            self.logger.info("use sift keypoints")
+        else:
+            self.detector_name = self.config["detector"]
+            self.logger.info(f"use {self.detector_name} to detect keypoints")
         if dataset is None:
+            # host SIFT and host normalization for the SIFT passthrough only;
+            # the learned path normalizes the uint8 image on the device
+            dcfg.setdefault("compute_sift", self.sift_kp)
+            dcfg.setdefault("compute_normalize", self.sift_kp)
             dataset = DATASETS[self.config["data"]](configs=dcfg)
         self.dataset = dataset
         self.batch_size = max(1, int(dcfg.get("batch_size", 1)))
@@ -158,6 +192,8 @@ class Extractor:
             cos = self.config["loss_distance"] == "cos"
             mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
             std = torch.as_tensor(IMAGENET_STD, device=self.device)
+            # image dumps also fetch the score map (reference extractor.py:211-252)
+            want_map = bool(self.config.get("output_img"))
 
             # descriptors leave f32: the JAX program rounds them to the
             # compute dtype to halve its device-to-host bytes, which moves
@@ -168,10 +204,26 @@ class Extractor:
                 outputs = self.model.extract(im)
                 coord_n, score, valid = detector(outputs["local_point"])
                 feat = sample_feat_by_coord(outputs["local_map"], coord_n, cos)
-                return denormalize_coords(coord_n, H, W), score, feat, valid
+                out = (denormalize_coords(coord_n, H, W), score, feat, valid)
+                return out + (outputs["local_point"][..., 0].float(),) if want_map else out
 
             self._programs[key] = run
         return self._programs[key]
+
+    @torch.inference_mode()
+    def _sift_descriptors(self, inputs: Dict) -> Dict:
+        """The SIFT passthrough for one image: descriptors sampled on the
+        device at the host's SIFT keypoints, unit scores (JAX
+        ``_sift_fn`` and ``process``, extractor.py:347-383)."""
+        im = torch.from_numpy(np.asarray(inputs["im1"], np.float32))[None].to(self.device)
+        H, W = im.shape[1:3]
+        kpt = np.asarray(inputs["coord1"], np.float32).reshape(-1, 2)
+        coords = torch.from_numpy(kpt)[None].to(self.device)
+        outputs = self.model.extract(im)
+        cos = self.config["loss_distance"] == "cos"
+        feat = sample_feat_by_coord(outputs["local_map"], normalize_coords(coords, H, W), cos)
+        return {"kpt": kpt, "desc": feat[0].float().cpu().numpy(),
+                "kp_score": np.ones((len(kpt), 1), np.float32)}
 
     def _det_cfg_key(self, inputs: Dict) -> str:
         """Aachen Day-Night query images take ``detector_config_query``
@@ -187,13 +239,62 @@ class Extractor:
     # ------------------------------------------------------------ writers
 
     def save_desc(self, inputs: Dict, processed: Dict) -> None:
-        save_path = os.path.join(self.desc_root, inputs["name1"])
+        """The npz file and, with ``save_h5``, the h5 files
+        (extractor.py:417-458)."""
+        kpt, desc, scores = processed["kpt"], processed["desc"], processed["kp_score"]
+        name = inputs["name1"]
+        save_path = os.path.join(self.desc_root, name)
         os.makedirs(os.path.dirname(save_path), exist_ok=True)
         with open(save_path + ".{}".format(self.config["postfix"]), "wb") as f:
-            np.savez(
-                f, keypoints=processed["kpt"], scores=processed["kp_score"],
-                descriptors=processed["desc"],
-            )
+            np.savez(f, keypoints=kpt, scores=scores, descriptors=desc)
+        if self.save_h5:
+            import h5py
+
+            h5_root = self.desc_root + "h5"
+            h5_name = name.split(".")[0]
+            seq_dir = os.path.join(h5_root, "/".join(h5_name.split("/")[:-1]))
+            base = h5_name.split("/")[-1]
+            os.makedirs(seq_dir, exist_ok=True)
+            for fname, data in (("keypoints", kpt), ("descriptors", desc), ("scores", scores),
+                                ("scales", np.ones_like(scores))):
+                with h5py.File(os.path.join(seq_dir, f"{fname}.h5"), "a") as f:
+                    f[base] = data
+            h, w = inputs["im1_ori"].shape[:2]
+            with h5py.File(os.path.join(h5_root, "feat.h5"), "a") as f:
+                grp = f.create_group(name)
+                grp.create_dataset("keypoints", data=kpt)
+                grp.create_dataset("scores", data=scores)
+                grp.create_dataset("descriptors", data=desc)
+                grp.create_dataset("image_size", data=np.array([w, h]))
+
+    def save_imgs(self, inputs: Dict, processed: Dict) -> None:
+        """``<base>_score_map.jpg`` (the score map over its ``local_thr``
+        percentile in OpenCV's JET colours) and ``<base>_image_with_kp.jpg``
+        (the keypoints on the image) under ``image/`` (extractor.py:461-490;
+        reference extractor.py:211-252)."""
+        import cv2
+
+        name = inputs["name1"]
+        save_path = os.path.join(self.img_root, os.path.dirname(name))
+        base = os.path.basename(name).split(".")[0]
+        os.makedirs(save_path, exist_ok=True)
+        score = processed.get("score_map")
+        if score is not None:
+            thr = np.percentile(score, 100 * self.config.get("local_thr", 0.99))
+            vis = (np.clip(score / max(thr, 1e-8), 0, 1) * 255).astype(np.uint8)
+            cv2.imwrite(os.path.join(save_path, f"{base}_score_map.jpg"),
+                        cv2.applyColorMap(vis, cv2.COLORMAP_JET))
+        im = np.ascontiguousarray(np.asarray(inputs["im1_ori"], np.uint8))
+        for kp in processed["kpt"]:
+            cv2.circle(im, (int(kp[0]), int(kp[1])), 2, (0, 255, 0), -1)
+        cv2.imwrite(os.path.join(save_path, f"{base}_image_with_kp.jpg"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+
+    def _write_one(self, inputs: Dict, processed: Dict) -> None:
+        if self.config["output_desc"]:
+            self.save_desc(inputs, processed)
+        if self.config.get("output_img"):
+            self.save_imgs(inputs, processed)
+        self.logger.info(f"{inputs['name1']}\nkpts: {processed['kpt'].shape[0]}")
 
     # ----------------------------------------------------------- pipeline
 
@@ -219,21 +320,18 @@ class Extractor:
         cuda = self.device.type == "cuda"
         buckets: Dict[Any, list] = {}
         fetch_pool = ThreadPoolExecutor(1)
-        write_pool = ThreadPoolExecutor(4)
+        # h5py's appends are not thread-safe: one writer with h5 on
+        write_pool = ThreadPoolExecutor(1 if self.save_h5 else 4)
         fetch_futs: deque = deque()
         write_futs: deque = deque()
         write_cap = 4 * bs  # pending per-image writes before fetches wait
         pending_cap = max(4 * bs, 32)  # decoded images held before a partial flush
 
-        def write_one(inputs, processed):
-            if self.config["output_desc"]:
-                self.save_desc(inputs, processed)
-            self.logger.info(f"{inputs['name1']}\nkpts: {processed['kpt'].shape[0]}")
-
         def finish(key, items, host, done):
             if done is not None:
                 done.synchronize()
-            coords, score, feat, valid = (t.numpy() for t in host)
+            coords, score, feat, valid = (t.numpy() for t in host[:4])
+            smap = host[4].numpy() if len(host) > 4 else None
             num_pts = self.config[key[1]]["num_pts"]
             for j, inputs in enumerate(items):
                 n_emit = int(max(min(num_pts, int(valid[j])), 128))
@@ -242,7 +340,9 @@ class Extractor:
                     "desc": feat[j, :n_emit],
                     "kp_score": score[j, :n_emit],
                 }
-                write_futs.append(write_pool.submit(write_one, inputs, processed))
+                if smap is not None:
+                    processed["score_map"] = smap[j]
+                write_futs.append(write_pool.submit(self._write_one, inputs, processed))
             while len(write_futs) > write_cap:
                 write_futs.popleft().result()
 
@@ -287,11 +387,31 @@ class Extractor:
             write_pool.shutdown(wait=True)
         return n_images
 
+    def _extract_sift(self, names: Dict[int, str]) -> int:
+        """The SIFT passthrough, one image at a time (keypoint counts
+        vary), with the threaded prefetch and the write pool."""
+        write_pool = ThreadPoolExecutor(1 if self.save_h5 else 4)
+        futs = []
+        n_images = 0
+        try:
+            for idx, inputs in self._prefetch():
+                names[idx] = inputs["name1"]
+                n_images += 1
+                futs.append(write_pool.submit(self._write_one, inputs, self._sift_descriptors(inputs)))
+            for f in futs:  # surface write errors
+                f.result()
+        finally:
+            write_pool.shutdown(wait=True)
+        return n_images
+
     def extract(self):
         """Run the whole dataset; returns (n_images, seconds)."""
         t0 = time.time()
         names: Dict[int, str] = {}
-        n_images = self._extract_learned_batched(names)
+        if self.sift_kp:
+            n_images = self._extract_sift(names)
+        else:
+            n_images = self._extract_learned_batched(names)
         with open(os.path.join(self.img_root, "name_list.txt"), "w") as f:
             for idx in sorted(names):
                 f.write("{} {}\n".format(idx, names[idx]))

@@ -11,10 +11,20 @@ distribution, constant un-rescaled reward) takes the streamed reduction
 of ``ops/reinforce.py``, whose kernels run for CUDA tensors and whose
 plain version runs for CPU tensors; ``use_pallas: False`` and every other
 configuration take the dense formulation. The gradient reaches the score
-maps only through the sampled log-probabilities.
+maps through the sampled log-probabilities and, under ``loc_weight``,
+through the soft-argmax offsets.
 
-``reward_at_refined`` and ``loc_weight`` need the sub-pixel refiners
-that are not ported yet; they raise ``NotImplementedError`` (ROADMAP.md).
+Two sub-pixel levers, both off by default (disk_loss.py:64-81), take
+the dense formulation, as JAX's ``_use_pallas`` excludes them:
+``reward_at_refined`` rewards each pair at its sampled pixels plus their
+stop-grad quadratic-fit offsets, the coordinates a ``refine: quad``
+extraction emits; ``loc_weight`` adds loc_weight · loc_pen, the mean
+epipolar distance of the accepted, epipolar-good pairs at their
+soft-argmax peaks (``loc_temperature``, ``loc_window``), weighted by the
+detached match probability. Unlike the JAX package, the port computes
+both offsets at the sampled cells only (each from its own window; the
+values equal the dense map's there), and its loc gate reads the
+thresholds that ``rescale_thr`` rescales, as the reward does.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.coords import homogenize, normalize_coords
+from ..ops.detect import quad_offsets_at, softargmax_offsets_at
 from ..ops.epipolar import epipolar_lines, epipolar_pairwise_dist
 from ..ops.grid_sample import sample_feat_by_coord
 from ..ops.reinforce import MAX_D, kernels_take, reinforce_reduction
@@ -55,11 +66,12 @@ class DiskLoss:
         self.good_reward = configs["good_reward"]
         self.bad_reward = configs["bad_reward"]
         self.kp_penalty = configs["kp_penalty"]
-        for key in ("reward_at_refined", "loc_weight"):
-            if configs.get(key):
-                raise NotImplementedError(
-                    f"DiskLoss {key}: needs the sub-pixel refiners, not ported yet; see ROADMAP.md"
-                )
+        self.reward_at_refined = configs.get("reward_at_refined", False)
+        self.loc_weight = configs.get("loc_weight", 0.0)
+        self.loc_temperature = configs.get("loc_temperature", 20.0)
+        self.loc_window = configs.get("loc_window", 3)
+        if self.loc_window % 2 != 1 or self.loc_window < 3:
+            raise ValueError(f"loc_window must be odd and >= 3, got {self.loc_window}")
 
     def name(self):
         return self.__lossname__
@@ -127,7 +139,8 @@ class DiskLoss:
 
     def _use_streamed(self, dim: int) -> bool:
         """The streamed reduction covers the shipped configuration
-        (detached match distribution, constant un-rescaled reward) at the
+        (detached match distribution, constant un-rescaled reward, neither
+        sub-pixel lever) at the
         descriptor widths ``dim`` its kernels take (D <= 128); anything
         else takes the dense path, chosen before any launch as the JAX
         package's ``_use_pallas`` chooses. The JAX reduction streams any
@@ -140,6 +153,8 @@ class DiskLoss:
             and not self.config["match_grad"]
             and self.reward_name == "constant_reward"
             and not self.config["reward_config"].get("rescale_thr", False)
+            and not self.reward_at_refined
+            and not self.loc_weight
         )
         if eligible and not kernels_take(dim):
             warnings.warn(f"DiskLoss: descriptor width {dim} is wider than the streamed reduction's kernels "
@@ -246,7 +261,12 @@ class DiskLoss:
         dense_logp = logp_I + logp_T
         sample_p = dense_p.detach() if self.config["cor_detach"] else dense_p
 
-        reward, scale1, scale2 = getattr(self, self.reward_name)(inputs, coord1, coord2, **rcfg)
+        rcoord1, rcoord2 = coord1, coord2
+        if self.reward_at_refined:
+            # reward what a refine: quad extraction emits (no gradient on this path)
+            rcoord1 = coord1 + quad_offsets_at(kp_map1, coord1)
+            rcoord2 = coord2 + quad_offsets_at(kp_map2, coord2)
+        reward, scale1, scale2 = getattr(self, self.reward_name)(inputs, rcoord1, rcoord2, **rcfg)
 
         logp1f, logp2f = logp1.reshape(b, -1), logp2.reshape(b, -1)
         kps_logp = logp1f[:, :, None] + logp2f[:, None, :]  # [B, m, n]
@@ -258,6 +278,21 @@ class DiskLoss:
         kp_penalty = self.kp_penalty * ((a1 * logp1f).sum() + (a2 * logp2f).sum())
         loss = -reinforce - kp_penalty
 
+        if self.loc_weight:
+            # the epipolar distances of each accepted pair at its
+            # soft-argmax peaks; the gradient reaches the score maps only
+            # through the soft offsets. The gate reads the reward's
+            # thresholds, rescaled where rescale_thr rescales them.
+            lcoord1 = coord1 + softargmax_offsets_at(kp_map1, coord1, self.loc_temperature, self.loc_window)
+            lcoord2 = coord2 + softargmax_offsets_at(kp_map2, coord2, self.loc_temperature, self.loc_window)
+            d1r, d2r = self._epipolar_dists(inputs, lcoord1, lcoord2)
+            thr1 = (rcfg["reward_thr"] * scale1).reshape(-1, 1, 1)  # _thresholds' thr1; scale 1 unrescaled
+            thr2 = (rcfg["reward_thr"] * scale2).reshape(-1, 1, 1)
+            good_loc = ((d1r < thr1) & (d2r < thr2)).float().detach()
+            w_pair = accept_mask * good_loc * sample_p.detach()
+            loc_pen = (w_pair * (d1r + d2r)).sum() / w_pair.sum().detach().clamp_min(1.0)
+            loss = loss + self.loc_weight * loc_pen
+
         sp = sample_p.detach()
         cor = {
             "cor minmax": sp.reshape(b, -1).amax(-1).min(),
@@ -268,5 +303,8 @@ class DiskLoss:
             "cor summax": torch.maximum(sp.sum(1).max(), sp.sum(2).max()),
             "n_pairs": sp.sum((-1, -2)).mean(),
         }
-        return loss, self._components(reinforce, kp_penalty, scale1, scale2, a1, a2, temperature,
+        components = self._components(reinforce, kp_penalty, scale1, scale2, a1, a2, temperature,
                                       rcfg["reward_thr"], cor)
+        if self.loc_weight:
+            components["loc_pen"] = loc_pen.detach()
+        return loss, components

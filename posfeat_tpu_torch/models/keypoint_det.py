@@ -22,9 +22,17 @@ Dataflows, chosen by ``fused_upsample`` as in the JAX package
   (K1) or "v1" (cuDNN's full-res image conv, then K3), as the JAX
   package's POSFEAT_HEAD_MODE does. The config string stays so that
   existing configs mean the same thing.
+
+The fused dataflows are derived for a trunk at a quarter of the image's
+size (ResUNet's H/4 local map). At any other ratio (ResUNetHR's H/2) the
+head takes the reference dataflow, as the JAX head does
+(keypoint_det.py:537-539); where a fused dataflow was asked for, it says
+so in a warning.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -198,6 +206,7 @@ class KeypointDet(nn.Module):
         self.fused_upsample = fused_upsample
         self.fused_head_mode = fused_head_mode
         self.dtype = dtype
+        self._warned_ratio = False
         self.conv1 = nn.Conv2d(in_channels, in_channels, 3, 1, 1)
         self.conv2 = nn.Conv2d(in_channels + 64, 128, 3, 1, 1)
         self.conv3 = nn.Conv2d(128, out_channels, 1, 1, 0)
@@ -241,6 +250,11 @@ class KeypointDet(nn.Module):
         hwio = lambda t: t.permute(2, 3, 1, 0)
         fu = self.fused_upsample
         size_ok = H == 4 * h and W == 4 * w
+        if fu in ("pallas", "phase", "always") and not size_ok and not self._warned_ratio:
+            self._warned_ratio = True
+            warnings.warn(f"KeypointDet: fused_upsample={fu!r} is derived for a trunk at 1/4 of the image; "
+                          f"this trunk is {h}x{w} for a {H}x{W} image, so the head takes the reference "
+                          "dataflow (upsample, concat, conv2), as the JAX head does", stacklevel=2)
         if fu == "pallas" and size_ok:
             score = fused_head_tail(
                 trunk, s_img, y_img, hwio(self.convimg.weight), self.convimg.bias,

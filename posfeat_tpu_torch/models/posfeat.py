@@ -16,20 +16,31 @@ import torch.nn as nn
 
 from ..core.device import resolve_device
 from .keypoint_det import KeypointDet
-from .resunet import ResUNet
+from .resunet import ResUNet, ResUNetHR
 
-BACKBONES = {"ResUNet": ResUNet}
+BACKBONES = {"ResUNet": ResUNet, "ResUNetHR": ResUNetHR}
 HEADS = {"KeypointDet": KeypointDet}
+
+
+# flax's variance_scaling(1, "fan_in", "truncated_normal"): the std of a
+# unit normal truncated at ±2 is 0.87962566..., so the draw's std is raised
+# by its inverse to keep the variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
 
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """The JAX modules' init, drawn from ``generator``: LeCun-normal conv
-    kernels, zero biases, identity BatchNorm, PReLU slope 0.25."""
+    """The JAX modules' init, drawn from ``generator``: conv kernels from
+    flax's ``lecun_normal`` (a normal of std fan_in^-½ / 0.8796,
+    truncated at ±2 of that std, so that the variance is 1 / fan_in;
+    fan_in = kh·kw·cin/groups), zero biases, identity BatchNorm, PReLU
+    slope 0.25."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
-            m.weight.copy_(torch.empty(m.weight.shape).normal_(0, fan_in ** -0.5, generator=generator))
+            std = m.weight[0].numel() ** -0.5 / _TRUNC_STD
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):

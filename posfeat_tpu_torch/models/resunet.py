@@ -1,6 +1,8 @@
-"""ResUNet descriptor backbone: ResNet encoder + U-Net decoder
-(posfeat_tpu/models/resunet.py:423-564; reference
-networks/DescNet.py:11-84).
+"""ResUNet descriptor backbones: ResNet encoder + U-Net decoder
+(posfeat_tpu/models/resunet.py:423-689; reference
+networks/DescNet.py:11-165). ``ResUNet`` forms its descriptors at H/4,
+``ResUNetHR`` at H/2, one decoder level further, with the un-pooled stem
+as that level's skip.
 
 Module and parameter names are the reference's torch names
 (``firstconv``, ``layer2.0.downsample.1``, ``upconv3.conv.bn``, ...), so
@@ -167,7 +169,7 @@ class ResUNet(nn.Module):
         if desc_tail:
             raise NotImplementedError(
                 f"desc_tail={desc_tail!r}: the bf16 descriptor-tail ladder is not "
-                "ported; see ROADMAP.md: extraction and model remainders"
+                "ported; see ROADMAP.md §1 (not queued: the TPU bf16 ladder)"
             )
         kind, counts, width_mult = _ENCODERS[encoder]
         self.firstconv = Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -218,3 +220,36 @@ class ResUNet(nn.Module):
             "local_map_small": nhwc(x_first),
         }
 
+
+
+class ResUNetHR(ResUNet):
+    """High-resolution variant (posfeat_tpu/models/resunet.py:571-689;
+    DescNet.py:86-165): the ResUNet decoder plus one more level, a ×2
+    ``upconv1`` (192 channels) and ``iconv1`` (256) on the concat with the
+    stem's un-pooled output, so that 'local_map' [B, H/2, W/2,
+    fine_out_ch] and 'local_map_small' (the stem, [B, H/2, W/2, 64]) come
+    out at H/2. The reference's torch names, as ``ResUNet``'s."""
+
+    def __init__(self, encoder="resnet50", pretrained=True, coarse_out_ch=128,
+                 fine_out_ch=128, desc_tail="", dtype=torch.float32):
+        super().__init__(encoder, pretrained, coarse_out_ch, fine_out_ch, desc_tail, dtype)
+        self.upconv1 = UpConv(256, 192, 3, 2)
+        self.iconv1 = ConvBNElu(64 + 192, 256, 3)
+
+    def forward(self, x: torch.Tensor):
+        x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
+        x_first1 = F.relu(self.firstbn(self.firstconv(x)))
+        x1 = self.layer1(F.max_pool2d(x_first1, 3, 2, 1))
+        x2 = self.layer2(x1)
+        x3 = self.layer3(x2)
+        x_coarse = self.conv_coarse(x3)
+        y = self.iconv3(_skipconnect(self.upconv3(x3), x2))
+        y = self.iconv2(_skipconnect(self.upconv2(y), x1))
+        y = self.iconv1(_skipconnect(self.upconv1(y), x_first1))
+        x_fine = self.conv_fine(y)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)
+        return {
+            "global_map": nhwc(x_coarse),
+            "local_map": nhwc(x_fine),
+            "local_map_small": nhwc(x_first1),
+        }

@@ -1,6 +1,6 @@
-"""Stochastic keypoint samplers of the stage-2 loss and the stage-1 grid
-sampler (posfeat_tpu/ops/samplers.py:17-169; reference kploss.py:20-48,
-preprocess_utils.py:598-659).
+"""Stochastic keypoint samplers of the stage-2 loss, the stage-1 grid
+sampler and the detectors' Gumbel selection (posfeat_tpu/ops/samplers.py;
+reference kploss.py:20-48, preprocess_utils.py:467-476, 598-659).
 
 Drawing and scoring are split: the ``draw_*`` functions take a
 ``torch.Generator`` and return indices or accepts without a graph, and
@@ -47,6 +47,27 @@ def categorical_sample_logp(logits: torch.Tensor, generator: torch.Generator):
     """Sample the trailing axis of logits; return (idx, log_prob)."""
     idx = draw_categorical(logits, generator)
     return idx, categorical_logp(logits, idx)
+
+
+def gumbel_noise(shape, generator: torch.Generator, dtype=torch.float32, device=None,
+                 eps: float = 1e-20) -> torch.Tensor:
+    """Gumbel(0, 1) noise -log(-log(u + eps) + eps), u ~ U[0, 1), drawn
+    from ``generator`` (samplers.py:157-159)."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return -torch.log(-torch.log(u + eps) + eps)
+
+
+def gumbel_topk_select(prob: torch.Tensor, num_points: int, noise: torch.Tensor,
+                       temperature: float = 1.0) -> torch.Tensor:
+    """Soft Gumbel selection matrix [B, num_points, H·W] of the map prob
+    [B, H, W, 1] on given noise [B, num_points, H·W]: softmax over the
+    pixels of (prob + noise) / temperature (samplers.py:162-170;
+    putils:467-476)."""
+    B, H, W, _ = prob.shape
+    if tuple(noise.shape) != (B, num_points, H * W):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {(B, num_points, H * W)}")
+    y = prob.reshape(B, 1, H * W) + noise
+    return torch.softmax(y / temperature, dim=2)
 
 
 def draw_bernoulli(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

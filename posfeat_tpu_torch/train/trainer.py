@@ -114,7 +114,7 @@ class Trainer:
         if isinstance(config, str):
             config = load_config(config)
         if config.get("multihost"):
-            raise NotImplementedError("multihost: not ported yet; see ROADMAP.md slice E")
+            raise NotImplementedError("multihost: not ported yet; see ROADMAP.md: distribution and host plumbing")
         self.config = copy.deepcopy(merge_from_checkpoint(config))
         cfg = self.config
         for key in ("profile_trace_dir",):

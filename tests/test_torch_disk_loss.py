@@ -143,9 +143,12 @@ def test_reward_thr_anneal_schedule():
 
 
 def test_unported_levers_raise():
+    # the sub-pixel levers are ported (tests/test_torch_disk_levers.py): they
+    # construct, and take the dense loss where the streamed one was eligible
     for key, val in (("loc_weight", 0.1), ("reward_at_refined", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DiskLoss({**BASE_CONFIG, key: val})
+        loss_mod = DiskLoss({**BASE_CONFIG, key: val})
+        assert getattr(loss_mod, key) == val and not loss_mod._use_streamed(C)
+        assert DiskLoss(BASE_CONFIG)._use_streamed(C)
     with pytest.raises(ValueError, match="epipolar_reward"):
         DiskLoss({**BASE_CONFIG, "epipolar_reward": "linear_reward"})
     assert LOSSES["DiskLoss"] is DiskLoss

@@ -117,7 +117,8 @@ def test_extractors_write_matching_npz(tmp_path, rng, weights, monkeypatch):
 
 
 def test_deferred_features_raise(tmp_path):
-    for key in ("use_sift", "save_h5", "output_img", "spatial_shard"):
+    # use_sift, save_h5 and output_img are ported (tests/test_torch_extract_remainders.py)
+    for key in ("spatial_shard",):
         cfg = _config(tmp_path, key, tmp_path / "none")
         cfg[key] = True
         with pytest.raises(NotImplementedError, match="ROADMAP"):

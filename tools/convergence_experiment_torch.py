@@ -147,40 +147,27 @@ def _score(desc_root, data_root, device):
 def sift_mma(tag, data_root, work, load_path, device=None, seed=0):
     """(MMA@3, MMA@1) of SIFT keypoints (every one OpenCV finds on the
     %16-cropped image, unit scores) with the port's descriptors sampled at
-    them: the JAX Extractor's ``use_sift`` passthrough
-    (posfeat_tpu/extract/extractor.py:347-383), which the port's Extractor
-    does not take yet. ``load_path``: None for the random init of
-    ``seed``."""
-    import torch
+    them: the Extractor's ``use_sift`` passthrough, as
+    tools/convergence_experiment.py scores them. ``load_path``: None for
+    the random init of ``seed``."""
+    from posfeat_tpu_torch.extract import Extractor
 
-    from posfeat_tpu_torch.core.device import resolve_device
-    from posfeat_tpu_torch.data.extraction import HPatch_SIFT
-    from posfeat_tpu_torch.data.utils import normalize_image, sift_keypoints
-    from posfeat_tpu_torch.models import PoSFeat
-    from posfeat_tpu_torch.ops.coords import normalize_coords
-    from posfeat_tpu_torch.ops.grid_sample import sample_feat_by_coord
-
-    dev = resolve_device(device)
-    model = PoSFeat(copy.deepcopy(MODEL_CONFIG), device=dev, seed=seed)
-    if load_path:
-        model.load_checkpoint(load_path)
-    desc_root = os.path.join(work, "ckpts", "hp", tag, "desc")
-    ds = HPatch_SIFT({"data_path": data_root})
-    for i in range(len(ds)):
-        item = ds[i]
-        im = item["im1_ori"]
-        kps = sift_keypoints(im)
-        h, w = im.shape[:2]
-        with torch.no_grad():
-            x = torch.from_numpy(normalize_image(im))[None].to(dev)
-            fmap = model.extract(x)["local_map"]
-            kps_n = normalize_coords(torch.from_numpy(kps)[None].to(dev), h, w)
-            desc = sample_feat_by_coord(fmap, kps_n, True)[0].float().cpu().numpy()
-        path = os.path.join(desc_root, item["name1"])
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(f"{path}.{POSTFIX}", "wb") as f:
-            np.savez(f, keypoints=kps, scores=np.ones((len(kps), 1), np.float32), descriptors=desc)
-    return _score(desc_root, data_root, device)
+    cfg = {
+        "output_root": f"hp/{tag}",
+        "postfix": POSTFIX,
+        "load_path": load_path,
+        "loss_distance": "cos",
+        "output_desc": True,
+        "output_img": False,
+        "model": "PoSFeat",
+        "model_config": copy.deepcopy(MODEL_CONFIG),
+        "data": "HPatch_SIFT",
+        "data_config_extract": {"data_path": data_root, "workers": 4},
+        "use_sift": True,
+    }
+    ex = Extractor(cfg, ckpt_root=os.path.join(work, "ckpts"), device=device, seed=seed)
+    ex.extract()
+    return _score(ex.desc_root, data_root, device)
 
 
 def learned_mma(tag, data_root, work, load_path, device=None, num_pts=512):

@@ -235,11 +235,11 @@ def _sequence_counts(data_root):
     return sum(s.startswith("i_") for s in seqs), sum(s.startswith("v_") for s in seqs)
 
 
-def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, device=None):
+def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, device=None, refine="avg3"):
     """Extract the fixture under ``work/ckpts/hp/<tag>`` with the given
-    dtype and head dataflow (checked in the model and the run's
-    config.yaml), score it; returns (desc_dir, MMA@3, launches of K1
-    and K2 during the extraction)."""
+    dtype, head dataflow (checked in the model and the run's
+    config.yaml) and sub-pixel refiner, score it; returns (desc_dir,
+    MMA@3, launches of K1 and K2 during the extraction)."""
     import torch
 
     from posfeat_tpu_torch.core.config import load_config
@@ -269,6 +269,7 @@ def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, d
             "use_nms": True,
             "nms_radius": 1,
             "thr": False,
+            "refine": refine,
         },
     }
     ckpt_root = os.path.join(work, "ckpts")
