@@ -119,6 +119,24 @@ Phases, one line each (more for the build):
      times); (e) the SIFT passthrough, the h5 writers (where h5py is
      installed) and the image dumps on a 2 x 2-image fixture at 240x320,
      the files checked. Budget: 90 s;
+ 16. slice G (tools/multihost_torch.py starts every rank and process, each
+     with a timeout): (a) two ranks of stage 2 (configs/train_kp.yaml, f32,
+     SyntheticPairs 480x640, global batch 6, 3 per rank) on the one card
+     over gloo: one step held against the one-process step on the same
+     global batch with the same draws (loss, head gradient, updated head;
+     rtol 1e-3 / atol 2e-4), then 3 Trainer steps (s/step per rank beside
+     phase 7's); K4-K6 launched on both ranks; only rank 0 wrote the run
+     and its checkpoint carries the reference's names; (b) two ranks of
+     stage 1 (configs/train_desc.yaml, global batch 8): step 1's BatchNorm
+     running statistics and backbone against the one-process step; (c)
+     two extraction processes (the flagship bf16 model, 480x640, 8192
+     points, batch 16) sharing 128 images: disjoint, complete shard lists,
+     each npz once, K1/K2 launched in both, the aggregate im/s beside
+     phase 5's; (d) ``profile_trace_dir`` over two stage-2 steps: the
+     trace names the lse and reward passes; (e) the native preprocessing
+     library built with g++ against numpy (rtol 1e-5); (f) ``save_npz:
+     False`` writes no npz, ``spatial_shard: auto`` on the one card runs
+     unsharded, bit for bit the plain run. Budget: 150 s;
 then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2, T3 and the two
 reduction kernels), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
@@ -486,6 +504,7 @@ def phase_main_path(torch, fh, rng, records):
           f"{NUM_PTS} pts: {n / dt:.2f} im/s ({dt:.3f} s, one pipeline fill and drain included), "
           f"peak memory {peak / 2**30:.2f} GiB, keypoints/image min {min(counts)} max {max(counts)}, "
           f"launches {launches}")
+    return n / dt
 
 
 def phase_v1_kernels(torch, fh, rng):
@@ -973,6 +992,7 @@ def phase_training(torch, records):
           f"{TRAIN_BATCH / s_step:.3f} pairs/s; wall {wall:.3f} s with checkpoints; peak memory "
           f"{peak / 2**30:.2f} GiB; {moved} head tensors moved, backbone unchanged; loss "
           f"{metrics[0]['total_loss']:.5g} -> {metrics[-1]['total_loss']:.5g}; launches {launches}")
+    return s_step
 
 
 def desc_config(height=H, width=W, batch=DESC_BATCH, steps=DESC_STEPS):
@@ -1669,6 +1689,250 @@ def phase_slice_f(torch, fh, rng, smi, probe_state):
     print(f"[15] slice F: {seconds:.1f} s (budget {SLICE_F_BUDGET_S:g} s); {smi}")
 
 
+# slice G (phase 16): ranks and processes on the one card, their timeout,
+# the two-rank stage-2 steps after the step check, stage 1's global batch and
+# steps, and the images the two extraction processes share
+G_WORLD, G_TIMEOUT_S, G_KP_STEPS, G_DESC_BATCH, G_DESC_STEPS, G_IMAGES = 2, 300, 3, 8, 1, 128
+SLICE_G_BUDGET_S = 150.0
+
+
+def _close(got, want, what, rtol=1e-3, atol=2e-4):
+    """The worst |got - want| and its share of the tolerance; fails beyond it."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    share = float((err / (atol + rtol * np.abs(want))).max()) if err.size else 0.0
+    assert share <= 1.0, f"{what}: max |d| {err.max():.3g} is {share:.3g} of rtol {rtol} / atol {atol}"
+    return float(err.max()) if err.size else 0.0, share
+
+
+def _launched(spec, outs, rcs):
+    for r, (rc, out) in enumerate(zip(rcs, outs)):
+        assert rc == 0 and f"RANK_OK {r}" in out, f"rank {r} of {spec['jobs'][0]['name']} failed ({rc}):\n{out[-6000:]}"
+
+
+def _rank_record(out_dir, name, r):
+    with open(f"{out_dir}/{name}.rank{r}.json") as f:
+        return json.load(f)
+
+
+def slice_g_training(torch, tmp, mh, s_step_main):
+    """(a) and (b): two ranks of stage 2, then of stage 1, on the one card."""
+    from posfeat_tpu_torch.models.keypoint_det import KeypointDet
+    from posfeat_tpu_torch.train import Trainer
+
+    kp, desc = train_config(), desc_config(batch=G_DESC_BATCH, steps=G_DESC_STEPS)
+    out = f"{tmp}/ranks"
+    spec = {"world": G_WORLD, "device": "cuda", "backend": "gloo", "timeout_s": 120, "out": out,
+            "jobs": [{"kind": "step", "name": "kp", "config": kp, "train_steps": G_KP_STEPS},
+                     {"kind": "step", "name": "desc", "config": desc, "train_steps": G_DESC_STEPS}]}
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    rcs, outs, wall = mh.launch(spec, G_TIMEOUT_S)
+    _launched(spec, outs, rcs)
+    res = {n: [dict(np.load(f"{out}/{n}.rank{r}.npz")) for r in range(G_WORLD)] for n in ("kp", "desc")}
+    recs = {n: [_rank_record(out, n, r) for r in range(G_WORLD)] for n in ("kp", "desc")}
+    for r in range(G_WORLD):
+        lk = recs["kp"][r]["launches"]
+        assert lk["K4+K5 lse_pass"] > 0 and lk["K6 reward_pass"] > 0, (r, lk)
+        assert recs["desc"][r]["launches"]["K6 reward_pass"] == 0, recs["desc"][r]
+    print(f"[16] (a,b) two ranks over gloo on the one card: {wall:.1f} s for both runs; K4-K6 launches per rank "
+          f"(stage 2, 1 + {G_KP_STEPS} steps): {[recs['kp'][r]['launches'] for r in range(G_WORLD)]}")
+
+    def reference(cfg, name):
+        """The one-process step on the ranks' batches in rank order, with its own draws."""
+        cfg = {**cfg, "checkpoint_name": f"{cfg['checkpoint_name']}_one"}
+        tr = Trainer(cfg, ckpt_root=tmp, device="cuda")
+        batch = {k[6:]: np.concatenate([res[name][r][k] for r in range(G_WORLD)])
+                 for k in res[name][0] if k.startswith("batch/")}
+        total, comps, gn, finite = tr.train_step(tr.to_device(batch), 1)
+        assert finite
+        return tr, float(total)
+
+    tr, loss = reference(kp, "kp")
+    head = tr.model.localheader
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    per_param = {}
+    for r in range(G_WORLD):
+        got = res["kp"][r]
+        worst["loss"] = max(worst["loss"], _close(got["loss"], loss, "stage-2 loss")[1])
+        for n, p in head.named_parameters():
+            g = p.grad.cpu().numpy()
+            d = float(np.abs(got[f"grad/localheader/{n}"] - g).max())
+            per_param[n] = (f"{d:.3g}", f"{float(np.abs(g).max()):.3g}")
+        for n, p in head.named_parameters():
+            worst["grad"] = max(worst["grad"], _close(got[f"grad/localheader/{n}"], p.grad.cpu(), f"grad {n} "
+                                                      f"(max |d|, max |g| per tensor: {per_param})")[1])
+        for k, v in head.state_dict().items():
+            worst["param"] = max(worst["param"], _close(got[f"state/localheader/{k}"], v.cpu(), f"param {k}")[1])
+    del tr
+    run = f"{out}/ckpts/{kp['checkpoint_name']}"
+    names = set(os.listdir(run))
+    assert {"000", "001", "config.yaml", "metrics.jsonl", "logging_file.proc1.txt"} <= names, names
+    assert sorted(os.listdir(f"{run}/001")) == ["backbone.pth", "localheader.pth", "opt_state.pth"]
+    metrics = [json.loads(x) for x in open(f"{run}/metrics.jsonl")]
+    assert [m["global_step"] for m in metrics] == list(range(1, G_KP_STEPS + 1)), metrics
+    saved = torch.load(f"{run}/001/localheader.pth", weights_only=True)
+    ref_names = set(KeypointDet(**FLAGSHIP_MODEL_CONFIG["localheader_config"]).state_dict())
+    assert set(saved) == ref_names, sorted(set(saved) ^ ref_names)  # import_keypoint_det's names
+    times = [json.loads(x) for x in open(f"{run}/step_times.jsonl")]
+    per_rank = {r: [t["step_time_s"] for t in times if t["rank"] == r][1:] for r in range(G_WORLD)}
+    print(f"[16] (a) stage 2, global batch {TRAIN_BATCH} ({TRAIN_BATCH // G_WORLD} per rank): step 1 against the "
+          f"one-process step on the same batch and draws, worst share of rtol 1e-3 / atol 2e-4: loss "
+          f"{worst['loss']:.3g}, head grad {worst['grad']:.3g} (max |d|, max |g| per tensor: {per_param}), "
+          f"updated head {worst['param']:.3g}; s/step per rank "
+          + ", ".join(f"{np.mean(v):.4f}" for v in per_rank.values())
+          + f" (after a warm-up step) beside phase 7's one-process {s_step_main:.4f}; rank 0 alone wrote "
+          f"{sorted(n for n in names if not n.startswith('events'))}")
+
+    # the shipped loss (std weights, the line search's argmax at T = 60) moves
+    # where rounding flips a near-tie, as phase 12 found: its loss and
+    # gradient are printed, not held; the forward's BatchNorm statistics and
+    # the update are held
+    tr, loss = reference(desc, "desc")
+    worst = {"stats": 0.0, "param": 0.0}
+    g_one = torch.cat([p.grad.flatten().cpu() for p in tr.model.backbone.parameters()]).double()
+    losses, g_rel = [], []
+    for r in range(G_WORLD):
+        got = res["desc"][r]
+        losses.append(float(got["loss"]))
+        g_mh = torch.cat([torch.from_numpy(got[f"grad/backbone/{n}"]).flatten()
+                          for n, _ in tr.model.backbone.named_parameters()]).double()
+        g_rel.append(float((g_mh - g_one).norm() / g_one.norm()))
+        for k, v in tr.model.backbone.state_dict().items():
+            if "num_batches" in k:
+                assert int(got[f"state/backbone/{k}"]) == int(v), k
+                continue
+            key = "stats" if "running" in k else "param"
+            worst[key] = max(worst[key], _close(got[f"state/backbone/{k}"], v.cpu(), f"backbone {k}")[1])
+    del tr
+    print(f"[16] (b) stage 1, global batch {G_DESC_BATCH} ({G_DESC_BATCH // G_WORLD} per rank), synchronised "
+          f"BatchNorm: step 1 against the one-process step, worst share of rtol 1e-3 / atol 2e-4: running "
+          f"statistics {worst['stats']:.3g}, backbone after Adam's first step {worst['param']:.3g} (an entry whose "
+          f"gradient changes sign moves by up to 2 lr = atol); not held: loss {losses} vs {loss:.6g}, backbone "
+          f"gradient |d|/|g| per rank {[f'{x:.3g}' for x in g_rel]}; "
+          f"the ranks' stage-1 runs took {[round(recs['desc'][r]['seconds'], 2) for r in range(G_WORLD)]} s")
+
+
+def _write_ppm(path, im):
+    with open(path, "wb") as f:
+        f.write(f"P6\n{im.shape[1]} {im.shape[0]}\n255\n".encode() + np.ascontiguousarray(im).tobytes())
+
+
+def slice_g_extraction(torch, tmp, mh, rng, ims_main):
+    """(c) two extraction processes sharing 128 images."""
+    data = _images(rng, G_IMAGES, "g")
+    names = []
+    for i, it in enumerate(data):
+        seq = f"{tmp}/hp/s{i // 8:02d}"
+        os.makedirs(seq, exist_ok=True)
+        _write_ppm(f"{seq}/{i % 8}.ppm", it["im1_ori"])
+        names.append(f"s{i // 8:02d}/{i % 8}.ppm")
+    cfg = {
+        "output_root": "g_shards", "postfix": "npz", "load_path": None, "loss_distance": "cos",
+        "output_desc": True, "output_img": False, "compute_dtype": "bfloat16", "model": "PoSFeat",
+        "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
+        "data_config_extract": {"data_path": f"{tmp}/hp", "batch_size": BATCH, "workers": 4},
+        "use_sift": False, "detector": "generate_kpts_single",
+        "detector_config": {"num_pts": NUM_PTS, "stable": True, "use_nms": True, "nms_radius": 1,
+                            "thr": 0.9, "thr_mod": "abs"},
+    }
+    out = f"{tmp}/shards"
+    spec = {"world": G_WORLD, "device": "cuda", "out": out,
+            "jobs": [{"kind": "extract", "name": "ex", "config": cfg, "warmup": BATCH}]}
+    torch.cuda.empty_cache()
+    rcs, outs, wall = mh.launch(spec, G_TIMEOUT_S)
+    _launched(spec, outs, rcs)
+    recs = [_rank_record(out, "ex", r) for r in range(G_WORLD)]
+    root = f"{out}/ckpts/g_shards"
+    lists = []
+    for r in range(G_WORLD):
+        with open(f"{root}/image/name_list.shard{r}.txt") as f:
+            lists.append([line.split(" ", 1)[1].strip() for line in f if line.strip()])
+        assert lists[r] == sorted(names)[r::G_WORLD], r
+        lk = recs[r]["launches"]
+        assert recs[r]["images"] == G_IMAGES // G_WORLD and lk["K1 conv_phase"] > 0 and lk["K2 head_tail"] > 0, recs[r]
+    assert sorted(lists[0] + lists[1]) == sorted(names)
+    written = sorted(os.path.relpath(os.path.join(d, f), f"{root}/desc") for d, _, fs in os.walk(f"{root}/desc")
+                     for f in fs)
+    assert written == sorted(n + ".npz" for n in names), written[:4]
+    window = max(r["t_end"] for r in recs) - min(r["t_extract"] for r in recs)
+    print(f"[16] (c) two extraction processes, {G_IMAGES} images {H}x{W} bf16 ({G_IMAGES // G_WORLD} each, after a "
+          f"warm-up batch of {BATCH} of them and a barrier), disjoint complete shard lists, each npz once; K1/K2 "
+          f"launches per process in the timed run "
+          f"{[(r['launches']['K1 conv_phase'], r['launches']['K2 head_tail']) for r in recs]}; aggregate "
+          f"{G_IMAGES / window:.2f} im/s over the timed runs ({window:.3f} s from the first start to the last end; "
+          f"each {[round(r['t_end'] - r['t_extract'], 3) for r in recs]} s) beside phase 5's one process "
+          f"{ims_main:.2f} im/s (also warm); {G_IMAGES / wall:.2f} im/s over the whole wall ({wall:.2f} s: process "
+          f"starts, model builds and warm-ups included)")
+
+
+def slice_g_trace(torch, tmp):
+    """(d) profile_trace_dir over two stage-2 steps."""
+    from posfeat_tpu_torch.train import Trainer
+
+    cfg = {**train_config(), "checkpoint_name": "g_trace", "epoch_step": 2, "profile_trace_dir": f"{tmp}/trace"}
+    Trainer(cfg, ckpt_root=tmp, device="cuda").train()
+    files = [f for f in os.listdir(f"{tmp}/trace") if f.endswith(".pt.trace.json")]
+    assert len(files) == 1, files
+    with open(f"{tmp}/trace/{files[0]}") as f:
+        text = f.read()
+    assert '"cat": "kernel"' in text, "the trace holds no CUDA kernel activity (CUPTI gave none)"
+    found = {k: text.count(f"{k}") for k in ("lse_pass_kernel", "reward_pass_kernel")}
+    assert all(found.values()), found
+    print(f"[16] (d) profile_trace_dir: {files[0]} ({len(text) / 2**20:.1f} MiB) over 2 stage-2 steps names "
+          f"{found} (occurrences)")
+
+
+def slice_g_native_and_repairs(torch, tmp, rng):
+    """(e) the native library; (f) save_npz False and spatial_shard auto."""
+    from posfeat_tpu_torch.data import native
+    from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
+    from posfeat_tpu_torch.extract import Extractor
+
+    assert native.native_available(), "the native preprocessing library did not build"
+    im = _images(rng, 1, "n")[0]["im1_ori"][:H - 5, :W - 7]
+    got = native.normalize_crop16(im)
+    want = (im[:H - 16, :W - 16].astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+    err = _close(got, want, "native normalize", rtol=1e-5, atol=1e-6)
+    print(f"[16] (e) native preprocessing: {native.library_path().name} built with g++, normalize_crop16 of a "
+          f"{im.shape[0]}x{im.shape[1]} image against numpy: max |d| {err[0]:.3g} ({err[1]:.3g} of rtol 1e-5 / atol 1e-6)")
+
+    data = _images(rng, BATCH, "f")
+    base = {
+        "postfix": "npz", "load_path": None, "loss_distance": "cos", "output_desc": True, "output_img": False,
+        "compute_dtype": "bfloat16", "model": "PoSFeat", "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
+        "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4}, "use_sift": False,
+        "detector": "generate_kpts_single",
+        "detector_config": {"num_pts": NUM_PTS, "stable": True, "use_nms": True, "nms_radius": 1, "thr": 0.9,
+                            "thr_mod": "abs"},
+    }
+    roots = {}
+    for tag, extra in (("plain", {}), ("auto", {"spatial_shard": "auto"}), ("nonpz", {"save_npz": False})):
+        ex = Extractor({**copy.deepcopy(base), "output_root": f"g_{tag}", **extra}, ckpt_root=tmp, device="cuda",
+                       dataset=data)
+        assert ex.extract()[0] == BATCH
+        roots[tag] = ex.desc_root
+    assert not [f for _, _, fs in os.walk(roots["nonpz"]) for f in fs], "save_npz: False wrote files"
+    for it in data:
+        a, b = (np.load(f"{roots[t]}/{it['name1']}.npz") for t in ("plain", "auto"))
+        for k in ("keypoints", "scores", "descriptors"):
+            assert np.array_equal(a[k], b[k]), (it["name1"], k)
+    print(f"[16] (f) save_npz: False wrote no npz; spatial_shard: auto on {torch.cuda.device_count()} card ran "
+          f"unsharded, its {BATCH} npz bit for bit the plain run's")
+
+
+def phase_slice_g(torch, rng, smi, ims_main, s_step_main):
+    """Slice G (phase 16): ranks, shards, the trace, the native library and the repairs."""
+    t_phase = time.perf_counter()
+    mh = _load_tool("multihost_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_g_training(torch, tmp, mh, s_step_main)
+        slice_g_extraction(torch, tmp, mh, rng, ims_main)
+        slice_g_trace(torch, tmp)
+        slice_g_native_and_repairs(torch, tmp, rng)
+    seconds = time.perf_counter() - t_phase
+    print(f"[16] slice G: {seconds:.1f} s (budget {SLICE_G_BUDGET_S:g} s); {smi}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1724,11 +1988,11 @@ def main() -> int:
         former = pool.submit(former_order_stream)
         records = phase_kernels(torch, fh, rng)
         phase_head_vs_reference(torch, rng)
-        phase_main_path(torch, fh, rng, records)
+        ims_main = phase_main_path(torch, fh, rng, records)
         extra = [("former compare order", former.result())]
     extra += [(f"seed {SEED + k}", np.random.default_rng(SEED + k)) for k in (1, 2, 3)]
     reduction = phase_reduction(torch, rng, extra)
-    phase_training(torch, reduction)
+    s_step_main = phase_training(torch, reduction)
     v1 = phase_v1_kernels(torch, fh, rng)
     phase_head_vs_reference(torch, rng, mode="v1", tag="[9]")
     phase_v1_path(torch, fh, rng, v1)
@@ -1737,6 +2001,7 @@ def main() -> int:
     probe_state = phase_probe(torch, smi)
     phase_shipped(torch, fh, smi)
     phase_slice_f(torch, fh, rng, smi, probe_state)
+    phase_slice_g(torch, rng, smi, ims_main, s_step_main)
     records += v1 + reduction
 
     print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")

@@ -21,8 +21,13 @@ def load_config(path: str) -> Dict[str, Any]:
 
 
 def dump_config(config: Dict[str, Any], path: str) -> None:
-    with open(path, "w") as f:
+    """Write ``config`` as JSON through a temporary file moved into place,
+    so that processes that write one run's file (extraction shards) never
+    leave it torn."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         json.dump(config, f, indent=2)
+    os.replace(tmp, path)
 
 
 def merge_from_checkpoint(config: Dict[str, Any]) -> Dict[str, Any]:

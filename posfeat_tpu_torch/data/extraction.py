@@ -8,8 +8,10 @@ after the %16 crop. Only the SIFT passthrough (the extractor's
 ``use_sift``) needs host SIFT keypoints and the host-normalized image:
 ``compute_sift`` and ``compute_normalize`` in the config ask for them
 (both default True, as in the JAX datasets; the learned path sets them
-False and normalizes on the device). Multi-host sharding of the image
-list is not ported yet (ROADMAP.md: distribution and host plumbing).
+False and normalizes on the device); the host normalization runs the
+native library (``data/native.py``). ``num_shards`` / ``shard_index``
+take every ``num_shards``-th image from ``shard_index`` of the sorted
+list, the shard of one extraction process of several.
 Binary PPM (P6, maxval 255: the HPatches images) is read with numpy;
 every other file goes to ``cv2``, imported where such an image is read.
 """
@@ -23,7 +25,8 @@ from typing import Dict
 
 import numpy as np
 
-from .utils import crop_mod16, normalize_image, sift_keypoints
+from .native import normalize_crop16
+from .utils import crop_mod16, sift_keypoints
 
 
 # "P6", width, height and maxval, separated by whitespace and "#" comments,
@@ -76,6 +79,13 @@ class _SingleImageDataset:
         self.compute_sift = bool(configs.get("compute_sift", True))
         self.compute_normalize = bool(configs.get("compute_normalize", True))
         self.imfs = self._glob_images(configs)
+        # host i of n extracts images i, i+n, i+2n, ... (posfeat_tpu/data/extraction.py:47-53)
+        n_shards = int(configs.get("num_shards", 1))
+        shard = int(configs.get("shard_index", 0))
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard_index {shard} is not in [0, num_shards = {n_shards})")
+        if n_shards > 1:
+            self.imfs = self.imfs[shard::n_shards]
 
     def _glob_images(self, configs):  # pragma: no cover - overridden
         raise NotImplementedError
@@ -90,7 +100,7 @@ class _SingleImageDataset:
         imf = self.imfs[item]
         im = crop_mod16(_imread_rgb(imf))
         return {
-            "im1": normalize_image(im) if self.compute_normalize else None,
+            "im1": normalize_crop16(im) if self.compute_normalize else None,
             "im1_ori": im,
             "coord1": sift_keypoints(im) if self.compute_sift else np.zeros((0, 2), np.float32),
             "name1": self._name(imf),

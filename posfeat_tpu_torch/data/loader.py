@@ -38,8 +38,15 @@ class PrefetchLoader:
     :param prefetch: max prepared samples in flight
     :param seed: shuffle seed (epoch e shuffles with seed + e)
     :param infinite: loop forever over epochs
+    :param num_shards: processes that share the dataset (``multihost:``)
+    :param shard_index: this process's shard
 
-    An incomplete last batch of a finite pass is dropped.
+    An incomplete last batch of a finite pass is dropped. Shards follow
+    JAX's equal-shard rule (posfeat_tpu/data/loader.py:57-89): every
+    process shuffles the same permutation (seed + epoch), drops its
+    trailing ``n % num_shards`` indices and takes every
+    ``num_shards``-th from ``shard_index``, so that shards are disjoint
+    and of equal length.
     """
 
     def __init__(
@@ -51,6 +58,8 @@ class PrefetchLoader:
         prefetch: int = 16,
         seed: int = 0,
         infinite: bool = False,
+        num_shards: int = 1,
+        shard_index: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -59,19 +68,26 @@ class PrefetchLoader:
         self.prefetch = max(prefetch, 2 * batch_size)
         self.seed = seed
         self.infinite = infinite
+        self.num_shards = max(1, int(num_shards))
+        self.shard_index = int(shard_index)
+        if not 0 <= self.shard_index < self.num_shards:
+            raise ValueError(f"shard_index {shard_index} is not in [0, {self.num_shards})")
 
     def _index_stream(self) -> Iterator[int]:
         n = len(self.dataset)
+        # the JAX loader spins forever in both cases when infinite
+        # (posfeat_tpu/data/loader.py:84)
         if n == 0:
-            # the JAX loader spins forever here when infinite
-            # (posfeat_tpu/data/loader.py:84)
             raise ValueError("the dataset has no sample")
+        if n < self.num_shards:
+            raise ValueError(f"the dataset has {n} samples, fewer than its {self.num_shards} shards")
+        n_even = n - n % self.num_shards
         epoch = 0
         while True:
             idx = np.arange(n)
             if self.shuffle:
                 np.random.RandomState(self.seed + epoch).shuffle(idx)
-            yield from idx.tolist()
+            yield from idx[:n_even][self.shard_index::self.num_shards].tolist()
             epoch += 1
             if not self.infinite:
                 return

@@ -23,11 +23,20 @@ at a time (posfeat_tpu/extract/extractor.py:347-383, 712-735).
 
 The detector config flows to the detector whole but for ``scale``: its
 ``refine`` picks the sub-pixel refiner, which a bf16 extraction runs in
-f32 after the fused head's kernels. Not ported yet (ROADMAP.md:
-distribution and host plumbing): spatial sharding and multi-host
-sharding (``num_shards``); a config that asks for one raises
-``NotImplementedError``. ``detector_config_query`` applies to Aachen
-Day-Night query images, as in the JAX extractor.
+f32 after the fused head's kernels. ``detector_config_query`` applies
+to Aachen Day-Night query images, as in the JAX extractor.
+``save_npz: False`` skips the npz files (the h5 files and the name list
+are written as before).
+
+``num_shards`` / ``shard_index`` in ``data_config_extract`` split the
+image list between processes that share one ``output_root``: each writes
+its own images' files and ``image/name_list.shard<i>.txt``, every shard
+writes ``config.yaml`` and appends to ``logging_file.txt`` as the JAX
+extractor does, and the ``FileExistsError`` check applies to
+single-shard runs only. ``spatial_shard`` (``auto``, ``True`` or a device
+count) resolves its device count as JAX does (the visible cards; 1 on the
+CPU): on one device the images run unsharded, as in JAX; more than one
+device is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,8 +63,22 @@ from ..ops.coords import denormalize_coords, normalize_coords
 from ..ops.detect import DETECTORS
 from ..ops.grid_sample import sample_feat_by_coord
 
-_DEFERRED = ("spatial_shard",)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _visible_devices(device: torch.device) -> int:
+    """The devices a spatial shard could span: the visible cards, or 1 on the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def spatial_devices(sp, device: torch.device) -> int:
+    """``spatial_shard``'s device count as the JAX extractor resolves it
+    (extractor.py:205-219): every device for ``True``/``auto``, else at
+    most ``sp``; 0 when the key is off."""
+    if not sp:
+        return 0
+    n_dev = _visible_devices(device)
+    return n_dev if sp in (True, "auto") else min(int(sp), n_dev)
 
 
 def _make_logger(name: str, logfile: str) -> logging.Logger:
@@ -83,12 +106,8 @@ class Extractor:
             config = load_config(config)
         # deep copy: the head selection below must not leak into the caller's dict
         self.config = copy.deepcopy(merge_from_checkpoint(config))
-        for key in _DEFERRED:
-            if self.config.get(key):
-                raise NotImplementedError(
-                    f"{key}: not ported yet; see ROADMAP.md: distribution and host plumbing"
-                )
         self.sift_kp = bool(self.config.get("use_sift", False))
+        self.save_npz = bool(self.config.get("save_npz", True))
         self.save_h5 = bool(self.config.get("save_h5", False))
         if self.save_h5:
             try:
@@ -101,9 +120,21 @@ class Extractor:
         self.desc_root = os.path.join(self.save_root, "desc")
         self.img_root = os.path.join(self.save_root, "image")
         dcfg = dict(self.config["data_config_extract"])
-        if int(dcfg.get("num_shards", 1)) > 1:
+        self.num_shards = int(dcfg.get("num_shards", 1))
+        self.shard_index = int(dcfg.get("shard_index", 0))
+        if not 0 <= self.shard_index < self.num_shards:
+            raise ValueError(f"shard_index {self.shard_index} is not in [0, num_shards = {self.num_shards})")
+        if self.save_h5 and self.num_shards > 1:
+            raise ValueError("save_h5 with num_shards > 1: the shards' processes would append to one "
+                             "feat.h5 at once; extract the h5 files in one process")
+        # spatial_threshold_px: the pixel count above which the JAX extractor
+        # shards an image over its spatial mesh (default 4M, about 2048x2048)
+        self.spatial_threshold = int(self.config.get("spatial_threshold_px", 4 * 1024 * 1024))
+        n_spatial = spatial_devices(self.config.get("spatial_shard", False), self.device)
+        if n_spatial > 1:
             raise NotImplementedError(
-                "num_shards: not ported yet; see ROADMAP.md: distribution and host plumbing"
+                f"spatial_shard over {n_spatial} devices: not ported yet; see ROADMAP.md: "
+                "spatial_shard over more than one device"
             )
         dtype = _DTYPES[self.config.get("compute_dtype", "float32")]
 
@@ -137,8 +168,10 @@ class Extractor:
 
         # fail fast on an existing run dir (reference extractor.py:133-140)
         # unless resume: True
+        # shards share one output_root by design, so the check is single-shard only
         if (
-            os.path.isdir(self.desc_root)
+            self.num_shards == 1
+            and os.path.isdir(self.desc_root)
             and os.listdir(self.desc_root)
             and not self.config.get("resume", False)
         ):
@@ -150,6 +183,8 @@ class Extractor:
         os.makedirs(self.img_root, exist_ok=True)
         dump_config(self.config, os.path.join(self.save_root, "config.yaml"))
         self.logger = _make_logger("extractor", os.path.join(self.save_root, "logging_file.txt"))
+        if n_spatial == 1:
+            self.logger.info("spatial_shard: one device, so every image runs unsharded")
         if hr and isinstance(lh_cfg, dict):
             self.logger.info(f"ResUNetHR: the head's trunk is at H/2, so it takes the reference dataflow "
                              f"(fused_upsample {lh_cfg.get('fused_upsample', True)!r}); K1/K2 are not launched")
@@ -239,14 +274,15 @@ class Extractor:
     # ------------------------------------------------------------ writers
 
     def save_desc(self, inputs: Dict, processed: Dict) -> None:
-        """The npz file and, with ``save_h5``, the h5 files
-        (extractor.py:417-458)."""
+        """The npz file unless ``save_npz`` is False and, with ``save_h5``,
+        the h5 files (extractor.py:417-458)."""
         kpt, desc, scores = processed["kpt"], processed["desc"], processed["kp_score"]
         name = inputs["name1"]
         save_path = os.path.join(self.desc_root, name)
         os.makedirs(os.path.dirname(save_path), exist_ok=True)
-        with open(save_path + ".{}".format(self.config["postfix"]), "wb") as f:
-            np.savez(f, keypoints=kpt, scores=scores, descriptors=desc)
+        if self.save_npz:
+            with open(save_path + ".{}".format(self.config["postfix"]), "wb") as f:
+                np.savez(f, keypoints=kpt, scores=scores, descriptors=desc)
         if self.save_h5:
             import h5py
 
@@ -412,7 +448,9 @@ class Extractor:
             n_images = self._extract_sift(names)
         else:
             n_images = self._extract_learned_batched(names)
-        with open(os.path.join(self.img_root, "name_list.txt"), "w") as f:
+        # each shard writes its own list; a single shard keeps the reference's name
+        fname = "name_list.txt" if self.num_shards == 1 else f"name_list.shard{self.shard_index}.txt"
+        with open(os.path.join(self.img_root, fname), "w") as f:
             for idx in sorted(names):
                 f.write("{} {}\n".format(idx, names[idx]))
         dt = time.time() - t0

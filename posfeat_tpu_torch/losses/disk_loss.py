@@ -25,6 +25,11 @@ detached match probability. Unlike the JAX package, the port computes
 both offsets at the sampled cells only (each from its own window; the
 values equal the dense map's there), and its loc gate reads the
 thresholds that ``rescale_thr`` rescales, as the reward does.
+
+Under ``multihost:`` each rank holds a share of the global batch. The
+REINFORCE objective and the keypoint penalty are sums over the batch, so
+a rank's loss is its own sum; ``loc_pen`` divides by the global weight
+sum; the components reduce across ranks by ``COMPONENT_REDUCTIONS``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import global_sum
 from ..ops.coords import homogenize, normalize_coords
 from ..ops.detect import quad_offsets_at, softargmax_offsets_at
 from ..ops.epipolar import epipolar_lines, epipolar_pairwise_dist
@@ -54,6 +60,14 @@ from ..ops.samplers import (
 
 class DiskLoss:
     __lossname__ = "DiskLoss"
+    # how each component of a rank's share reduces to the global batch's value
+    COMPONENT_REDUCTIONS = {
+        "reinforce": "sum", "kp_penalty": "sum", "loc_pen": "sum",
+        "scale1": "mean", "scale2": "mean", "n_kps": "mean", "cor mean": "mean", "n_pairs": "mean",
+        "temperature": "mean", "reward_thr": "mean",
+        "cor max": "max", "cor summax": "max",
+        "cor minmax": "min", "cor minmean": "min", "cor summin": "min",
+    }
 
     def __init__(self, configs: Dict[str, Any]):
         self.config = configs
@@ -290,7 +304,7 @@ class DiskLoss:
             thr2 = (rcfg["reward_thr"] * scale2).reshape(-1, 1, 1)
             good_loc = ((d1r < thr1) & (d2r < thr2)).float().detach()
             w_pair = accept_mask * good_loc * sample_p.detach()
-            loc_pen = (w_pair * (d1r + d2r)).sum() / w_pair.sum().detach().clamp_min(1.0)
+            loc_pen = (w_pair * (d1r + d2r)).sum() / global_sum(w_pair.detach()).clamp_min(1.0)
             loss = loss + self.loc_weight * loc_pen
 
         sp = sample_p.detach()

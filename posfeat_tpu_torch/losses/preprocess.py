@@ -19,6 +19,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..core.distributed import uniform
 from ..ops.coords import denormalize_coords, normalize_coords
 from ..ops.correlation import dual_softmax, ot_sinkhorn_log, ot_sinkhorn_log_unmatch
 from ..ops.epipolar import epipolar_line_search, get_expected_correspondence_within_window
@@ -84,11 +85,8 @@ class Preprocess_Line2Window:
         jitters = (None, None)
         if self.config["use_line_search"] and self.line_cfg.get("loc_rand", True):
             g = self.grid_size
-            jitters = tuple(
-                torch.rand((m.shape[0], (m.shape[1] // g) * (m.shape[2] // g), 2),
-                           generator=generator, device=m.device)
-                for m in (kp_map1, kp_map2)
-            )
+            jitters = tuple(uniform((m.shape[0], (m.shape[1] // g) * (m.shape[2] // g), 2), generator, m.device)
+                            for m in (kp_map1, kp_map2))
         return {"kps": kps, "jitter1": jitters[0], "jitter2": jitters[1]}
 
     def draw(self, inputs, outputs, generator: torch.Generator):

@@ -13,7 +13,9 @@ takes and returns NHWC; convolutions run NCHW views of it, which are
 BatchNorm trains as flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
 (resunet.py:37-45): normalized by the batch's biased variance, and the
 running variance updated with that same biased variance (``BatchNorm2d``
-below), not with torch's unbiased one.
+below), not with torch's unbiased one. Under ``multihost:`` the stage-1
+trainer sets each BatchNorm's ``sync``: its moments are then those of the
+global batch, as flax's are under JAX's SPMD step.
 
 Parameters and running statistics stay f32 at every compute dtype, as
 the JAX modules' ``param_dtype=float32`` (resunet.py:43,59): a bf16
@@ -34,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..core.distributed import all_reduce_autograd
 
 # torchvision families (only layers 1-3 are used): block, counts, width mult
 _ENCODERS = {
@@ -62,18 +66,46 @@ class BatchNorm2d(nn.BatchNorm2d):
     one, n/(n−1) larger: a few percent at the deepest layers of small
     images). Evaluation and the state_dict are torch's. A bf16 input is
     normalized with the f32 parameters and statistics and comes out
-    bf16."""
+    bf16.
+
+    ``sync = True`` (set by the trainer when several ranks train the
+    backbone) normalizes a training batch by the moments of the global
+    batch: each rank's per-channel Σx and Σx² and its count are summed
+    over the ranks through a differentiable all-reduce, and the variance
+    is E[x²] − E[x]², as flax's fast variance computes it; the running
+    statistics take the global biased variance. One code path for the
+    CPU (gloo) and the card (gloo or NCCL), which ``nn.SyncBatchNorm``,
+    CUDA only, is not."""
+
+    sync = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.sync:
+            y, mean, var = self._global_batch_norm(x)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """(normalized x, mean, biased variance) over every rank's batch."""
+        xf = x.float()
+        c = xf.shape[1]
+        count = torch.full((1,), float(xf.numel() // c), device=x.device)
+        moments = all_reduce_autograd(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        n = moments[2 * c].detach()
+        mean = moments[:c] / n
+        var = (moments[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 def _downsample(cin, cout, stride):

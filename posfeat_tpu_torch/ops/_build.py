@@ -66,7 +66,12 @@ def build(force: bool = False) -> dict:
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
+    # both files move into place whole: processes that start together (one
+    # per extraction shard or training rank) may build at once, and a second
+    # one never loads or reads a half-written file
+    tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)
     os.replace(tmp, so)
     return {"path": so, "seconds": seconds, "log": log}
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import uniform
 from .coords import gen_grid
 from .grid_sample import grid_sample
 
@@ -32,8 +33,8 @@ def unfold(x: torch.Tensor, grid_size: int) -> torch.Tensor:
 
 def draw_categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """One Categorical(logits) draw over the trailing axis (Gumbel-max),
-    int64 indices."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    int64 indices. ``generator``: a ``torch.Generator`` or a ``RowShard``."""
+    u = uniform(logits.shape, generator, logits.device)
     gumbel = -torch.log((-torch.log(u.clamp_min(1e-20))).clamp_min(1e-20))
     return (logits.detach().float() + gumbel).argmax(dim=-1)
 
@@ -72,7 +73,7 @@ def gumbel_topk_select(prob: torch.Tensor, num_points: int, noise: torch.Tensor,
 
 def draw_bernoulli(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Bernoulli(sigmoid(logits)) draws as booleans."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = uniform(logits.shape, generator, logits.device)
     return u < torch.sigmoid(logits.detach().float())
 
 
@@ -150,7 +151,7 @@ def draw_grid_random(kp_map: torch.Tensor, grid_size: int, random_select: str,
     if random_select == "random":
         return draw_categorical(grid_cells(kp_map, grid_size), generator)
     if random_select == "regular_random":
-        return torch.rand((kp_map.shape[0], 1, 1, 2), generator=generator, device=kp_map.device)
+        return uniform((kp_map.shape[0], 1, 1, 2), generator, kp_map.device)
     raise ValueError(f"unsupported random_select: {random_select}")
 
 

@@ -27,11 +27,26 @@ reference managers/trainer.py:41-544).
   * the visual validation dumps of ``val_config`` (``val_and_vis``): six
     image folders per validation sample at every logged step, written
     after the step's timer stops; a failing dump logs a warning and never
-    stops training.
-
-Not ported yet (ROADMAP.md): ``multihost:``, device traces
-(``profile_trace_dir``) and the TensorBoard writer (metrics.jsonl holds
-every logged value).
+    stops training;
+  * ``multihost:`` (trainer.py:59-125, 194-206): one process per card over
+    ``torch.distributed`` (``core/distributed.py``), each loading its
+    equal shard of the global batch. The global batch is the ranks' local
+    batches in rank order; the draws are made at its shape and each rank
+    keeps its rows (``RowShard``), so a run of n ranks takes the
+    one-process step on the global batch, as JAX's SPMD step does. Each
+    rank's loss is its share of the global loss, the gradients are summed
+    over the ranks (one flat all-reduce per module) before the non-finite
+    check, the norms and the clip, the non-finite decision is global, the
+    logged values are the global batch's, and stage 1's BatchNorm
+    normalizes by the global batch's moments. Rank 0 alone checks for an
+    existing run, writes ``config.yaml``, checkpoints, metrics,
+    TensorBoard events and the visual dumps; rank i > 0 logs to
+    ``logging_file.proc<i>.txt`` and dumps ``error_step<N>.proc<i>.npz``;
+    every rank waits at a barrier before the first step;
+  * ``profile_trace_dir``: a ``torch.profiler`` trace of the first steps
+    (closed after step 3, or when training stops), for TensorBoard;
+  * TensorBoard events of every logged value on rank 0 where
+    ``tensorboard`` imports (one warning where it does not).
 """
 
 from __future__ import annotations
@@ -39,21 +54,25 @@ from __future__ import annotations
 import copy
 import json
 import os
+import sys
 import threading
 import time
+import types
 from typing import Dict
 
 import numpy as np
 import torch
 
+from ..core import distributed
 from ..core.config import dump_config, load_config, merge_from_checkpoint
 from ..core.device import resolve_device
 from ..core.logging_utils import make_logger
-from ..core.profiling import StepTimer
+from ..core.profiling import StepTimer, trace
 from ..data import DATASETS
 from ..data.loader import PrefetchLoader
 from ..losses import LOSSES, PREPROCESSES
 from ..models import MODELS
+from ..models.resunet import BatchNorm2d
 
 _DEVICE_KEYS = (
     "im1", "im2", "F1", "F2", "pose1", "pose2",
@@ -105,30 +124,33 @@ class Trainer:
     """Trains stage 1 (``optimal_modules: ['backbone']``,
     configs/train_desc.yaml) or stage 2 (``['localheader']``,
     configs/train_kp.yaml). ``config``: a train config dict or the path of
-    its YAML file. ``device``: None for the card. ``dataset``: an
-    indexable of training pair dicts used instead of the configured
-    dataset."""
+    its YAML file. ``device``: None for the card (under ``multihost:``,
+    the rank's card). ``dataset``: an indexable of training pair dicts
+    used instead of the configured dataset."""
 
     def __init__(self, config, ckpt_root: str = "./ckpts", overwrite: bool = False,
                  device=None, dataset=None):
         if isinstance(config, str):
             config = load_config(config)
+        self.device = resolve_device(device)
+        # the process group comes first, before anything touches the card
+        # (trainer.py:59-64)
         if config.get("multihost"):
-            raise NotImplementedError("multihost: not ported yet; see ROADMAP.md: distribution and host plumbing")
+            self.device = distributed.rank_device(config["multihost"], self.device)
+            distributed.init_multihost(config["multihost"], self.device)
+        self.process_id = distributed.rank()
+        self.num_processes = distributed.world_size()
         self.config = copy.deepcopy(merge_from_checkpoint(config))
         cfg = self.config
-        for key in ("profile_trace_dir",):
-            if cfg.get(key):
-                raise NotImplementedError(f"{key}: not ported yet; see ROADMAP.md")
         self.optimal_modules = list(cfg["optimal_modules"])
         self.optimal_lrs = [float(lr) for lr in cfg["optimal_lrs"]]
         self.train_backbone = "backbone" in self.optimal_modules
-        self.device = resolve_device(device)
 
         self.save_root = os.path.join(ckpt_root, cfg["checkpoint_name"])
         self.resume = bool(cfg.get("resume", False))
         if (
-            os.path.exists(os.path.join(self.save_root, "config.yaml"))
+            self.process_id == 0
+            and os.path.exists(os.path.join(self.save_root, "config.yaml"))
             and not overwrite
             and not self.resume
         ):
@@ -138,9 +160,18 @@ class Trainer:
                 "set resume: True"
             )
         os.makedirs(self.save_root, exist_ok=True)
-        dump_config(cfg, os.path.join(self.save_root, "config.yaml"))
-        self.logger = make_logger("trainer", os.path.join(self.save_root, "logging_file.txt"))
+        if self.process_id == 0:
+            dump_config(cfg, os.path.join(self.save_root, "config.yaml"))
+        log_name = "logging_file.txt" if self.process_id == 0 else f"logging_file.proc{self.process_id}.txt"
+        self.logger = make_logger("trainer", os.path.join(self.save_root, log_name))
         self.metrics_path = os.path.join(self.save_root, "metrics.jsonl")
+        bs = int(cfg["data_config_train"]["batch_size"])
+        if bs % self.num_processes:
+            raise ValueError(f"multihost: global batch_size {bs} must divide the "
+                             f"{self.num_processes}-device global mesh")
+        if self.num_processes > 1:
+            self.logger.info(f"multihost: rank {self.process_id} of {self.num_processes} on {self.device}, "
+                             f"{bs // self.num_processes} of the global batch's {bs} pairs")
 
         # ---------------------------------------------------------- model
         seed = int(cfg.get("seed", 0))
@@ -153,6 +184,13 @@ class Trainer:
             self.model.load_checkpoint(str(load_path))
         for name in self.model.module_names:
             getattr(self.model, name).requires_grad_(name in self.optimal_modules)
+        # the replicas start from rank 0's weights; stage 1's BatchNorm
+        # normalizes by the global batch
+        distributed.broadcast_module_(self.model)
+        if self.num_processes > 1 and self.train_backbone:
+            for m in self.model.backbone.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.sync = True
 
         # ------------------------------------------------------ optimizer
         self.steps_per_epoch = int(cfg["epoch_step"])
@@ -174,23 +212,50 @@ class Trainer:
             (name, float(weight), LOSSES[name](cfg[f"{name}_config"]))
             for name, weight in zip(cfg["losses"], cfg["losses_weight"])
         ]
+        # how each logged value of a rank's share reduces to the global batch's
+        self._reductions = {"total": "sum", "finite": "min"}
+        for name, _w, fn in self.loss_fns:
+            self._reductions.update(getattr(fn, "COMPONENT_REDUCTIONS", {}), **{name: "sum"})
 
         # ----------------------------------------------------------- data
         dcfg = cfg["data_config_train"]
         if dataset is None:
             dataset = make_dataset(cfg["data"], dcfg, True, seed)
         self.train_dataset = dataset
-        self.batch_size = int(dcfg["batch_size"])
+        self.batch_size = bs
+        # each rank loads its shard's share of the global batch (trainer.py:194-206)
         self.train_loader = PrefetchLoader(
-            dataset, batch_size=self.batch_size, shuffle=True,
+            dataset, batch_size=bs // self.num_processes, shuffle=True,
             num_workers=dcfg.get("workers", 4), seed=seed, infinite=True,
+            num_shards=self.num_processes, shard_index=self.process_id,
         )
-        # the draws of the preprocess and the losses (the JAX trainer's PRNGKey(seed + 1))
+        # the draws of the preprocess and the losses (the JAX trainer's
+        # PRNGKey(seed + 1)), made at the global batch's shape on every rank
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self._draws = (self.generator if self.num_processes == 1
+                       else distributed.RowShard(self.generator, self.process_id, self.num_processes))
         self._val_samples = None
         self._ckpt_thread = None
+        self._tb = self._try_tensorboard() if self.process_id == 0 else None
 
     # ------------------------------------------------------------ helpers
+
+    def _try_tensorboard(self):
+        """A SummaryWriter on the run directory, or None (with a warning)
+        where ``tensorboard`` cannot be imported (trainer.py:211-219)."""
+        # scalars need no TensorFlow: tensorboard's own switch to its stub
+        # (the module tensorboard.compat.notf, which its builds without
+        # TensorFlow carry) keeps an installed TensorFlow from being imported,
+        # some 10 s per process
+        if "tensorflow" not in sys.modules:
+            sys.modules.setdefault("tensorboard.compat.notf", types.ModuleType("tensorboard.compat.notf"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            self.logger.warning(f"no TensorBoard events: the tensorboard package cannot be imported ({e}); "
+                                "metrics.jsonl holds every logged value")
+            return None
+        return SummaryWriter(self.save_root)
 
     def _lr_factor(self, count: int) -> float:
         """StepLR as optax counts it (trainer.py:223-232): update ``count``
@@ -249,10 +314,10 @@ class Trainer:
         draws first)."""
         outputs = self.model(batch, train=self.train_backbone)
         outputs["epoch"] = epoch
-        processed = self.preprocess(batch, outputs, self.generator, draws=preprocess_draws)
+        processed = self.preprocess(batch, outputs, self._draws, draws=preprocess_draws)
         total, components = 0.0, {}
         for name, weight, fn in self.loss_fns:
-            li, comps = fn(batch, outputs, processed, generator=self.generator, draws=draws)
+            li, comps = fn(batch, outputs, processed, generator=self._draws, draws=draws)
             total = total + weight * li
             components[name] = li.detach()
             components.update(comps)
@@ -260,7 +325,10 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, torch.Tensor], epoch: int, draws=None,
                    preprocess_draws=None):
-        """One update. Returns (total, components, grad_norms, finite)."""
+        """One update. Returns (total, components, grad_norms, finite).
+        Under ``multihost:`` ``batch`` and given ``draws`` are this rank's
+        rows of the global batch's, and the returned values are the global
+        batch's."""
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=True)
         total, components = self.loss(batch, epoch, draws, preprocess_draws)
@@ -273,7 +341,17 @@ class Trainer:
             grads[mod] = [p.grad for p in params]
         flags = [torch.isfinite(total.detach()).reshape(1)]
         flags += [torch.isfinite(g).all().reshape(1) for gs in grads.values() for g in gs]
-        finite = bool(torch.cat(flags).all())
+        finite = torch.cat(flags).all()
+        total = total.detach()
+        if self.num_processes > 1:
+            # the global gradient is the sum of the ranks' shares'; the skip
+            # decision is global, so no rank steps while another skips
+            for gs in grads.values():
+                distributed.all_reduce_sum_(gs)
+            components = distributed.reduce_components(
+                {**components, "total": total, "finite": finite.float()}, self._reductions)
+            total, finite = components.pop("total"), components.pop("finite") > 0.5
+        finite = bool(finite)
         with torch.no_grad():
             if not finite:
                 for gs in grads.values():
@@ -291,14 +369,17 @@ class Trainer:
                 for m, ps in self.params.items():
                     for p, s in zip(ps, saved[m]):
                         p.copy_(s)
-        return total.detach(), components, grad_norms, finite
+        return total, components, grad_norms, finite
 
     # -------------------------------------------------------------- train
 
     def save_checkpoint(self, epoch: int, block: bool = True):
-        """Write the epoch-dir checkpoint (reference trainer.py:263-267).
-        ``block=False`` copies the state to the host on the calling thread
-        and writes the files from a daemon thread; writers never overlap."""
+        """Write the epoch-dir checkpoint (reference trainer.py:263-267), on
+        rank 0 only (the replicas are equal). ``block=False`` copies the
+        state to the host on the calling thread and writes the files from a
+        daemon thread; writers never overlap."""
+        if self.process_id != 0:
+            return
         if self._ckpt_thread is not None:
             self._ckpt_thread.join()
             self._ckpt_thread = None
@@ -326,15 +407,23 @@ class Trainer:
             self._ckpt_thread.start()
 
     def save_error_dump(self, batch_np: Dict, loss_val, step: int):
-        path = os.path.join(self.save_root, f"error_step{step}.npz")
+        name = f"error_step{step}.npz" if self.process_id == 0 else f"error_step{step}.proc{self.process_id}.npz"
+        path = os.path.join(self.save_root, name)
         arrs = {k: np.asarray(v) for k, v in batch_np.items() if not isinstance(v, (str, list, tuple))}
         arrs["loss"] = np.asarray(float(loss_val))
         np.savez(path, **arrs)
         self.logger.error(f"non-finite loss at step {step}; dumped {path}")
 
     def _log_metrics(self, record: Dict):
+        if self.process_id != 0:
+            return
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+        if self._tb is not None:
+            step = record["global_step"]
+            for k, v in record.items():
+                if isinstance(v, (int, float)) and k != "global_step":
+                    self._tb.add_scalar(k, v, step)
 
     def train(self):
         cfg = self.config
@@ -342,12 +431,20 @@ class Trainer:
         log_freq = int(cfg.get("log_freq", 100))
         ckpt_freq = int(cfg.get("ckpt_freq", 100))
         tb_keys = cfg.get("tb_component", [])
+        # the ranks line up before the first step (trainer.py:417-423)
+        distributed.multihost_barrier("trainer_start")
         if self.start_epoch == 1:
             self.save_checkpoint(0)
         data_iter = iter(self.train_loader)
         global_step = (self.start_epoch - 1) * self.steps_per_epoch
         timer = StepTimer(sink_path=os.path.join(self.save_root, "step_times.jsonl"),
                           device=self.device)
+        rank_tag = {"rank": self.process_id} if self.num_processes > 1 else {}
+        # a device trace of the first steps (trainer.py:433-447)
+        trace_dir = cfg.get("profile_trace_dir")
+        open_trace = trace(trace_dir, self.device) if trace_dir else None
+        if open_trace is not None:
+            open_trace.__enter__()
         try:
             for epoch in range(self.start_epoch, n_epochs + 1):
                 t_epoch = time.time()
@@ -360,7 +457,12 @@ class Trainer:
                         self.to_device(batch_np), epoch
                     )
                     global_step += 1
-                    timer.stop(step=global_step, epoch=epoch, data_wait_s=data_wait)
+                    timer.stop(step=global_step, epoch=epoch, data_wait_s=data_wait, **rank_tag)
+                    if open_trace is not None and global_step >= 3:
+                        # a few steps are enough for a kernel trace
+                        open_trace.__exit__(None, None, None)
+                        open_trace = None
+                        self.logger.info(f"device trace written to {trace_dir}")
                     if not finite:
                         self.save_error_dump(batch_np, total, global_step)
                         continue
@@ -387,10 +489,15 @@ class Trainer:
                 self.save_checkpoint(epoch)
                 self.logger.info(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s")
         finally:
+            # an exception anywhere in the loop still closes an open trace
+            if open_trace is not None:
+                open_trace.__exit__(None, None, None)
             data_iter.close()  # stops the loader's threads
             if self._ckpt_thread is not None:
                 self._ckpt_thread.join()
                 self._ckpt_thread = None
+            if self._tb is not None:
+                self._tb.flush()
 
     # ------------------------------------------------------ visualization
 
@@ -449,7 +556,7 @@ class Trainer:
         scores, ``generate_kpts_single`` (train_kp.yaml) detects on the
         f32 score map. A failure is logged and training goes on."""
         vcfg = self.config.get("val_config")
-        if not vcfg:
+        if not vcfg or self.process_id != 0:
             return
         try:
             with torch.no_grad():

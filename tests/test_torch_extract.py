@@ -116,12 +116,34 @@ def test_extractors_write_matching_npz(tmp_path, rng, weights, monkeypatch):
     Extractor(cfg, device="cpu")
 
 
-def test_deferred_features_raise(tmp_path):
+def test_deferred_features_raise(tmp_path, rng, monkeypatch):
+    """spatial_shard resolves its device count as JAX does: on one device
+    (the CPU) ``True`` and ``auto`` run every image unsharded, equal to the
+    plain run; over more devices it is not ported and raises."""
     # use_sift, save_h5 and output_img are ported (tests/test_torch_extract_remainders.py)
-    for key in ("spatial_shard",):
-        cfg = _config(tmp_path, key, tmp_path / "none")
-        cfg[key] = True
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    import cv2
+
+    from posfeat_tpu.data.synthetic import _texture
+    from posfeat_tpu_torch.extract import extractor as ex_mod
+
+    seq = tmp_path / "hp" / "i_x"
+    seq.mkdir(parents=True)
+    cv2.imwrite(str(seq / "1.ppm"), cv2.cvtColor(_texture(rng, H, W), cv2.COLOR_RGB2BGR))
+    files = {}
+    for sp in (False, True, "auto"):
+        cfg = _config(tmp_path, f"sp_{sp}", tmp_path / "none")
+        cfg["spatial_shard"] = sp
+        ex = Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu")
+        assert ex.extract()[0] == 1
+        files[sp] = np.load(f"{ex.desc_root}/i_x/1.ppm.pf")
+    for sp in (True, "auto"):
+        for key in ("keypoints", "scores", "descriptors"):
+            np.testing.assert_array_equal(files[sp][key], files[False][key], err_msg=f"{sp} {key}")
+    monkeypatch.setattr(ex_mod, "_visible_devices", lambda device: 2)
+    for sp in (True, "auto", 2):
+        cfg = _config(tmp_path, f"sp2_{sp}", tmp_path / "none")
+        cfg["spatial_shard"] = sp
+        with pytest.raises(NotImplementedError, match="ROADMAP.md: spatial_shard over more than one device"):
             Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu", dataset=[])
 
 

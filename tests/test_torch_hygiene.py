@@ -17,7 +17,7 @@ SCRIPTS = [ROOT / "chip_smoke.py"] + [
     for name in ("bench_torch_fused_parts", "profile_torch_extract", "profile_torch_train",
                  "profile_torch_conv_stages", "profile_torch_lse_stages", "compare_torch_trees",
                  "selection_stability_torch", "convergence_experiment_torch", "make_megadepth_fixture",
-                 "budget_matched_eval_torch")
+                 "budget_matched_eval_torch", "multihost_torch")
 ]
 
 

@@ -220,9 +220,24 @@ def test_cli_and_deferred_options(tmp_path):
         main(["--config", str(path), "--device", "cpu", "--overwrite"])
     finally:
         os.chdir(cwd)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(_config(checkpoint_name="x", multihost={"num_processes": 2}), ckpt_root=str(tmp_path / "d"),
-                device="cpu")
+    # multihost: once refused, now a one-process group over gloo constructs and
+    # trains, as the JAX trainer does with one process
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mh = {"coordinator_address": f"localhost:{port}", "num_processes": 1, "process_id": 0,
+          "backend": "gloo", "timeout_s": 60}
+    try:
+        tr = Trainer(_config(checkpoint_name="x", multihost=mh), ckpt_root=str(tmp_path / "d"), device="cpu")
+        assert dist.is_initialized() and (tr.process_id, tr.num_processes) == (0, 1)
+        tr.train()
+        assert os.path.isdir(tmp_path / "d" / "x" / "001")
+    finally:
+        dist.destroy_process_group()
     # bf16 and MegaDepth_SIFT, once refused, now construct: a bf16 model with
     # f32 parameters, and the MegaDepth loader on a fixture in its layout
     import sys
