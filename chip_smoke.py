@@ -5,14 +5,15 @@
 
 Phases, one line each (more for the build):
   1. device: name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc of csrc/*.cu, with each kernel's registers, shared
-     memory and spills from -Xptxas -v (and the conv kernels' dynamic
-     shared memory at Cin = 192; K2's 24 template instances in one
-     line); the four conv kernels, every K2 instance and the three
-     reduction kernels (the split, the lse and reward passes) must not
-     spill, nor K2 and the reduction kernels keep a stack frame, nor
-     ptxas inject more warpgroup.waits (C7517) into the lse or the
-     reward pass than their builds carry;
+  2. build: nvcc of csrc/*.cu, one process a source, with each kernel's
+     registers, shared memory and spills from -Xptxas -v (and the conv
+     kernels' dynamic shared memory at Cin = 192; K2's 24 template
+     instances for each z dtype, bf16 and f32, in one line each); the
+     four bf16 and four f32 conv kernels, all 48 K2 instances and the
+     reduction kernels (the split, the lse and reward passes with f1
+     resident and streamed) must not spill, nor any but the bf16 conv
+     kernels keep a stack frame, nor ptxas inject warpgroup.waits
+     (C7517) into the lse or the reward pass;
   3. kernels: K1 and K2 at the shapes the main path gives them (B=16,
      h=120, w=160, Cin=192, Cout=128, out_ch=1) against their plain
      versions on the same bf16 inputs, the fused head's score map with
@@ -137,8 +138,24 @@ Phases, one line each (more for the build):
      library built with g++ against numpy (rtol 1e-5); (f) ``save_npz:
      False`` writes no npz, ``spatial_shard: auto`` on the one card runs
      unsharded, bit for bit the plain run. Budget: 150 s;
-then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2, T3 and the two
-reduction kernels), nvidia-smi's line, and the final
+ 17. slice H: (a) the f32 instances of K1, K3 (and T1, T2, which the
+     conv body gives) and K2 against their plain f32 versions at phases 3
+     and 8's shapes (z within 1e-5 x max|z|, moments within rtol 1e-5,
+     u within 1e-4), with times beside the 3xTF32 bound, the plain
+     version and cuDNN's f32 trunk conv or an f32 linear(prelu);
+     (b) the f32 fused head against the f32 reference dataflow at
+     480x640 in v3 and v1 (rtol 2e-3 / atol 2e-4, the JAX test's);
+     (c) the f32 extraction with ``head_dataflow: pallas`` in v3 and v1
+     and, beside it, the shipped f32 config's reference dataflow, 64
+     images each after a warm-up batch: im/s, peak memory, the f32
+     instances launched and the bf16 ones not; (d) the reduction at
+     D = 256 and 200 (f1 streamed) with phase 6's checks and times; (e)
+     phase 7's stage 2 at ``fine_out_ch: 256`` (the head's inputs 320):
+     the kernels step against the dense one, then a warm-up and 5 timed
+     Trainer steps, the reduction launched once a step, the dense loss
+     never. Budget: 120 s;
+then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2, T3, the two
+reduction kernels, and slice H's f32 K1, K3, K2 and D = 256 passes), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
 exit code is non-zero; without a CUDA card it exits 2 and prints no
 result.
@@ -220,16 +237,29 @@ def _bound(ops, peak, nbytes):
 
 CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_img_none_kernel",
                 "conv_phase_img_phase_kernel")
+# csrc/fused_head_f32.cu's conv_f32_kernel<MODE>, by the kernel each MODE is
+F32_CONV_KERNELS = ("conv_f32_kernel<K1>", "conv_f32_kernel<K3>", "conv_f32_kernel<T1>", "conv_f32_kernel<T2>")
+# the reduction passes' instances: f1 resident (D <= 128), f1 streamed (D > 128)
+REDUCTION_KERNELS = ("lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", "lse_pass_kernel<streamed>",
+                     "reward_pass_kernel<streamed>")
 
 
 def _kernel_key(mangled):
     """A kernel's key in the ptxas summary: its name, with K2's template
-    arguments as head_tail_kernel<LPR,OUT>."""
-    m = re.search(r"head_tail_kernelILi(\d+)ELi(\d+)E", mangled)
+    arguments as head_tail_kernel<LPR,OUT> (bf16 z) or
+    head_tail_kernel<f32,LPR,OUT>, the f32 conv's as F32_CONV_KERNELS
+    names them, and the reduction passes' streamed instances as
+    <name><streamed>."""
+    m = re.search(r"head_tail_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
     if m:
-        return f"head_tail_kernel<{m.group(1)},{m.group(2)}>"
-    return next(k for k in (*CONV_KERNELS, "lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", mangled)
-                if k in mangled)
+        return f"head_tail_kernel<{'f32,' if m.group(1) == 'f' else ''}{m.group(2)},{m.group(3)}>"
+    m = re.search(r"conv_f32_kernelILi(\d)E", mangled)
+    if m:
+        return F32_CONV_KERNELS[int(m.group(1))]
+    m = re.search(r"(lse_pass_kernel|reward_pass_kernel)ILb([01])E", mangled)
+    if m:
+        return m.group(1) + ("<streamed>" if m.group(2) == "1" else "")
+    return next(k for k in (*CONV_KERNELS, "lse_split_kernel", mangled) if k in mangled)
 
 
 def _ptxas_summary(log):
@@ -422,11 +452,12 @@ def _images(rng, n, tag):
     return out
 
 
-def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None):
-    """An Extractor at the flagship model (bf16, batch 16, 8192 points,
-    fused head, in its v3 dataflow unless ``head_mode`` says "v1"),
-    writing npz under ``tmp``, after one warm-up batch of seeded images
-    (cuDNN autotuning, allocator). Set ``.dataset`` and call
+def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None, dtype="bfloat16", head_dataflow=None):
+    """An Extractor at the flagship model (batch 16, 8192 points; bf16 and
+    the fused head unless ``dtype``, and ``head_dataflow`` where given, say
+    otherwise; the fused head in its v3 dataflow unless ``head_mode`` says
+    "v1"), writing npz under ``tmp``, after one warm-up batch of seeded
+    images (cuDNN autotuning, allocator). Set ``.dataset`` and call
     ``.extract()`` to drive the main path."""
     import torch
     from posfeat_tpu_torch.extract import Extractor
@@ -434,7 +465,7 @@ def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None):
     cfg = {
         "output_root": output_root, "postfix": "npz", "load_path": None,
         "loss_distance": "cos", "output_desc": True, "output_img": False,
-        "compute_dtype": "bfloat16", "model": "PoSFeat",
+        "compute_dtype": dtype, "model": "PoSFeat",
         "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
         "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4},
         "use_sift": False, "detector": "generate_kpts_single",
@@ -443,8 +474,11 @@ def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None):
     }
     if head_mode is not None:
         cfg["head_mode"] = head_mode
+    if head_dataflow is not None:
+        cfg["head_dataflow"] = head_dataflow
     ex = Extractor(cfg, ckpt_root=tmp, dataset=_images(rng, BATCH, "warm"))
-    assert ex.config["model_config"]["localheader_config"]["fused_upsample"] == "pallas"
+    fused = dtype == "bfloat16" if head_dataflow is None else head_dataflow == "pallas"
+    assert (ex.config["model_config"]["localheader_config"].get("fused_upsample") == "pallas") is fused
     assert ex.model.localheader.fused_head_mode == (head_mode or "v3")
     ex.extract()
     torch.cuda.synchronize()
@@ -452,25 +486,32 @@ def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None):
 
 
 def _zero_counts(fh):
-    fh.conv_phase.launches = 0
-    fh.head_tail.launches = 0
+    """Every fused-head kernel's launch count to 0, bf16 and f32 instances."""
+    fh.conv_phase.launches = fh.conv_phase.launches_f32 = 0
+    fh.head_tail.launches = fh.head_tail.launches_f32 = 0
     fh.conv_phase_img.launches = dict.fromkeys(fh.IMG_LAYOUTS, 0)
+    fh.conv_phase_img.launches_f32 = dict.fromkeys(fh.IMG_LAYOUTS, 0)
 
 
-def _read_counts(fh):
-    img = fh.conv_phase_img.launches
-    return {"K1 conv_phase": fh.conv_phase.launches, "K2 head_tail": fh.head_tail.launches,
-            "K3 conv_phase_img": img["full"], "T1 conv_phase_img": img["none"],
-            "T2 conv_phase_img": img["phase"]}
+def _read_counts(fh, suffix=""):
+    """The bf16 instances' launch counts, or with suffix " f32" the f32
+    instances', by kernel record name."""
+    f32 = bool(suffix)
+    img = fh.conv_phase_img.launches_f32 if f32 else fh.conv_phase_img.launches
+    counts = {"K1 conv_phase": fh.conv_phase.launches_f32 if f32 else fh.conv_phase.launches,
+              "K2 head_tail": fh.head_tail.launches_f32 if f32 else fh.head_tail.launches,
+              "K3 conv_phase_img": img["full"], "T1 conv_phase_img": img["none"], "T2 conv_phase_img": img["phase"]}
+    return {k + suffix: v for k, v in counts.items()}
 
 
-def drive_extraction(torch, fh, rng, n_images, head_mode=None):
+def drive_extraction(torch, fh, rng, n_images, head_mode=None, dtype="bfloat16", head_dataflow=None):
     """The flagship Extractor over ``n_images`` seeded images after a
     warm-up batch, every npz checked; returns (images, seconds, peak
-    bytes, launches, keypoints per image)."""
+    bytes, launches of the bf16 and the f32 instances, keypoints per
+    image)."""
     data = _images(rng, n_images, "main")
     with tempfile.TemporaryDirectory() as tmp:
-        ex = flagship_extractor(tmp, rng, head_mode=head_mode)
+        ex = flagship_extractor(tmp, rng, head_mode=head_mode, dtype=dtype, head_dataflow=head_dataflow)
         ex.dataset = data
         torch.cuda.reset_peak_memory_stats()
         _zero_counts(fh)
@@ -478,7 +519,7 @@ def drive_extraction(torch, fh, rng, n_images, head_mode=None):
         n, _ = ex.extract()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = _read_counts(fh)
+        launches = {**_read_counts(fh), **_read_counts(fh, " f32")}
         peak = torch.cuda.max_memory_allocated()
         assert n == n_images
         counts = []
@@ -620,16 +661,16 @@ def _unit(torch, x):
 REDUCTION_KW = dict(temperature=60.0, thr=2.0, good_reward=1.0, bad_reward=-0.25)
 
 
-def reduction_problem(torch, rng):
+def reduction_problem(torch, rng, D=128):
     """The reduction's inputs at the training path's shapes (B=6,
-    m=n=4800, D=128) on the card: seeded unit descriptors with planted
-    matches, half of them on each other's epipolar lines. Returns (f1,
-    f2, line1, c2h, line2, c1h, accept1, accept2)."""
+    m=n=4800, D=128 or as given) on the card: seeded unit descriptors with
+    planted matches, half of them on each other's epipolar lines. Returns
+    (f1, f2, line1, c2h, line2, c1h, accept1, accept2)."""
     from posfeat_tpu_torch.ops.coords import homogenize
     from posfeat_tpu_torch.ops.epipolar import epipolar_lines
 
     dev = torch.device("cuda")
-    B, m, D = TRAIN_BATCH, (H // GRID) * (W // GRID), 128
+    B, m = TRAIN_BATCH, (H // GRID) * (W // GRID)
     n = m
 
     def g(*shape):
@@ -668,9 +709,10 @@ def reduction_problem(torch, rng):
 # - the dot: the kernel's 3xTF32 leaves S0_C_DOT_K units of S0_EPS = 2^-22
 #   of sum|x y| (= 1 at most for unit rows): 3 from the split (each lo
 #   rounded to TF32, lo.lo dropped), 5.5 from the tensor cores' truncating
-#   adds inside an 8-deep step (11 adds at 2^-23), 4 from the 16 rounded f32
-#   adds of D = 128's steps (2^-24 each); the plain f32 product up to
-#   S0_C_DOT_P = D 2^-24 = 32 units at D = 128, its sequential worst case;
+#   adds inside an 8-deep step (11 adds at 2^-23), D / 32 from the D / 8
+#   rounded f32 adds of the steps (2^-24 each; 4 at D = 128: 12.5 in all);
+#   the plain f32 product up to S0_C_DOT_P = D 2^-24 = D / 4 units (32 at
+#   D = 128), its sequential worst case;
 # - aff and lp: up to 2u (T + 3|aff| + |aff - row_lse| + |aff - col_lse| + |lp|),
 #   u = 2^-24, on both sides;
 # - p and W: ex2.approx's 2 ulp (2^-22), lp log2(e)'s rounding (u |lp|
@@ -682,9 +724,18 @@ def reduction_problem(torch, rng):
 # So |d s0| <= sum |W| ((1 + |lp|) d_lp + |lp| e_p) + S0_K_SUM u sum|W lp| + flips,
 # d_lp = 2 T (S0_C_DOT_K + S0_C_DOT_P) S0_EPS + 2u (...), e_p = 2^-22 + 6u + u |lp|.
 S0_EPS, S0_U = 2.0 ** -22, 2.0 ** -24
-S0_C_DOT_K, S0_C_DOT_P, S0_K_SUM = 12.5, 32.0, 512
-S0_BOUND_NOTE = (f"sum|W|((1+|lp|) d_lp + |lp| e_p) + {S0_K_SUM}u sum|W lp| + flips at thr, d_lp = 2T "
-                 f"({S0_C_DOT_K:g}+{S0_C_DOT_P:g}) 2^-22 + 2u(T + 3|aff| + |aff-rl| + |aff-cl| + |lp|)")
+S0_K_SUM = 512
+
+
+def s0_dot_units(D):
+    """(S0_C_DOT_K, S0_C_DOT_P) at descriptor width D: (12.5, 32) at 128."""
+    return 8.5 + D / 32, D / 4
+
+
+def s0_bound_note(D=128):
+    ck, cp = s0_dot_units(D)
+    return (f"sum|W|((1+|lp|) d_lp + |lp| e_p) + {S0_K_SUM}u sum|W lp| + flips at thr, d_lp = 2T "
+            f"({ck:g}+{cp:g}) 2^-22 + 2u(T + 3|aff| + |aff-rl| + |aff-cl| + |lp|)")
 
 
 def s0_bound(torch, args, row_lse, col_lse, kw):
@@ -693,6 +744,7 @@ def s0_bound(torch, args, row_lse, col_lse, kw):
     terms of the plain run, one batch element at a time."""
     f1, f2, line1, c2h, line2, c1h, a1, a2 = args
     T, thr, u = kw["temperature"], kw["thr"], S0_U
+    c_dot = sum(s0_dot_units(f1.shape[-1]))
     out = []
     for b in range(f1.shape[0]):
         aff = T * (f1[b] @ f2[b].T) - T
@@ -711,7 +763,7 @@ def s0_bound(torch, args, row_lse, col_lse, kw):
         near = ((d1 - thr).abs() <= 8 * u * m1) | ((d2 - thr).abs() <= 8 * u * m2)
         acc = a1[b, :, None] * a2[b, None, :]
         w = acc * torch.where(good, kw["good_reward"], kw["bad_reward"]) * p
-        d_lp = 2 * T * (S0_C_DOT_K + S0_C_DOT_P) * S0_EPS + 2 * u * (T + 3 * aff.abs() + arl.abs() + acl.abs() + alp)
+        d_lp = 2 * T * c_dot * S0_EPS + 2 * u * (T + 3 * aff.abs() + arl.abs() + acl.abs() + alp)
         e_p = S0_EPS + 6 * u + u * alp
         flip = (near * acc * abs(kw["good_reward"] - kw["bad_reward"]) * p * alp).sum()
         out.append((w.abs() * ((1 + alp) * d_lp + alp * e_p)).sum() + S0_K_SUM * u * (w * lp).abs().sum() + flip)
@@ -783,7 +835,8 @@ def phase_reduction(torch, rng, extra_draws=()):
     # the operands' TF32 split, shared by both passes, bit for bit
     tiles = rf._split_operands(f1, f2)
     torch.cuda.synchronize()
-    assert torch.equal(tiles[0], rf._split_plain(f1, True)) and torch.equal(tiles[1], rf._split_plain(f2, False))
+    assert torch.equal(tiles[0], rf._split_plain(f1, rf.f1_resident(D))) and torch.equal(
+        tiles[1], rf._split_plain(f2, False))
     rl, cl = rf.lse_pass(f1, f2, T)
     torch.cuda.synchronize()
     rlp, clp = rf.lse_pass_plain(f1, f2, T)
@@ -807,7 +860,7 @@ def phase_reduction(torch, rng, extra_draws=()):
     print(f"[6] reward pass vs plain on the same inputs, {len(draws)} draws: |d s0| / bound (bound / |s0|) "
           + ", ".join(f"{n} {r[0]:.4g} ({r[1]:.4g})" for n, r in s0_ratios)
           + f"; worst {worst[1][0]:.4g} ({worst[0]}); flipped "
-          + ", ".join(f"{f:g}" for f in flips) + f" (bound: {S0_BOUND_NOTE})")
+          + ", ".join(f"{f:g}" for f in flips) + f" (bound: {s0_bound_note()})")
     # then the kernel as the reduction runs it, on the lse kernel's outputs,
     # against the same plain run (its 3xTF32 dots' error partly cancels in
     # lp there): all seven outputs at rtol 2e-4
@@ -886,8 +939,9 @@ def phase_reduction(torch, rng, extra_draws=()):
     return records
 
 
-def train_config():
-    """configs/train_kp.yaml as shipped, with the flagship model in f32,
+def train_config(fine_out_ch=128):
+    """configs/train_kp.yaml as shipped, with the flagship model in f32
+    (its descriptor ``fine_out_ch`` wide, the head's inputs with it),
     random weights from the seed, ``val_config`` removed and
     SyntheticPairs at 480x640, one epoch of TRAIN_STEPS steps, every step
     logged."""
@@ -901,19 +955,24 @@ def train_config():
         data="SyntheticPairs",
     )
     cfg["data_config_train"].update(num_pairs=64, height=H, width=W)
+    mc = cfg["model_config"]
+    mc["localheader_config"]["in_channels"] += fine_out_ch - mc["backbone_config"]["fine_out_ch"]
+    mc["backbone_config"]["fine_out_ch"] = fine_out_ch
     assert cfg["data_config_train"]["batch_size"] == TRAIN_BATCH
     assert cfg["DiskLoss_config"]["grid_size"] == GRID
     return cfg
 
 
-def phase_training(torch, records):
-    """Stage-2 training at the flagship width through Trainer."""
+def phase_training(torch, records, fine_out_ch=128, tag="[7]", suffix=""):
+    """Stage-2 training at the flagship width (descriptors ``fine_out_ch``
+    wide) through Trainer; the reduction's launches go to the records
+    named with ``suffix``."""
     from posfeat_tpu_torch.data.loader import collate
     from posfeat_tpu_torch.losses import DiskLoss
     from posfeat_tpu_torch.ops import reinforce as rf
     from posfeat_tpu_torch.train import Trainer
 
-    cfg = train_config()
+    cfg = train_config(fine_out_ch)
     with tempfile.TemporaryDirectory() as tmp:
         tr = Trainer(cfg, ckpt_root=tmp, device="cuda")
         assert tr.device.type == "cuda"
@@ -924,11 +983,12 @@ def phase_training(torch, records):
         # one step's loss and head gradient: kernels against the dense DiskLoss
         batch = tr.to_device(collate([tr.train_dataset[i] for i in range(TRAIN_BATCH)]))
         name, weight, loss_k = tr.loss_fns[0]
-        assert loss_k._use_streamed(FLAGSHIP_MODEL_CONFIG["backbone_config"]["fine_out_ch"])
+        assert loss_k._use_streamed()
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         with torch.no_grad():
             out = tr.model(batch)
             draws = tuple(loss_k.draw(out[p]["local_point"], gen) for p in ("preds1", "preds2"))
+        assert out["preds1"]["local_map"].shape[-1] == fine_out_ch
 
         def step_with(loss_fn):
             tr.loss_fns = [(name, weight, loss_fn)]
@@ -951,11 +1011,19 @@ def phase_training(torch, records):
         g_rel = ((gk - gd).norm() / gd.norm()).item()
         g_err, g_max = (gk - gd).abs().max().item(), gd.abs().max().item()
         assert g_rel <= 2e-3 and g_err <= 2e-3 * g_max, (g_rel, g_err, g_max)
-        print(f"[7] one step, kernels vs dense DiskLoss on the same draws: loss {l_k:.6g} vs {l_d:.6g}, "
+        print(f"{tag} one step at D = {fine_out_ch}, kernels vs dense DiskLoss on the same draws: loss {l_k:.6g} vs {l_d:.6g}, "
               f"head grad |d|/|g| {g_rel:.3g}, max|d| {g_err:.3g} (max|grad| {g_max:.4g}); reinforce {c_k['reinforce']:.6g} vs {c_d['reinforce']:.6g}, "
               f"n_pairs {c_k['n_pairs']:.5g} vs {c_d['n_pairs']:.5g}")
 
-        # the main path: Trainer.train, as the CLI runs it
+        # the main path: Trainer.train, as the CLI runs it; the dense loss
+        # (the only caller of the constant reward) never runs
+        dense_calls = []
+
+        def dense_reward(*a, **k):
+            dense_calls.append(1)
+            return DiskLoss.constant_reward(loss_k, *a, **k)
+
+        loss_k.constant_reward = dense_reward
         rf.lse_pass.launches = 0
         rf.reward_pass.launches = 0
         rf._split_operands.launches = 0
@@ -964,10 +1032,11 @@ def phase_training(torch, records):
         tr.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"K4+K5 lse_pass": rf.lse_pass.launches, "K6 reward_pass": rf.reward_pass.launches}
-        # one split of f1 and f2 per reduction, shared by its two passes
-        assert rf._split_operands.launches == launches["K4+K5 lse_pass"] == launches["K6 reward_pass"], (
+        launches = {"K4+K5 lse_pass" + suffix: rf.lse_pass.launches, "K6 reward_pass" + suffix: rf.reward_pass.launches}
+        # one split of f1 and f2 per reduction, shared by its two passes, one reduction a step
+        assert rf._split_operands.launches == rf.lse_pass.launches == rf.reward_pass.launches == TRAIN_STEPS, (
             rf._split_operands.launches, launches)
+        assert not dense_calls, f"the dense loss ran {len(dense_calls)} times"
         peak = torch.cuda.max_memory_allocated()
 
         run = f"{tmp}/{cfg['checkpoint_name']}"
@@ -986,7 +1055,7 @@ def phase_training(torch, records):
             assert r["launches"] > 0, f"{r['name']} was not launched on the training path"
     timed = [s["step_time_s"] for s in steps[1:]]
     s_step = float(np.mean(timed))
-    print(f"[7] training: {TRAIN_STEPS} Trainer steps at {H}x{W}, batch {TRAIN_BATCH} pairs, f32, "
+    print(f"{tag} training: {TRAIN_STEPS} Trainer steps at {H}x{W}, D = {fine_out_ch}, batch {TRAIN_BATCH} pairs, f32, "
           f"m = n = {(H // GRID) * (W // GRID)}: warm-up {steps[0]['step_time_s']:.4f} s, then "
           f"{s_step:.4f} s/step over {len(timed)} steps (min {min(timed):.4f}, max {max(timed):.4f}), "
           f"{TRAIN_BATCH / s_step:.3f} pairs/s; wall {wall:.3f} s with checkpoints; peak memory "
@@ -1539,7 +1608,7 @@ def slice_f_levers(torch):
         with tempfile.TemporaryDirectory() as tmp:
             tr = Trainer(cfg, ckpt_root=tmp, device="cuda")
             loss_fn = tr.loss_fns[0][2]
-            assert not loss_fn._use_streamed(FLAGSHIP_MODEL_CONFIG["backbone_config"]["fine_out_ch"])
+            assert not loss_fn._use_streamed()
             head0 = {k: v.clone() for k, v in tr.model.localheader.state_dict().items()}
             bb0 = {k: v.clone() for k, v in tr.model.backbone.state_dict().items()}
             rf.lse_pass.launches = rf.reward_pass.launches = rf._split_operands.launches = 0
@@ -1933,6 +2002,281 @@ def phase_slice_g(torch, rng, smi, ims_main, s_step_main):
     print(f"[16] slice G: {seconds:.1f} s (budget {SLICE_G_BUDGET_S:g} s); {smi}")
 
 
+SLICE_H_BUDGET_S = 120.0
+# the f32 conv and K2 instances against their plain f32 versions (f32
+# FMAs in another order, z not rounded): z within 1e-5 x max|z|, the
+# moments within rtol 1e-5 of the sums of |z| and z^2
+F32_Z_TOL, F32_MOMENT_RTOL = 1e-5, 1e-5
+# the head's tolerance in the JAX fused-head tests (test_pallas_fused_head.py:80-97)
+HEAD_RTOL, HEAD_ATOL = 2e-3, 2e-4
+
+
+def _f32_conv_check(torch, z, s, q, zr, sr, qr):
+    """An f32 conv kernel's outputs against its plain version's; returns
+    max |dz|."""
+    err = (z - zr).abs().max().item()
+    assert z.dtype == torch.float32 and err <= F32_Z_TOL * zr.abs().max().item(), (err, zr.abs().max().item())
+    zabs = zr.abs().sum((1, 2))  # [B, N]: the scale of the column sums
+    torch.testing.assert_close(s.sum(1), sr.sum(1), rtol=F32_MOMENT_RTOL, atol=F32_MOMENT_RTOL * zabs.max().item())
+    torch.testing.assert_close(q.sum(1), qr.sum(1), rtol=F32_MOMENT_RTOL, atol=0)
+    return err
+
+
+def slice_h_kernels(torch, fh, rng):
+    """(a) The f32 conv kernels (K1, K3, and the T1/T2 instances the body
+    gives) and K2's f32 instance against their plain f32 versions at
+    phases 3 and 8's shapes, with times; returns the records of K1, K3 and
+    K2 at f32."""
+    dev, f32 = torch.device("cuda"), torch.float32
+    B, h, w, C, cout, out_ch, KP = BATCH, H // 4, W // 4, 192, 128, 1, 192
+    N, kk = 16 * cout, 16
+
+    def g(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+
+    tp, kph = g(B, h + 2, w + 2, C), g(9, C, N, scale=0.03)
+    kph4 = kph.reshape(3, 3, C, N).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    tp_nchw = tp.permute(0, 3, 1, 2)  # channels_last view
+    # cuDNN's f32 conv of the trunk half, allow_tf32 off (resolve_device)
+    assert not torch.backends.cudnn.allow_tf32
+    lib_conv = _time_ms(lambda: torch.nn.functional.conv2d(tp_nchw, kph4), n=10)
+    trunk_ops = 2.0 * B * h * w * N * 9 * C
+    records, lines = [], []
+
+    def conv_record(name, replaces, ops, nbytes, err, ms, plain, lib):
+        bound = _bound(3 * ops, PEAK_TF32, nbytes)  # the same products as 3xTF32 on the tensor cores
+        ffma_ms = ops / PEAK_F32 * 1e3
+        lines.append(f"[17] (a) {name}: z max|err| {err:.4g}; {ms:.4f} ms per B={B} launch (bound {bound[0]:.4f} ms "
+                     f"by {bound[1]}: 3xTF32; as f32 FMAs {ffma_ms:.4f} ms), plain {plain:.4f} ms, cuDNN f32 trunk "
+                     f"conv {lib:.4f} ms; {ops / (ms * 1e-3) * 1e-12:.2f} TFLOP/s achieved "
+                     f"({ops * 1e-12:.4g} TFLOP per launch), {bound[0] / ms:.1%} of the bound, "
+                     f"{ffma_ms / ms:.1%} of the f32 FMA peak's time")
+        return {"name": name, "route": "cuda", "source": "posfeat_tpu_torch/csrc/fused_head_f32.cu",
+                "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib}
+
+    # K1 at f32
+    pat, wm, b2b = g(B, h, w, KP), g(B, KP, N, scale=0.03), g(B, N, scale=0.1)
+    z, s, q = fh.conv_phase(tp, kph, pat, wm, b2b)
+    torch.cuda.synchronize()
+    zr, sr, qr = fh.conv_phase_plain(tp, kph, pat, wm, b2b)
+    err = _f32_conv_check(torch, z, s, q, zr, sr, qr)
+    del zr, sr, qr
+    ms = _time_ms(lambda: fh.conv_phase(tp, kph, pat, wm, b2b), n=5, warmup=1)
+    plain = _time_ms(lambda: fh.conv_phase_plain(tp, kph, pat, wm, b2b), n=3, warmup=1)
+    nbytes = 4 * (tp.numel() + kph.numel() + pat.numel() + wm.numel() + z.numel() + b2b.numel() + s.numel() + q.numel())
+    k1 = conv_record("K1 conv_phase f32", "posfeat_tpu/ops/pallas/fused_head.py:148",
+                     2.0 * B * h * w * N * (9 * C + KP), nbytes, err, ms, plain, lib_conv)
+    del pat, wm, b2b
+
+    # K2 at f32 on K1's z with the pooled IN1 statistics, as the head feeds it
+    s1, s2 = s.sum(1).reshape(B, kk, cout).sum(1), q.sum(1).reshape(B, kk, cout).sum(1)
+    mu = s1 / (h * w * kk)
+    sc = torch.rsqrt(torch.clamp(s2 / (h * w * kk) - mu * mu, min=0.0) + 1e-5)
+    a, w3, b3 = torch.tensor([0.25], device=dev), g(cout, out_ch, scale=0.1), g(out_ch, scale=0.1)
+    u, us, uq = fh.head_tail(z, mu, sc, a, w3, b3)
+    torch.cuda.synchronize()
+    ur, usr, uqr = fh.head_tail_plain(z, mu, sc, a, w3, b3)
+    err2 = (u - ur).abs().max().item()
+    torch.testing.assert_close(u, ur, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(us.sum(1), usr.sum(1), rtol=1e-3, atol=1e-2)
+    torch.testing.assert_close(uq.sum(1), uqr.sum(1), rtol=1e-3, atol=1e-2)
+    k2_ms = _time_ms(lambda: fh.head_tail(z, mu, sc, a, w3, b3))
+    k2_plain = _time_ms(lambda: fh.head_tail_plain(z, mu, sc, a, w3, b3), n=3)
+    zb, w3t = z.view(B, -1, kk, cout), w3.t().contiguous()
+    k2_lib = _time_ms(lambda: torch.nn.functional.linear(
+        torch.nn.functional.prelu((zb - mu[:, None, None]) * sc[:, None, None], a), w3t, b3), n=5)
+    k2_bytes = 4 * (z.numel() + mu.numel() + sc.numel() + 1 + w3.numel() + b3.numel() + u.numel() + us.numel()
+                    + uq.numel())
+    k2_bound = _bound(z.numel() * (3.0 + 2 * out_ch), PEAK_F32, k2_bytes)
+    k2 = {"name": "K2 head_tail f32", "route": "cuda", "source": "posfeat_tpu_torch/csrc/fused_head.cu",
+          "replaces": "posfeat_tpu/ops/pallas/fused_head.py:284", "launches": 0, "max_abs_err": err2, "ms": k2_ms,
+          "plain_ms": k2_plain, "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_lib}
+    lines.append(f"[17] (a) K2 head_tail f32: u max|err| {err2:.3g}; {k2_ms:.4f} ms per B={B} launch (bound "
+                 f"{k2_bound[0]:.4f} ms by {k2_bound[1]}), plain {k2_plain:.4f} ms, f32 linear(prelu) {k2_lib:.4f} ms; "
+                 f"{k2_bytes / (k2_ms * 1e-3) * 1e-12:.3f} TB/s achieved ({k2_bytes * 1e-9:.4g} GB per launch), "
+                 f"{k2_bound[0] / k2_ms:.1%} of the bound")
+    del z, s, q, u, ur, zb
+
+    # K3, T1, T2 at f32
+    b2 = g(N, scale=0.1)
+    k3 = None
+    for layout, zimg in (("full", g(B, H, W, cout)), ("none", None), ("phase", g(B, h, w, N))):
+        name = f"{fh.IMG_KERNELS[layout]} conv_phase_img f32"
+        z, s, q = fh.conv_phase_img(tp, kph, zimg, b2, layout)
+        torch.cuda.synchronize()
+        zr, sr, qr = fh.conv_phase_img_plain(tp, kph, zimg, b2, layout)
+        err = _f32_conv_check(torch, z, s, q, zr, sr, qr)
+        del zr, sr, qr
+        ms = _time_ms(lambda: fh.conv_phase_img(tp, kph, zimg, b2, layout), n=5, warmup=1)
+        plain = _time_ms(lambda: fh.conv_phase_img_plain(tp, kph, zimg, b2, layout), n=3, warmup=1)
+        nbytes = 4 * (tp.numel() + kph.numel() + z.numel() + (0 if zimg is None else zimg.numel()) + b2.numel()
+                      + s.numel() + q.numel())
+        rec = conv_record(name, {"full": "posfeat_tpu/ops/pallas/fused_head.py:70",
+                                 "none": "tools/bench_fused_parts.py:105",
+                                 "phase": "tools/bench_fused_parts.py:154"}[layout],
+                          trunk_ops, nbytes, err, ms, plain, lib_conv)
+        if layout == "full":
+            k3 = rec  # T1 and T2 run on no path at f32: checked and timed here, not in the kernels line
+        del z, s, q, zimg
+    for line in lines:
+        print(line)
+    return [k1, k3, k2]
+
+
+def slice_h_heads(torch, fh):
+    """(b) The f32 "pallas" head against the f32 reference dataflow at
+    480x640, v3 and v1, at the JAX fused-head tests' tolerance; the f32
+    kernels launched, the bf16 ones not."""
+    from posfeat_tpu_torch.models import KeypointDet, init_parameters
+
+    dev, rng, out = torch.device("cuda"), np.random.default_rng(SEED + 17), []
+    for mode in ("v3", "v1"):
+        kw = dict(in_channels=192, out_channels=1, prior="identity", act="Softplus")
+        fused = KeypointDet(**kw, fused_upsample="pallas", fused_head_mode=mode, dtype=torch.float32)
+        init_parameters(fused, torch.Generator().manual_seed(SEED))
+        ref = KeypointDet(**kw, fused_upsample=False)
+        ref.load_state_dict(fused.state_dict())
+        fused, ref = fused.to(dev), ref.to(dev)
+        fm = torch.from_numpy(rng.random((2, H // 4, W // 4, 192), dtype=np.float32)).to(dev)
+        img = torch.from_numpy(rng.standard_normal((2, H, W, 3), dtype=np.float32)).to(dev)
+        _zero_counts(fh)
+        with torch.no_grad():
+            s_f = fused(fm, img)
+            s_r = ref(fm, img)
+        torch.cuda.synchronize()
+        f32n, bf16n = _read_counts(fh, " f32"), _read_counts(fh)
+        conv = "K1 conv_phase f32" if mode == "v3" else "K3 conv_phase_img f32"
+        assert f32n[conv] == 1 and f32n["K2 head_tail f32"] == 1 and not any(bf16n.values()), (f32n, bf16n)
+        assert s_f.dtype == torch.float32 and s_f.shape == s_r.shape == (2, H, W, 1) and torch.isfinite(s_f).all()
+        torch.testing.assert_close(s_f, s_r, rtol=HEAD_RTOL, atol=HEAD_ATOL)
+        d = (s_f - s_r).abs()
+        out.append(f"{mode} max|d| {d.max().item():.4g} (worst share of the tolerance "
+                   f"{(d / (HEAD_ATOL + HEAD_RTOL * s_r.abs())).max().item():.3g}), mean|d| {d.mean().item():.4g}, "
+                   f"mean|score| {s_r.abs().mean().item():.4g}")
+        del fused, ref, s_f, s_r
+    print(f"[17] (b) f32 pallas head vs f32 reference dataflow at {H}x{W}, batch 2 (rtol {HEAD_RTOL:g} / atol "
+          f"{HEAD_ATOL:g}): " + "; ".join(out))
+
+
+def slice_h_extraction(torch, fh, rng, records):
+    """(c) The f32 extraction with ``head_dataflow: pallas``, v3 and v1, 64
+    images after a warm-up batch, with its kernels' launches; beside it the
+    f32 extraction as the shipped f32 config runs it (the reference
+    dataflow, no kernels)."""
+    out = []
+    for label, mode, dataflow in (("pallas v3", "v3", "pallas"), ("pallas v1", "v1", "pallas"),
+                                  ("shipped f32 (reference dataflow)", None, None)):
+        n, dt, peak, launches, counts = drive_extraction(torch, fh, rng, N_IMAGES_V1, head_mode=mode,
+                                                         dtype="float32", head_dataflow=dataflow)
+        f32n = {k: v for k, v in launches.items() if k.endswith(" f32")}
+        bf16n = {k: v for k, v in launches.items() if not k.endswith(" f32")}
+        assert not any(bf16n.values()), bf16n
+        if dataflow is None:
+            assert not any(f32n.values()), f32n
+        else:
+            conv = "K1 conv_phase f32" if mode == "v3" else "K3 conv_phase_img f32"
+            other = "K3 conv_phase_img f32" if mode == "v3" else "K1 conv_phase f32"
+            assert f32n[conv] > 0 and f32n["K2 head_tail f32"] > 0 and f32n[other] == 0, f32n
+            for r in records:
+                if r["name"] == conv or (mode == "v3" and r["name"] == "K2 head_tail f32"):
+                    r["launches"] = f32n[r["name"]]
+        out.append(f"{label}: {n / dt:.2f} im/s ({dt:.3f} s), peak {peak / 2**30:.2f} GiB, keypoints/image "
+                   f"{min(counts)}-{max(counts)}, launches {{{', '.join(f'{k}: {v}' for k, v in f32n.items() if v)}}}")
+    print(f"[17] (c) f32 extraction, {N_IMAGES_V1} images {H}x{W} in batches of {BATCH} after a warm-up batch, "
+          f"{NUM_PTS} pts (bf16 instances 0 launches): " + "; ".join(out))
+
+
+def slice_h_reduction(torch, rng):
+    """(d) The reduction at D = 256 and D = 200 (beyond the resident f1
+    tile; 200 not a multiple of 16) against its plain versions with phase
+    6's checks, plus times; returns the D = 256 passes' records."""
+    from posfeat_tpu_torch.ops import reinforce as rf
+
+    kw, T = REDUCTION_KW, REDUCTION_KW["temperature"]
+    records = []
+    for D in (256, 200):
+        args = reduction_problem(torch, rng, D=D)
+        f1, f2 = args[:2]
+        (B, m, _), n = f1.shape, f2.shape[1]
+        assert not rf.f1_resident(D)
+        tiles = rf._split_operands(f1, f2)
+        torch.cuda.synchronize()
+        assert torch.equal(tiles[0], rf._split_plain(f1, False)) and torch.equal(tiles[1], rf._split_plain(f2, False))
+        rl, cl = rf.lse_pass(f1, f2, T, tiles=tiles)
+        torch.cuda.synchronize()
+        rlp, clp = rf.lse_pass_plain(f1, f2, T)
+        torch.testing.assert_close(rl, rlp, rtol=2e-4, atol=1e-5)
+        torch.testing.assert_close(cl, clp, rtol=2e-4, atol=1e-5)
+        err_lse = max((rl - rlp).abs().max().item(), (cl - clp).abs().max().item())
+        out, ref, (ratio, rel_bound), flip = reward_same_inputs(torch, rf, args, rlp, clp, kw, tiles)
+        err_rw = max((o - r).abs().max().item() for o, r in zip(out[:7], ref[:7]))
+        fed = rf.reward_pass(*args, rl, cl, **kw, tiles=tiles)
+        torch.cuda.synchronize()
+        for o, r in zip(fed[:7], ref[:7]):
+            torch.testing.assert_close(o, r, rtol=2e-4, atol=1e-5)
+        n_good = ref[7].sum().item()
+        flip_fed = (fed[7] - ref[7]).abs().sum().item()
+        assert flip_fed <= 1e-3 * n_good, (flip_fed, n_good)
+        whole = rf.reinforce_reduction(*args, **kw)
+        whole_ref = rf.reinforce_reduction_plain(*args, **kw)
+        for o, r in zip(whole, whole_ref):
+            torch.testing.assert_close(o, r, rtol=2e-4, atol=1e-5)
+        del out, fed, whole
+        lse_ms = _time_ms(lambda: rf.lse_pass(f1, f2, T, tiles=tiles))
+        rw_ms = _time_ms(lambda: rf.reward_pass(*args, rl, cl, **kw, tiles=tiles))
+        lse_plain = _time_ms(lambda: rf.lse_pass_plain(f1, f2, T), n=3)
+        rw_plain = _time_ms(lambda: rf.reward_pass_plain(*args, rl, cl, **kw), n=3)
+
+        def lse_library():
+            aff = T * torch.bmm(f1, f2.mT) - T
+            return torch.logsumexp(aff, -1), torch.logsumexp(aff, 1)
+
+        lse_lib = _time_ms(lse_library, n=5)
+        product = 2.0 * B * m * n * D
+        lse_bound = _bound(3 * product, PEAK_TF32, 4 * (f1.numel() + f2.numel() + rl.numel() + cl.numel()))
+        rw_bytes = 4 * (sum(a.numel() for a in args) + rl.numel() + cl.numel() + 2 * m * B + 2 * n * B + 3 * B)
+        rw_bound = _bound(3 * product, PEAK_TF32, rw_bytes)
+        print(f"[17] (d) reduction at B={B} m={m} n={n} D={D} (f1 streamed): split bit for bit; lse max|err| "
+              f"{err_lse:.3g}; reward on the plain lse max|err| {err_rw:.3g}, |d s0| / bound {ratio:.4g} (bound / |s0| "
+              f"{rel_bound:.4g}; {s0_bound_note(D)}), flipped {flip:g} / {flip_fed:g} of {int(n_good)} good pairs; "
+              f"fed the lse kernel's outputs and the whole reduction within rtol 2e-4; lse {lse_ms:.4f} ms (bound "
+              f"{lse_bound[0]:.4f} by {lse_bound[1]}, {product / (lse_ms * 1e-3) * 1e-12:.2f} TFLOP/s of the product, "
+              f"{lse_bound[0] / lse_ms:.1%} of the bound; plain {lse_plain:.4f}, logsumexp {lse_lib:.4f}), reward "
+              f"{rw_ms:.4f} ms (bound {rw_bound[0]:.4f}, {product / (rw_ms * 1e-3) * 1e-12:.2f} TFLOP/s, "
+              f"{rw_bound[0] / rw_ms:.1%}; plain {rw_plain:.4f})")
+        if D == 256:
+            records += [
+                {"name": "K4+K5 lse_pass D=256", "route": "cuda", "source": "posfeat_tpu_torch/csrc/reinforce.cu",
+                 "replaces": "posfeat_tpu/ops/pallas/reinforce.py:66", "launches": 0, "max_abs_err": err_lse,
+                 "ms": lse_ms, "plain_ms": lse_plain, "bound_ms": lse_bound[0], "bound_by": lse_bound[1],
+                 "library_ms": lse_lib},
+                {"name": "K6 reward_pass D=256", "route": "cuda", "source": "posfeat_tpu_torch/csrc/reinforce.cu",
+                 "replaces": "posfeat_tpu/ops/pallas/reinforce.py:110", "launches": 0, "max_abs_err": err_rw,
+                 "ms": rw_ms, "plain_ms": rw_plain, "bound_ms": rw_bound[0], "bound_by": rw_bound[1],
+                 "library_ms": None},
+            ]
+        del args, f1, f2, tiles, ref, whole_ref
+    return records
+
+
+def phase_slice_h(torch, fh, rng, smi):
+    """Phase 17: slice H, the fused head's f32 kernels and the reduction
+    at any descriptor width; returns the new kernel records."""
+    t_phase = time.perf_counter()
+    records = slice_h_kernels(torch, fh, rng)
+    slice_h_heads(torch, fh)
+    slice_h_extraction(torch, fh, rng, records)
+    reduction = slice_h_reduction(torch, rng)
+    phase_training(torch, reduction, fine_out_ch=256, tag="[17] (e)", suffix=" D=256")
+    records += reduction
+    for r in records:
+        assert r["launches"] > 0, f"{r['name']} was not launched on its path"
+    seconds = time.perf_counter() - t_phase
+    print(f"[17] slice H: {seconds:.1f} s (budget {SLICE_H_BUDGET_S:g} s); {smi}")
+    return records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1957,17 +2301,21 @@ def main() -> int:
     summary = _ptxas_summary(info["log"])
     lib = _build.load_kernels()
     k2 = {k: v for k, v in summary.items() if k.startswith("head_tail_kernel<")}
+    main_k2 = ("head_tail_kernel<16,1>", "head_tail_kernel<f32,16,1>")  # the main paths' instances
     for kname, props in summary.items():
         if kname in CONV_KERNELS:
             # the launch's dynamic shared memory at the flagship point (C = KP = 192)
             props["dynamic_smem"] = lib.posfeat_conv_smem_bytes(192, 192 if kname == "conv_phase_kernel" else 0)
-        if kname not in k2 or kname == "head_tail_kernel<16,1>":  # the main path's instance
+        if kname not in k2 or kname in main_k2:
             print(f"[2]   {kname}: {props}")
-    assert len(k2) == 24, sorted(k2)
-    print(f"[2]   head_tail_kernel, all {len(k2)} instances: registers {min(v['regs'] for v in k2.values())}-"
-          f"{max(v['regs'] for v in k2.values())}, stack {max(v['stack'] for v in k2.values())} B, "
-          f"spills {sum(v['spill_stores'] + v['spill_loads'] for v in k2.values())} B")
-    for kname in (*CONV_KERNELS, *k2, "lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel"):
+    # 24 instances over (Cout / 8, out_ch) for each z dtype, bf16 and f32
+    assert len(k2) == 48, sorted(k2)
+    for dt, group in (("bf16", [v for k, v in k2.items() if "f32" not in k]),
+                      ("f32", [v for k, v in k2.items() if "f32" in k])):
+        print(f"[2]   head_tail_kernel, all {len(group)} {dt} instances: registers "
+              f"{min(v['regs'] for v in group)}-{max(v['regs'] for v in group)}, stack "
+              f"{max(v['stack'] for v in group)} B, spills {sum(v['spill_stores'] + v['spill_loads'] for v in group)} B")
+    for kname in (*CONV_KERNELS, *F32_CONV_KERNELS, *k2, *REDUCTION_KERNELS):
         props = summary[kname]
         assert props["spill_stores"] == props["spill_loads"] == 0, (kname, props)
         if kname not in CONV_KERNELS:
@@ -1978,7 +2326,7 @@ def main() -> int:
     # accumulators without reading them, and the build has none
     for kname in ("lse_pass_kernel", "reward_pass_kernel"):
         injected = [x for x in info["log"].splitlines() if "C7517" in x and kname in x]
-        print(f"[2]   {kname}: {len(injected)} warpgroup.wait injected by ptxas (C7517)")
+        print(f"[2]   {kname} (both instances): {len(injected)} warpgroup.wait injected by ptxas (C7517)")
         assert not injected, injected
 
     rng = np.random.default_rng(SEED)
@@ -2002,7 +2350,8 @@ def main() -> int:
     phase_shipped(torch, fh, smi)
     phase_slice_f(torch, fh, rng, smi, probe_state)
     phase_slice_g(torch, rng, smi, ims_main, s_step_main)
-    records += v1 + reduction
+    slice_h = phase_slice_h(torch, fh, rng, smi)
+    records += v1 + reduction + slice_h
 
     print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")
     print(json.dumps({"kernels": records}))

@@ -5,13 +5,16 @@
 // (_tail_kernel). posfeat_conv_phase_img carries three more TPU kernels,
 // one per treatment of the image term: K3 (fused_head.py:70 _conv_kernel,
 // the v1 dataflow), T1 (tools/bench_fused_parts.py:105 _conv_kernel_noz)
-// and T2 (bench_fused_parts.py:154 _conv_kernel_prephase). The Python
-// wrappers (posfeat_tpu_torch/ops/fused_head.py) check devices, dtypes,
-// shapes and contiguity, allocate every output, pass PyTorch's current
-// stream, and raise on a non-zero return code.
+// and T2 (bench_fused_parts.py:154 _conv_kernel_prephase). The conv
+// kernels here are the bf16 instances; fused_head_f32.cu holds the f32
+// ones. K2 has instances for bf16 and f32 z. The Python wrappers
+// (posfeat_tpu_torch/ops/fused_head.py) check devices, dtypes, shapes and
+// contiguity, allocate every output, pass PyTorch's current stream, and
+// raise on a non-zero return code.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libposfeat_kernels.so fused_head.cu reinforce.cu
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+//        -Xcompiler -fPIC for each of fused_head.cu, fused_head_f32.cu and
+//        reinforce.cu, then nvcc -shared of the three objects
 // (posfeat_tpu_torch/ops/_build.py does this on first use). No link flag
 // beyond these: <cuda.h> is read for the tensor-map types only, and
 // cuTensorMapEncodeTiled (libcuda) is looked up at run time with
@@ -655,18 +658,22 @@ CONV_PHASE_IMG_KERNEL(conv_phase_img_phase_kernel, kImgPhase)
 //
 // For each phase row r of image b (R = h*w*16 rows of Cout channels):
 //   x = PReLU((z[b, r, :] - mu[b]) * sc[b]);  u[b, r, o] = x . w3[:, o] + b3[o]
-// plus per-block sums of u and u^2 per output channel.
+// plus per-block sums of u and u^2 per output channel; z is bf16 or f32
+// (the head's compute dtype), the arithmetic f32 in both.
 //
-// What bounds it: it reads z once (78.6 MB per image at the flagship point,
-// 1.26 GB per B=16 launch) and writes u (1.2 MB per image for one output
-// channel), a few FLOP per byte: device memory bandwidth bounds it (0.38 ms
-// per B=16 launch at 3.35 TB/s).
+// What bounds it: it reads z once (78.6 MB per image at the flagship point
+// in bf16, 157 MB in f32: 1.26 or 2.52 GB per B=16 launch) and writes u
+// (1.2 MB per image for one output channel), a few FLOP per byte: device
+// memory bandwidth bounds it (0.38 or 0.75 ms per B=16 launch at 3.35 TB/s).
 //
-// Design: one instance per (LPR = Cout/8, OUT = out_ch), chosen by a table
-// in posfeat_head_tail, so that every loop and shuffle count is a constant.
-// - A row is read by LPR lanes, each with one 16-byte load of 8 bf16, so a
-//   warp reads G = 32/LPR rows per load instruction, coalesced. Rows of one
-//   instruction are consecutive (row = base + (i * G) + lane group).
+// Design: one instance per (z dtype, LPR = Cout/8, OUT = out_ch), chosen by
+// a table in posfeat_head_tail, so that every loop and shuffle count is a
+// constant.
+// - A row is read by LPR lanes, each with 16-byte loads of 8 channels (one
+//   load of 8 bf16, or two of 4 f32: channels 4 li .. 4 li + 3 and
+//   4 (LPR + li) .. + 3, so that each load of a row group is contiguous),
+//   so a warp reads G = 32/LPR rows per load instruction, coalesced. Rows
+//   of one instruction are consecutive (row = base + (i * G) + lane group).
 // - Each lane issues all its loads of a trip (at least 4, 8 at the flagship
 //   point) before any arithmetic, with a streaming hint that keeps z out of
 //   L1 (z is read once and overflows L2), so enough bytes are in flight to
@@ -675,7 +682,9 @@ CONV_PHASE_IMG_KERNEL(conv_phase_img_phase_kernel, kImgPhase)
 //   are finished by a reduce-scatter over the group (P - 1 shuffles per
 //   output for P rows; then log2(LPR / P) plain xor steps), after which
 //   lane li < P owns row li of its P: the group stores P consecutive u
-//   values, and the warp 32/LPR * P of them, in one coalesced store.
+//   values, and the warp 32/LPR * P of them, in one coalesced store. An
+//   f32 instance takes half the rows per reduce-scatter, so that its loads
+//   per trip hold as many registers as the bf16 one's.
 // - Each block takes a contiguous range of one image's rows (a few blocks
 //   per SM: the wrapper picks the range, K2_BLOCKS); it writes one partials
 //   row, its lanes' sums reduced by shuffles and then across its warps
@@ -686,18 +695,24 @@ constexpr int K2_THREADS = 256;
 constexpr int K2_WARPS = K2_THREADS / 32;
 constexpr int MAXO = 4;
 
-template <int LPR, int OUT>
+template <typename ZT, int LPR, int OUT>
 struct K2Shape {
+  static constexpr int VEC = 16 / int(sizeof(ZT));  // channels per 16-byte load: 8 bf16, 4 f32
+  static constexpr int NLD = 8 / VEC;               // 16-byte loads per lane and row
   // rows per reduce-scatter: P x OUT partials per lane stay at most 8
-  static constexpr int PMAX = OUT == 1 ? 8 : (OUT == 2 ? 4 : 2);
+  // (4 for f32), P x NLD loads at most 8
+  static constexpr int PMAX0 = OUT == 1 ? 8 : (OUT == 2 ? 4 : 2);
+  static constexpr int PMAX = PMAX0 / NLD > 0 ? PMAX0 / NLD : 1;
   static constexpr int P = LPR < PMAX ? LPR : PMAX;
   static constexpr int U = P >= 4 ? 1 : 4 / P;  // reduce-scatter groups per trip: >= 4 loads
   static constexpr int G = 32 / LPR;            // rows per load instruction of a warp
   static constexpr int ROWS = G * P * U;        // rows per warp trip
+  // this lane's k-th channel (k < 8) of a row, lane li of its group
+  static __device__ __forceinline__ int channel(int li, int k) { return VEC * (li + (k / VEC) * LPR) + k % VEC; }
 };
 
 // 16 bytes of z, read once: no L1 allocation
-__device__ __forceinline__ uint4 ld_stream(const bf16* p) {
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
   uint4 v;
   asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
@@ -705,17 +720,37 @@ __device__ __forceinline__ uint4 ld_stream(const bf16* p) {
   return v;
 }
 
+// the 8 channels of a lane's loads as f32
+__device__ __forceinline__ void to_floats(const uint4 (&raw)[1], float (&f)[8]) {
+  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw[0]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(v2[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void to_floats(const uint4 (&raw)[2], float (&f)[8]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    f[4 * j] = __uint_as_float(raw[j].x);
+    f[4 * j + 1] = __uint_as_float(raw[j].y);
+    f[4 * j + 2] = __uint_as_float(raw[j].z);
+    f[4 * j + 3] = __uint_as_float(raw[j].w);
+  }
+}
+
 // at least 2 blocks per SM: up to 128 registers a thread, which every
 // instance fits without spilling
-template <int LPR, int OUT>
+template <typename ZT, int LPR, int OUT>
 __global__ void __launch_bounds__(K2_THREADS, 2)
-head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
+head_tail_kernel(const void* __restrict__ zv, const float* __restrict__ mu,
                  const float* __restrict__ sc, const float* __restrict__ a,
                  const float* __restrict__ w3, const float* __restrict__ b3,
                  float* __restrict__ u, float* __restrict__ usum,
                  float* __restrict__ usq, int R, int rows_per_block) {
-  using S = K2Shape<LPR, OUT>;
-  constexpr int P = S::P, U = S::U, G = S::G, COUT = 8 * LPR;
+  using S = K2Shape<ZT, LPR, OUT>;
+  constexpr int P = S::P, U = S::U, G = S::G, COUT = 8 * LPR, NLD = S::NLD, VEC = S::VEC;
   __shared__ float red[K2_WARPS][2 * OUT];
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * rows_per_block;
@@ -723,16 +758,16 @@ head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int gi = lane / LPR;   // row within a load instruction
   const int li = lane % LPR;   // lane within the row's group
-  const int c0 = li * 8;       // this lane's first channel
   const float slope = a[0];
 
   float m[8], s[8], wv[8][OUT];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    m[j] = mu[size_t(b) * COUT + c0 + j];
-    s[j] = sc[size_t(b) * COUT + c0 + j];
+    const int c = S::channel(li, j);
+    m[j] = mu[size_t(b) * COUT + c];
+    s[j] = sc[size_t(b) * COUT + c];
 #pragma unroll
-    for (int o = 0; o < OUT; ++o) wv[j][o] = w3[(c0 + j) * OUT + o];
+    for (int o = 0; o < OUT; ++o) wv[j][o] = w3[c * OUT + o];
   }
   float bias[OUT], tsum[OUT], tsq[OUT];
 #pragma unroll
@@ -742,30 +777,32 @@ head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
     tsq[o] = 0.f;
   }
 
-  const bf16* zb = z + size_t(b) * R * COUT + c0;
+  const ZT* zb = static_cast<const ZT*>(zv) + size_t(b) * R * COUT + VEC * li;
   float* ub = u + size_t(b) * R * OUT;
   for (int base = r0 + warp * S::ROWS; base < r1; base += K2_WARPS * S::ROWS) {
-    uint4 raw[U][P];
+    uint4 raw[U][P][NLD];
 #pragma unroll
     for (int q = 0; q < U; ++q)
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         const int r = base + (q * P + j) * G + gi;
-        raw[q][j] = r < r1 ? ld_stream(zb + size_t(r) * COUT) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int l = 0; l < NLD; ++l)
+          raw[q][j][l] = r < r1 ? ld_stream(zb + size_t(r) * COUT + l * VEC * LPR) : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
     for (int q = 0; q < U; ++q) {
       float p[P][OUT];
 #pragma unroll
       for (int j = 0; j < P; ++j) {
-        const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw[q][j]);
+        float f[8];
+        to_floats(raw[q][j], f);
 #pragma unroll
         for (int o = 0; o < OUT; ++o) p[j][o] = 0.f;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          const float2 f = __bfloat1622float2(v2[k]);
-          float x0 = (f.x - m[2 * k]) * s[2 * k];
-          float x1 = (f.y - m[2 * k + 1]) * s[2 * k + 1];
+          float x0 = (f[2 * k] - m[2 * k]) * s[2 * k];
+          float x1 = (f[2 * k + 1] - m[2 * k + 1]) * s[2 * k + 1];
           x0 = x0 >= 0.f ? x0 : slope * x0;
           x1 = x1 >= 0.f ? x1 : slope * x1;
 #pragma unroll
@@ -844,12 +881,14 @@ head_tail_kernel(const bf16* __restrict__ z, const float* __restrict__ mu,
   }
 }
 
-using HeadTailKernel = void (*)(const bf16*, const float*, const float*, const float*,
+using HeadTailKernel = void (*)(const void*, const float*, const float*, const float*,
                                 const float*, const float*, float*, float*, float*, int, int);
-#define K2_ROW(LPR) \
-  {head_tail_kernel<LPR, 1>, head_tail_kernel<LPR, 2>, head_tail_kernel<LPR, 3>, head_tail_kernel<LPR, 4>}
-// [log2(LPR)][out_ch - 1]
-const HeadTailKernel kHeadTail[6][MAXO] = {K2_ROW(1), K2_ROW(2), K2_ROW(4), K2_ROW(8), K2_ROW(16), K2_ROW(32)};
+#define K2_ROW(ZT, LPR) \
+  {head_tail_kernel<ZT, LPR, 1>, head_tail_kernel<ZT, LPR, 2>, head_tail_kernel<ZT, LPR, 3>, head_tail_kernel<ZT, LPR, 4>}
+#define K2_TABLE(ZT) {K2_ROW(ZT, 1), K2_ROW(ZT, 2), K2_ROW(ZT, 4), K2_ROW(ZT, 8), K2_ROW(ZT, 16), K2_ROW(ZT, 32)}
+// [z is f32][log2(LPR)][out_ch - 1]
+const HeadTailKernel kHeadTail[2][6][MAXO] = {K2_TABLE(bf16), K2_TABLE(float)};
+#undef K2_TABLE
 #undef K2_ROW
 
 enum ArgError {
@@ -970,19 +1009,20 @@ int posfeat_conv_phase_img(const void* tp, const void* kph_t, const void* img, c
   return int(cudaGetLastError());
 }
 
+// z [B, R, cout] phase rows in bf16 (z_f32 = 0) or f32 (z_f32 = 1).
 int posfeat_head_tail(const void* z, const void* mu, const void* sc,
                       const void* a, const void* w3, const void* b3, void* u,
                       void* usum, void* usq, int B, int R, int cout, int out_ch,
-                      int rows_per_block, void* stream) {
+                      int rows_per_block, int z_f32, void* stream) {
   const int lpr = cout / 8;
   if (cout % 8 || lpr < 1 || lpr > 32 || (lpr & (lpr - 1)) || out_ch < 1 || out_ch > MAXO ||
-      rows_per_block < 1 || B < 1 || B > 65535 || R < 1)
+      rows_per_block < 1 || B < 1 || B > 65535 || R < 1 || z_f32 < 0 || z_f32 > 1)
     return kBadShape;
   int log2_lpr = 0;
   while ((1 << log2_lpr) < lpr) ++log2_lpr;
   dim3 grid((R + rows_per_block - 1) / rows_per_block, B);
-  kHeadTail[log2_lpr][out_ch - 1]<<<grid, K2_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(z), static_cast<const float*>(mu),
+  kHeadTail[z_f32][log2_lpr][out_ch - 1]<<<grid, K2_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      z, static_cast<const float*>(mu),
       static_cast<const float*>(sc), static_cast<const float*>(a),
       static_cast<const float*>(w3), static_cast<const float*>(b3),
       static_cast<float*>(u), static_cast<float*>(usum), static_cast<float*>(usq),

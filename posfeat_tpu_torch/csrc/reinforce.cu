@@ -40,10 +40,17 @@
 //   staging is bulk copies (async proxy, no fence, no thread work)
 //   completing on mbarriers; both passes read the same scratch. One block of
 //   256 threads (two warpgroups, 64 rows each) per (128-row tile of f1,
-//   batch element) keeps the f1 tile resident as hi and lo (2 x 64 KB); f2
-//   streams through a ring of four 16-deep chunks of 128 columns (hi and
-//   lo, 16 KB each), each copied two chunks ahead of its wgmmas by one
-//   thread, one barrier per chunk.
+//   batch element); f2 streams through a ring of four 16-deep chunks of 128
+//   columns (hi and lo, 16 KB each), each copied two chunks ahead of its
+//   wgmmas by one thread, one barrier per chunk. Up to D = RESIDENT_D = 128
+//   the block keeps its f1 tile resident as hi and lo (2 x 64 KB at
+//   D = 128). A deeper f1 tile would not fit beside the ring (256 KB at
+//   D = 256, over the 227 KB a block may have), so there each ring buffer
+//   carries the f1 chunk of the same 16 depths beside f2's (32 KB a
+//   buffer), and f1 is read again from L2 for every column tile: shared
+//   memory stays at 128 KB plus the epilogue's at any D. Both layouts feed
+//   the same wgmmas the same operands in the same order, so a dot does not
+//   depend on which one ran.
 // - Two accumulator sets take turns, so that two 8-deep steps' wgmmas stay
 //   queued while the step before them is added into the running sum. Both
 //   passes run this one loop, so a pair's dot is bit-identical in both: at
@@ -89,7 +96,7 @@
 
 namespace {
 
-constexpr int DMAX = 128;        // largest descriptor width
+constexpr int RESIDENT_D = 128;  // widest f1 tile kept resident; deeper ones stream beside f2
 constexpr int LM = 128;          // rows of f1 per block (two warpgroups x 64) = columns of f2 per tile
 constexpr int LKC = 16;          // depth of one f2 chunk: two 8-deep steps
 constexpr int NBUF = 4;          // f2 chunk buffers: chunk s + 2 loads while chunk s runs
@@ -99,19 +106,29 @@ constexpr int SPLIT_THREADS = 256;
 constexpr int N_COLOPS = 8;      // reward pass operands per column: c2h xyz, line2 xyz, accept2, col_lse
 constexpr float kNeg = -1e30f, kFar = 1e30f;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
-// dynamic shared memory of both passes: f1 hi/lo and the f2 chunk ring,
-// then each pass's own, then mbarriers (NBUF for the ring, one for the f1
+// dynamic shared memory of both passes: the product's (f1 hi/lo and the f2
+// chunk ring, or a ring of f2 and f1 chunks when f1 streams), then each
+// pass's own, then mbarriers (NBUF for the ring, one for the resident f1
 // tile, the reward pass two more for its column operands)
-constexpr int P_FLOATS = 2 * DMAX * LM + NBUF * CHUNK_FLOATS;
+template <bool STREAM_A>
+__host__ __device__ constexpr int p_floats() {
+  return STREAM_A ? NBUF * 2 * CHUNK_FLOATS : 2 * RESIDENT_D * LM + NBUF * CHUNK_FLOATS;
+}
 constexpr int P_BARS = NBUF + 1;
-constexpr int L_FLOATS = P_FLOATS + 2 * 8 * LM;  // + column (max, sum exp) per warp
-constexpr size_t L_SMEM_BYTES = size_t(L_FLOATS) * 4 + 8 * P_BARS;
+// + column (max, sum exp) per warp
+template <bool STREAM_A>
+constexpr size_t l_smem_bytes() {
+  return size_t(p_floats<STREAM_A>() + 2 * 8 * LM) * 4 + 8 * P_BARS;
+}
 // + column operands [2][N_COLOPS][LM], row operands [N_COLOPS][LM], column
 // (W, p) per warp, each thread's N_TOT running sums (rowW, rowW, p, p, s0,
 // max p, good pairs)
 constexpr int N_TOT = 7;
-constexpr int R_FLOATS = P_FLOATS + 3 * N_COLOPS * LM + 2 * 8 * LM + N_TOT * L_THREADS;
-constexpr size_t R_SMEM_BYTES = size_t(R_FLOATS) * 4 + 8 * (P_BARS + 2);
+template <bool STREAM_A>
+constexpr size_t r_smem_bytes() {
+  return size_t(p_floats<STREAM_A>() + 3 * N_COLOPS * LM + 2 * 8 * LM + N_TOT * L_THREADS) * 4 + 8 * (P_BARS + 2);
+}
+static_assert(r_smem_bytes<true>() <= 232448 && r_smem_bytes<false>() <= 232448, "over a block's shared memory");
 
 enum ArgError { kBadShape = -1, kGridTooLarge = -2 };
 
@@ -255,44 +272,55 @@ __global__ void __launch_bounds__(SPLIT_THREADS) lse_split_kernel(
 // f2 in turn, from the split tiles f1s and f2s; after each column tile,
 // epi(acc, ct) with acc[4j + 2h + e] the dot of row 16 * warp + g + 8h of
 // the block and column 8j + 2t + e of tile ct (g = lane / 4, t = lane % 4).
-// smem holds f1 hi, f1 lo and the ring (P_FLOATS); bars NBUF + 1
+// smem holds the product's operands (p_floats<STREAM_A>: f1 hi, f1 lo and
+// the ring; or, STREAM_A, the ring of f2 and f1 chunks); bars NBUF + 1
 // initialised mbarriers. epi may sync the block; every step ends with a
 // block barrier, a tile's last after its epilogue.
-template <class Epilogue>
+template <bool STREAM_A, class Epilogue>
 __device__ __forceinline__ void product_tiles(const float* __restrict__ f1s, const float* __restrict__ f2s,
                                               int D, int n, float* smem, uint32_t bars, Epilogue&& epi) {
-  float* aH = smem;                 // [DMAX / 4][LM][4]
-  float* aL = aH + DMAX * LM;
-  float* ring = aL + DMAX * LM;     // [NBUF][hi, lo][LKC / 4][LM][4]
+  // resident: aH, aL [RESIDENT_D / 4][LM][4], then the ring
+  // [NBUF][hi, lo][LKC / 4][LM][4]; streamed: the ring [NBUF][f2, f1][hi, lo]
+  // [LKC / 4][LM][4]
+  constexpr int BUF_FLOATS = STREAM_A ? 2 * CHUNK_FLOATS : CHUNK_FLOATS;
+  float* aH = smem;
+  float* aL = aH + RESIDENT_D * LM;
+  float* ring = STREAM_A ? smem : aL + RESIDENT_D * LM;
   const uint32_t full_u = bars, a_bar = bars + 8 * NBUF;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int DP = (D + 7) & ~7;            // depth in whole 8-deep steps, zero-filled
   const int nck = (DP + LKC - 1) / LKC;   // chunks per column tile
   const int qa = 4 * nck;                 // groups of 4 depths of the f1 tile
   const int n_ct = (n + LM - 1) / LM, steps = n_ct * nck;
-  // the block's f1 tile: one chunk of qa depth groups, hi then lo; f2's
-  // column tiles: nck chunks each
+  // the block's f1 tile: one chunk of qa depth groups, hi then lo
+  // (resident), or nck chunks like f2's (streamed); f2's column tiles: nck
+  // chunks each
   const float* A = f1s + (size_t(blockIdx.y) * gridDim.x + blockIdx.x) * 2 * qa * LM * 4;
   const float* Bm = f2s + size_t(blockIdx.y) * n_ct * nck * CHUNK_FLOATS;
 
   // chunk i (column tile i / nck, depths (i % nck) * LKC ...) into ring
-  // buffer i % NBUF, by thread 0
+  // buffer i % NBUF, by thread 0; streamed, f1's chunk of the same depths
+  // after it
   auto fetch = [&](int i) {
     const uint32_t bar = full_u + 8 * (i % NBUF);
-    mbar_expect_tx(bar, CHUNK_FLOATS * 4);
-    bulk_load(smem_u32(ring + (i % NBUF) * CHUNK_FLOATS), Bm + size_t(i) * CHUNK_FLOATS, CHUNK_FLOATS * 4,
-              bar);
+    float* dst = ring + (i % NBUF) * BUF_FLOATS;
+    mbar_expect_tx(bar, BUF_FLOATS * 4);
+    bulk_load(smem_u32(dst), Bm + size_t(i) * CHUNK_FLOATS, CHUNK_FLOATS * 4, bar);
+    if constexpr (STREAM_A)
+      bulk_load(smem_u32(dst + CHUNK_FLOATS), A + size_t(i % nck) * CHUNK_FLOATS, CHUNK_FLOATS * 4, bar);
   };
   if (tid == 0) {
-    mbar_expect_tx(a_bar, 2 * qa * LM * 16);
-    bulk_load(smem_u32(aH), A, qa * LM * 16, a_bar);
-    bulk_load(smem_u32(aL), A + qa * LM * 4, qa * LM * 16, a_bar);
+    if constexpr (!STREAM_A) {
+      mbar_expect_tx(a_bar, 2 * qa * LM * 16);
+      bulk_load(smem_u32(aH), A, qa * LM * 16, a_bar);
+      bulk_load(smem_u32(aL), A + qa * LM * 4, qa * LM * 16, a_bar);
+    }
     fetch(0);
     if (steps > 1) fetch(1);
   }
   const uint32_t aH_u = smem_u32(aH) + wg * 64 * 16, aL_u = smem_u32(aL) + wg * 64 * 16;
   const uint32_t ring_u = smem_u32(ring);
-  mbar_wait(a_bar, 0);
+  if constexpr (!STREAM_A) mbar_wait(a_bar, 0);
 
   float acc[64], d0[64], d1[64];
   auto add = [&](float(&d)[64]) {
@@ -318,8 +346,12 @@ __device__ __forceinline__ void product_tiles(const float* __restrict__ f1s, con
     // staging end
     const int nks = min(LKC, DP - kc) / 8;
     auto issue = [&](float(&d)[64], int ks) {
-      const uint32_t ao = ((kc + 8 * ks) / 4) * LM * 16, bo = buf * CHUNK_FLOATS * 4 + 2 * ks * LM * 16;
-      const uint64_t ah = desc_interleave(aH_u + ao, LM * 16, 128), al = desc_interleave(aL_u + ao, LM * 16, 128);
+      const uint32_t bo = buf * BUF_FLOATS * 4 + 2 * ks * LM * 16;
+      // f1's depths kc + 8 ks ..: in the resident tile, or in the buffer's f1 chunk
+      const uint32_t ah_u = STREAM_A ? ring_u + bo + CHUNK_FLOATS * 4 + wg * 64 * 16
+                                     : aH_u + ((kc + 8 * ks) / 4) * LM * 16;
+      const uint32_t al_u = STREAM_A ? ah_u + LKC * LM * 4 : aL_u + ((kc + 8 * ks) / 4) * LM * 16;
+      const uint64_t ah = desc_interleave(ah_u, LM * 16, 128), al = desc_interleave(al_u, LM * 16, 128);
       const uint64_t bh = desc_interleave(ring_u + bo, LM * 16, 128);
       const uint64_t bl = desc_interleave(ring_u + bo + LKC * LM * 4, LM * 16, 128);
       wgmma_fence();
@@ -358,12 +390,13 @@ __device__ __forceinline__ void product_tiles(const float* __restrict__ f1s, con
 
 // --------------------------------------------------------------- lse pass
 
+template <bool STREAM_A>
 __global__ void __launch_bounds__(L_THREADS, 1) lse_pass_kernel(
     const float* __restrict__ f1s, const float* __restrict__ f2s, int m, int n,
     int D, float T, float* __restrict__ row_lse, float* __restrict__ col_max,
     float* __restrict__ col_sum) {
   extern __shared__ __align__(128) float smem[];
-  float* cM = smem + P_FLOATS;  // [8][LM] column partials per warp
+  float* cM = smem + p_floats<STREAM_A>();  // [8][LM] column partials per warp
   float* cS = cM + 8 * LM;
   const uint32_t bars = smem_u32(cS + 8 * LM);
 
@@ -380,7 +413,7 @@ __global__ void __launch_bounds__(L_THREADS, 1) lse_pass_kernel(
   const bool rok[2] = {row0 + lr0 < m, row0 + lr0 + 8 < m};
   float rm[2] = {kNeg, kNeg}, rs[2] = {0.f, 0.f};  // running row max and sum exp2
 
-  product_tiles(f1s, f2s, D, n, smem, bars, [&](float(&acc)[64], int ct) {
+  product_tiles<STREAM_A>(f1s, f2s, D, n, smem, bars, [&](float(&acc)[64], int ct) {
     // epilogue begin
     const int col0 = ct * LM;
     // the tile's aff in base 2: v = log2(e) * (T * dot - T)
@@ -465,6 +498,7 @@ __global__ void __launch_bounds__(L_THREADS, 1) lse_pass_kernel(
 
 // ------------------------------------------------------------ reward pass
 
+template <bool STREAM_A>
 __global__ void __launch_bounds__(L_THREADS, 1) reward_pass_kernel(
     const float* __restrict__ f1s, const float* __restrict__ f2s,
     const float* __restrict__ line1, const float* __restrict__ c1h,
@@ -474,7 +508,7 @@ __global__ void __launch_bounds__(L_THREADS, 1) reward_pass_kernel(
     float* __restrict__ p_rowsum, float* __restrict__ colw_part,
     float* __restrict__ pcol_part, float* __restrict__ tile_stats) {
   extern __shared__ __align__(128) float smem[];
-  float* cv = smem + P_FLOATS;         // [2][N_COLOPS][LM] column operands, by column tile parity
+  float* cv = smem + p_floats<STREAM_A>();  // [2][N_COLOPS][LM] column operands, by column tile parity
   float* rv = cv + 2 * N_COLOPS * LM;  // [N_COLOPS][LM] row operands: line1 xyz, c1h xyz, accept1, row_lse
   float* cW = rv + N_COLOPS * LM;      // [8][LM] column sums of W per warp
   float* cP = cW + 8 * LM;             // [8][LM] column sums of p per warp
@@ -516,7 +550,7 @@ __global__ void __launch_bounds__(L_THREADS, 1) reward_pass_kernel(
 
   // this thread's rows: g and g + 8 of its warp's 16
   const int lr0 = 16 * warp + g;
-  product_tiles(f1s, f2s, D, n, smem, bars, [&](float(&acc)[64], int ct) {
+  product_tiles<STREAM_A>(f1s, f2s, D, n, smem, bars, [&](float(&acc)[64], int ct) {
     // staging begin: buffer (ct + 1) % 2 was last read in tile ct - 1's
     // epilogue, before the barrier that ended that tile
     if (tid == 0 && ct + 1 < n_ct) fetch_cols(ct + 1);
@@ -650,9 +684,17 @@ __global__ void __launch_bounds__(L_THREADS, 1) reward_pass_kernel(
 }
 
 int check_shape(int B, int m, int n, int D) {
-  if (B < 1 || m < 1 || n < 1 || D < 1 || D > DMAX) return kBadShape;
+  if (B < 1 || m < 1 || n < 1 || D < 1) return kBadShape;
   if (B > 65535) return kGridTooLarge;
   return 0;
+}
+
+// f1's tile streams beside f2's chunks beyond RESIDENT_D (see the top)
+bool streams_f1(int D) { return D > RESIDENT_D; }
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
 }  // namespace
@@ -662,8 +704,8 @@ extern "C" {
 // Returns 0, a cudaError_t value, or a negative ArgError. f1 [B, m, D] and
 // f2 [B, n, D] split into TF32 hi and lo tiles: f1s B * ceil(m / 128) *
 // 2 * 16 * ceil(DP / 16) * 128 floats, f2s the same with n, DP = D rounded
-// up to a multiple of 8; f1's tiles in one chunk of the whole depth, f2's
-// in 16-deep chunks.
+// up to a multiple of 8; f2's tiles in 16-deep chunks, f1's in one chunk
+// of the whole depth up to D = RESIDENT_D and in 16-deep chunks beyond.
 int posfeat_reinforce_split(const void* f1, const void* f2, void* f1s, void* f2s, int B, int m,
                             int n, int D, void* stream) {
   if (int rc = check_shape(B, m, n, D)) return rc;
@@ -677,7 +719,7 @@ int posfeat_reinforce_split(const void* f1, const void* f2, void* f1s, void* f2s
                                                       chunks, cq, static_cast<float*>(out));
     return cudaGetLastError();
   };
-  cudaError_t err = split(f1, m, 1, 4 * nck, f1s);
+  cudaError_t err = streams_f1(D) ? split(f1, m, nck, LKC / 4, f1s) : split(f1, m, 1, 4 * nck, f1s);
   if (err == cudaSuccess) err = split(f2, n, nck, LKC / 4, f2s);
   return int(err);
 }
@@ -687,10 +729,12 @@ int posfeat_reinforce_split(const void* f1, const void* f2, void* f1s, void* f2s
 int posfeat_lse_pass(const void* f1s, const void* f2s, void* row_lse, void* col_max, void* col_sum,
                      int B, int m, int n, int D, float T, void* stream) {
   if (int rc = check_shape(B, m, n, D)) return rc;
-  cudaError_t err = cudaFuncSetAttribute(lse_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(L_SMEM_BYTES));
+  const bool st = streams_f1(D);
+  const auto kernel = st ? lse_pass_kernel<true> : lse_pass_kernel<false>;
+  const size_t smem = st ? l_smem_bytes<true>() : l_smem_bytes<false>();
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return int(err);
-  lse_pass_kernel<<<dim3((m + LM - 1) / LM, B), L_THREADS, L_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3((m + LM - 1) / LM, B), L_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(f1s), static_cast<const float*>(f2s), m, n, D, T,
       static_cast<float*>(row_lse), static_cast<float*>(col_max), static_cast<float*>(col_sum));
   return int(cudaGetLastError());
@@ -708,11 +752,12 @@ int posfeat_reward_pass(const void* f1s, const void* f2s, const void* line1, con
                         int m, int n, int D, float T, float thr, float good_reward,
                         float bad_reward, void* stream) {
   if (int rc = check_shape(B, m, n, D)) return rc;
-  cudaError_t err = cudaFuncSetAttribute(reward_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(R_SMEM_BYTES));
+  const bool st = streams_f1(D);
+  const auto kernel = st ? reward_pass_kernel<true> : reward_pass_kernel<false>;
+  const size_t smem = st ? r_smem_bytes<true>() : r_smem_bytes<false>();
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return int(err);
-  reward_pass_kernel<<<dim3((m + LM - 1) / LM, B), L_THREADS, R_SMEM_BYTES,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3((m + LM - 1) / LM, B), L_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(f1s), static_cast<const float*>(f2s),
       static_cast<const float*>(line1), static_cast<const float*>(c1h),
       static_cast<const float*>(accept1), static_cast<const float*>(row_lse),
@@ -725,7 +770,7 @@ int posfeat_reward_pass(const void* f1s, const void* f2s, const void* line1, con
 const char* posfeat_reinforce_error_string(int code) {
   switch (code) {
     case kBadShape:
-      return "shape outside what the kernel supports (D at most 128)";
+      return "shape outside what the kernels support (B, m, n and D must be positive)";
     case kGridTooLarge:
       return "batch too large for one launch";
     default:

@@ -8,9 +8,10 @@ cost, and a bidirectional epipolar reward.
 Two formulations, chosen as the JAX ``_use_pallas`` chooses
 (disk_loss.py:135-152): an eligible configuration (detached match
 distribution, constant un-rescaled reward) takes the streamed reduction
-of ``ops/reinforce.py``, whose kernels run for CUDA tensors and whose
-plain version runs for CPU tensors; ``use_pallas: False`` and every other
-configuration take the dense formulation. The gradient reaches the score
+of ``ops/reinforce.py`` at any descriptor width, whose kernels run for
+CUDA tensors and whose plain version runs for CPU tensors;
+``use_pallas: False`` and every other configuration take the dense
+formulation. The gradient reaches the score
 maps through the sampled log-probabilities and, under ``loc_weight``,
 through the soft-argmax offsets.
 
@@ -35,7 +36,6 @@ sum; the components reduce across ranks by ``COMPONENT_REDUCTIONS``.
 from __future__ import annotations
 
 import math
-import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -46,7 +46,7 @@ from ..ops.coords import homogenize, normalize_coords
 from ..ops.detect import quad_offsets_at, softargmax_offsets_at
 from ..ops.epipolar import epipolar_lines, epipolar_pairwise_dist
 from ..ops.grid_sample import sample_feat_by_coord
-from ..ops.reinforce import MAX_D, kernels_take, reinforce_reduction
+from ..ops.reinforce import reinforce_reduction
 from ..ops.samplers import (
     accept_logits,
     bernoulli_logp,
@@ -151,18 +151,15 @@ class DiskLoss:
 
     # -------------------------------------------------------------- loss
 
-    def _use_streamed(self, dim: int) -> bool:
+    def _use_streamed(self) -> bool:
         """The streamed reduction covers the shipped configuration
         (detached match distribution, constant un-rescaled reward, neither
-        sub-pixel lever) at the
-        descriptor widths ``dim`` its kernels take (D <= 128); anything
-        else takes the dense path, chosen before any launch as the JAX
-        package's ``_use_pallas`` chooses. The JAX reduction streams any
-        width: a configuration it would stream at D > 128 takes the dense
-        path here, and says so in a warning."""
+        sub-pixel lever) at any descriptor width, as the JAX reduction
+        does; anything else takes the dense path, chosen before any
+        launch as the JAX package's ``_use_pallas`` chooses."""
         if self.config.get("use_pallas", "auto") is False:
             return False
-        eligible = bool(
+        return bool(
             self.config["cor_detach"]
             and not self.config["match_grad"]
             and self.reward_name == "constant_reward"
@@ -170,11 +167,6 @@ class DiskLoss:
             and not self.reward_at_refined
             and not self.loc_weight
         )
-        if eligible and not kernels_take(dim):
-            warnings.warn(f"DiskLoss: descriptor width {dim} is wider than the streamed reduction's kernels "
-                          f"take ({MAX_D}); taking the dense loss", stacklevel=2)
-            return False
-        return eligible
 
     def _reward_config(self, epoch) -> Dict[str, Any]:
         """Per-epoch reward config: ``reward_thr_final`` with
@@ -259,7 +251,7 @@ class DiskLoss:
         feat1 = sample_feat_by_coord(xf1, normalize_coords(coord1, H, W), cos)  # [B, m, c]
         feat2 = sample_feat_by_coord(xf2, normalize_coords(coord2, H, W), cos)  # [B, n, c]
 
-        if self._use_streamed(feat1.shape[-1]):
+        if self._use_streamed():
             return self._streamed_loss(inputs, feat1, feat2, coord1, coord2, logp1, logp2,
                                        accept1, accept2, temperature, rcfg["reward_thr"])
 

@@ -18,7 +18,8 @@ Dataflows, chosen by ``fused_upsample`` as in the JAX package
   (``fused_upsample_conv3x3_phase``) with additive ring strips; the tail
   stays in phase layout and only the score map goes back to space.
 - ``"pallas"``: the fused head of ``ops/fused_head.py``, whose kernels
-  run as CUDA on the card; ``fused_head_mode`` picks its dataflow, "v3"
+  run as CUDA on the card at bf16 or f32 (``check_head_dataflow``);
+  ``fused_head_mode`` picks its dataflow, "v3"
   (K1) or "v1" (cuDNN's full-res image conv, then K3), as the JAX
   package's POSFEAT_HEAD_MODE does. The config string stays so that
   existing configs mean the same thing.
@@ -39,7 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_head import fused_head_tail
+from ..ops.fused_head import KERNEL_DTYPES, fused_head_tail
 from ..ops.phase import (
     _bilinear_taps_1d,
     _edge_pad1,
@@ -172,15 +173,15 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 
 def check_head_dataflow(fused_upsample, dtype: torch.dtype, device_type: str) -> None:
     """Refuses the fused head (``fused_upsample="pallas"``) on the card at
-    any dtype but bf16: its CUDA kernels K1/K2 (and K3 in mode v1) take
-    bf16 only. The JAX head runs at the trunk's dtype, so this is a
-    divergence of the port. On the CPU the kernels' plain versions run
-    every dtype. Raises ValueError; nothing switches dataflow silently."""
-    if fused_upsample == "pallas" and dtype != torch.bfloat16 and device_type == "cuda":
+    a dtype its CUDA kernels K1/K2 (and K3 in mode v1) have no instance
+    for: they take bfloat16 and float32, the dtypes the JAX head runs its
+    kernels at. On the CPU the kernels' plain versions run every dtype.
+    Raises ValueError; nothing switches dataflow silently."""
+    if fused_upsample == "pallas" and dtype not in KERNEL_DTYPES and device_type == "cuda":
         raise ValueError(
             f"fused_upsample='pallas' at {dtype} on the card: the fused head's kernels K1/K2 (and K3 "
-            "with fused_head_mode 'v1') take bfloat16 only. Run it at bfloat16, or pick a dataflow "
-            "that runs at float32: False, True, 'phase' or 'always'")
+            "with fused_head_mode 'v1') take bfloat16 and float32 only. Run it at one of those, or pick "
+            "a dataflow that runs at any dtype: False, True, 'phase' or 'always'")
 
 
 class KeypointDet(nn.Module):

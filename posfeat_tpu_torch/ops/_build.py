@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` (which include ``csrc/hopper.cuh``) into
-one shared library with a plain C interface, loaded through ``ctypes``.
+``nvcc`` compiles each of ``csrc/*.cu`` (which include ``csrc/hopper.cuh``),
+all at once, one process a source, and links them into one shared
+library with a plain C interface, loaded through ``ctypes``.
 The library goes to ``build/torch_kernels/`` at the root of the
 checkout, named by a hash of the sources, header and flags, and is built
 the first time a kernel is launched; nothing is built when the package
@@ -20,13 +21,11 @@ import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCES = (PKG / "csrc" / "fused_head.cu", PKG / "csrc" / "reinforce.cu")
+SOURCES = (PKG / "csrc" / "fused_head.cu", PKG / "csrc" / "fused_head_f32.cu", PKG / "csrc" / "reinforce.cu")
 HEADERS = (PKG / "csrc" / "hopper.cuh",)  # included by the sources; in the library's hash
 BUILD_DIR = PKG.parent / "build" / "torch_kernels"
-FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")  # compiling; linking adds -shared
 
 
 def _nvcc() -> str:
@@ -58,14 +57,30 @@ def build(force: bool = False) -> dict:
         return {"path": so, "seconds": 0.0, "log": log_path.read_text() if log_path.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o") for src in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc a source, all started together; then one link
+    procs = [(subprocess.Popen([_nvcc(), *FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), src) for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for p, src in procs:
+        out, _ = p.communicate()
+        logs.append(out)
+        if p.returncode != 0:
+            failed.append(f"{src.name} ({p.returncode})")
+    if not failed:
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
+    log = "".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
     # both files move into place whole: processes that start together (one
     # per extraction shard or training rank) may build at once, and a second
     # one never loads or reads a half-written file
@@ -91,7 +106,7 @@ def build_variants(src_name: str, builds, variant, out_dir) -> dict:
         cu, so = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"{name}.so")
         with open(cu, "w") as f:
             f.write(variant(src, name))
-        procs[name] = (so, subprocess.Popen([_nvcc(), *FLAGS, *inc, "-o", so, cu, *others],
+        procs[name] = (so, subprocess.Popen([_nvcc(), *FLAGS, "-shared", *inc, "-o", so, cu, *others],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (so, p) in procs.items():
@@ -116,9 +131,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.posfeat_conv_phase.restype = i
     lib.posfeat_conv_phase_img.argtypes = [p] * 7 + [i] * 9 + [p]
     lib.posfeat_conv_phase_img.restype = i
+    lib.posfeat_conv_phase_f32.argtypes = [p] * 8 + [i] * 8 + [p]
+    lib.posfeat_conv_phase_f32.restype = i
+    lib.posfeat_conv_phase_img_f32.argtypes = [p] * 7 + [i] * 9 + [p]
+    lib.posfeat_conv_phase_img_f32.restype = i
     lib.posfeat_conv_smem_bytes.argtypes = [i, i]
     lib.posfeat_conv_smem_bytes.restype = ctypes.c_long
-    lib.posfeat_head_tail.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.posfeat_head_tail.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.posfeat_head_tail.restype = i
     lib.posfeat_reinforce_split.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.posfeat_reinforce_split.restype = i

@@ -14,7 +14,9 @@ dataflows differ in how conv2's image half enters z:
   (``F.conv2d``), and K3 adds that ``z_img`` to the trunk conv,
   reordering it into phase layout as it reads it.
 
-Kernels (``csrc/fused_head.cu``):
+Kernels (``csrc/fused_head.cu``; the f32 conv instances in
+``csrc/fused_head_f32.cu``), each in the head's compute dtype, bf16 or
+f32, as the JAX head runs its kernels at the trunk's dtype:
 
 - K1 ``conv_phase``: z = phase conv of the edge-padded trunk + patches @
   Wm[b] + b2b[b], stored in the compute dtype, plus per-tile f32 column
@@ -28,6 +30,8 @@ Kernels (``csrc/fused_head.cu``):
 
 On a CUDA tensor each wrapper launches its hand-written kernel or
 raises; on a CPU tensor it runs the plain PyTorch version beside it.
+``launches`` counts the bf16 instance's launches, ``launches_f32`` the
+f32 one's.
 Everything else here is plain PyTorch: the composite fold, the convimg
 IN statistics (patch gram form), v1's full-res conv, the border-ring
 corrections, IN statistics and the final activation.
@@ -64,6 +68,9 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the compute dtypes the kernels take
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -73,6 +80,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _kernel_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """The compute dtype a kernel instance is picked by: t's, bf16 or f32."""
+    if t.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} has dtype {t.dtype}; the kernels take {KERNEL_DTYPES}")
+    return t.dtype
 
 
 def k_major(t: torch.Tensor) -> torch.Tensor:
@@ -119,7 +135,8 @@ def conv_phase_plain(tp, kph, pat, wm, b2b):
 def conv_phase(tp, kph, pat, wm, b2b):
     """K1 (replaces posfeat_tpu/ops/pallas/fused_head.py:148
     ``_conv_kernel_v3``). Same contract as ``conv_phase_plain``, except
-    that the moments come per K1 tile: [B, T, N]."""
+    that the moments come per K1 tile: [B, T, N]. tp's dtype, bf16 or
+    f32, picks the kernel instance; every operand but b2b has it."""
     if tp.device.type == "cpu":
         return conv_phase_plain(tp, kph, pat, wm, b2b)
     from ._build import load_kernels
@@ -127,31 +144,41 @@ def conv_phase(tp, kph, pat, wm, b2b):
     B, hp, wp, C = tp.shape
     h, w = hp - 2, wp - 2
     N, KP = kph.shape[-1], pat.shape[-1]
-    dev, bf = tp.device, torch.bfloat16
-    _check(tp, "tp", bf, (B, hp, wp, C), dev)
-    _check(kph, "kph", bf, (9, C, N), dev)
-    _check(pat, "pat", bf, (B, h, w, KP), dev)
-    _check(wm, "wm", bf, (B, KP, N), dev)
+    dev, dt = tp.device, _kernel_dtype(tp, "tp")
+    _check(tp, "tp", dt, (B, hp, wp, C), dev)
+    _check(kph, "kph", dt, (9, C, N), dev)
+    _check(pat, "pat", dt, (B, h, w, KP), dev)
+    _check(wm, "wm", dt, (B, KP, N), dev)
     _check(b2b, "b2b", torch.float32, (B, N), dev)
     if C < 32 or C % 32 or KP % 32 or N % (K1_BN // 2):
         raise ValueError(f"K1 needs C, KP % 32 == 0, C > 0 and N % {K1_BN // 2} == 0; got {C}, {KP}, {N}")
     th, tw = K1_TILE
     T = -(-h // th) * -(-w // tw)
-    z = torch.empty((B, h, w, N), dtype=bf, device=dev)
+    z = torch.empty((B, h, w, N), dtype=dt, device=dev)
     psum = torch.empty((B, T, N), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
-    # one K-major copy of kph and of wm per call, 20 MB at the flagship point
-    kph_t, wm_t = k_major(kph), k_major(wm)
-    rc = load_kernels().posfeat_conv_phase(
-        _ptr(tp), _ptr(kph_t), _ptr(pat), _ptr(wm_t), _ptr(b2b),
-        _ptr(z), _ptr(psum), _ptr(psq), B, h, w, C, KP, N, th, tw, _stream(),
-    )
-    conv_phase.launches += 1
-    _raise_on(rc, "K1 conv_phase")
+    lib = load_kernels()
+    if dt == torch.float32:
+        # FFMA over kph [9, C, N] and wm [B, KP, N] as they are
+        rc = lib.posfeat_conv_phase_f32(
+            _ptr(tp), _ptr(kph), _ptr(pat), _ptr(wm), _ptr(b2b),
+            _ptr(z), _ptr(psum), _ptr(psq), B, h, w, C, KP, N, th, tw, _stream(),
+        )
+        conv_phase.launches_f32 += 1
+    else:
+        # one K-major copy of kph and of wm per call, 20 MB at the flagship point
+        kph_t, wm_t = k_major(kph), k_major(wm)
+        rc = lib.posfeat_conv_phase(
+            _ptr(tp), _ptr(kph_t), _ptr(pat), _ptr(wm_t), _ptr(b2b),
+            _ptr(z), _ptr(psum), _ptr(psq), B, h, w, C, KP, N, th, tw, _stream(),
+        )
+        conv_phase.launches += 1
+    _raise_on(rc, f"K1 conv_phase ({dt})")
     return z, psum, psq
 
 
 conv_phase.launches = 0
+conv_phase.launches_f32 = 0
 
 
 # --------------------------------------------------------- K3, T1, T2
@@ -184,7 +211,9 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
     ``_conv_kernel_noz``, "none") and T2 (bench_fused_parts.py:154
     ``_conv_kernel_prephase``, "phase"). Same contract as
     ``conv_phase_img_plain``, except that the moments come per tile:
-    [B, T, N]. ``launches`` counts each layout's kernel apart."""
+    [B, T, N]. tp's dtype, bf16 or f32, picks the kernel instance; kph
+    and zimg have it. ``launches`` (bf16) and ``launches_f32`` count each
+    layout's kernel apart."""
     if layout not in IMG_LAYOUTS:
         raise ValueError(f"layout must be one of {IMG_LAYOUTS}, got {layout!r}")
     if tp.device.type == "cpu":
@@ -195,14 +224,14 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
     h, w = hp - 2, wp - 2
     N = kph.shape[-1]
     cout = N // 16
-    dev, bf = tp.device, torch.bfloat16
-    _check(tp, "tp", bf, (B, hp, wp, C), dev)
-    _check(kph, "kph", bf, (9, C, N), dev)
+    dev, dt = tp.device, _kernel_dtype(tp, "tp")
+    _check(tp, "tp", dt, (B, hp, wp, C), dev)
+    _check(kph, "kph", dt, (9, C, N), dev)
     _check(b2, "b2", torch.float32, (N,), dev)
     if layout == "full":
-        _check(zimg, "zimg", bf, (B, 4 * h, 4 * w, cout), dev)
+        _check(zimg, "zimg", dt, (B, 4 * h, 4 * w, cout), dev)
     elif layout == "phase":
-        _check(zimg, "zimg", bf, (B, h, w, N), dev)
+        _check(zimg, "zimg", dt, (B, h, w, N), dev)
     if C < 32 or C % 32 or N % (K1_BN // 2) or N != 16 * cout or cout % 8:
         raise ValueError(
             f"{IMG_KERNELS[layout]} needs C % 32 == 0, C > 0, N = 16·Cout, N % {K1_BN // 2} == 0 and "
@@ -210,21 +239,24 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
         )
     th, tw = K1_TILE
     T = -(-h // th) * -(-w // tw)
-    z = torch.empty((B, h, w, N), dtype=bf, device=dev)
+    z = torch.empty((B, h, w, N), dtype=dt, device=dev)
     psum = torch.empty((B, T, N), dtype=torch.float32, device=dev)
     psq = torch.empty_like(psum)
     img = ctypes.c_void_p(None) if layout == "none" else _ptr(zimg)
-    kph_t = k_major(kph)
-    rc = load_kernels().posfeat_conv_phase_img(
-        _ptr(tp), _ptr(kph_t), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
+    f32 = dt == torch.float32
+    lib = load_kernels()
+    launch = lib.posfeat_conv_phase_img_f32 if f32 else lib.posfeat_conv_phase_img
+    rc = launch(
+        _ptr(tp), _ptr(kph if f32 else k_major(kph)), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
         B, h, w, C, N, cout, IMG_LAYOUTS.index(layout), th, tw, _stream(),
     )
-    conv_phase_img.launches[layout] += 1
-    _raise_on(rc, f"{IMG_KERNELS[layout]} conv_phase_img")
+    (conv_phase_img.launches_f32 if f32 else conv_phase_img.launches)[layout] += 1
+    _raise_on(rc, f"{IMG_KERNELS[layout]} conv_phase_img ({dt})")
     return z, psum, psq
 
 
 conv_phase_img.launches = dict.fromkeys(IMG_LAYOUTS, 0)
+conv_phase_img.launches_f32 = dict.fromkeys(IMG_LAYOUTS, 0)
 
 
 # ------------------------------------------------------------------- K2
@@ -257,7 +289,8 @@ def head_tail_rows_per_block(B: int, R: int) -> int:
 def head_tail(z, mu, sc, a, w3, b3):
     """K2 (replaces posfeat_tpu/ops/pallas/fused_head.py:284
     ``_tail_kernel``). Same contract as ``head_tail_plain``, except that
-    the moments come per K2 block: [B, T2, out]."""
+    the moments come per K2 block: [B, T2, out]. z's dtype, bf16 or f32,
+    picks the kernel instance."""
     if z.device.type == "cpu":
         return head_tail_plain(z, mu, sc, a, w3, b3)
     from ._build import load_kernels
@@ -265,7 +298,7 @@ def head_tail(z, mu, sc, a, w3, b3):
     B, h, w, n = z.shape
     cout, out_ch = w3.shape
     dev, f32 = z.device, torch.float32
-    _check(z, "z", torch.bfloat16, (B, h, w, n), dev)
+    _check(z, "z", _kernel_dtype(z, "z"), (B, h, w, n), dev)
     _check(mu, "mu", f32, (B, cout), dev)
     _check(sc, "sc", f32, (B, cout), dev)
     _check(a, "a", f32, (1,), dev)
@@ -282,16 +315,21 @@ def head_tail(z, mu, sc, a, w3, b3):
     u = torch.empty((B, h, w, (n // cout) * out_ch), dtype=f32, device=dev)
     usum = torch.empty((B, T2, out_ch), dtype=f32, device=dev)
     usq = torch.empty_like(usum)
+    z_f32 = z.dtype == f32
     rc = load_kernels().posfeat_head_tail(
         _ptr(z), _ptr(mu), _ptr(sc), _ptr(a), _ptr(w3), _ptr(b3),
-        _ptr(u), _ptr(usum), _ptr(usq), B, R, cout, out_ch, rows, _stream(),
+        _ptr(u), _ptr(usum), _ptr(usq), B, R, cout, out_ch, rows, int(z_f32), _stream(),
     )
-    head_tail.launches += 1
-    _raise_on(rc, "K2 head_tail")
+    if z_f32:
+        head_tail.launches_f32 += 1
+    else:
+        head_tail.launches += 1
+    _raise_on(rc, f"K2 head_tail ({z.dtype})")
     return u, usum, usq
 
 
 head_tail.launches = 0
+head_tail.launches_f32 = 0
 
 
 # ------------------------------------------------------- the head tail

@@ -21,7 +21,10 @@ aff = T·f1·f2ᵀ − T. Two kernels compute it without an m×n tensor
 Both run one product, f1·f2ᵀ as 3×TF32 on the tensor cores, from f1 and
 f2 split into TF32 hi and lo tiles by a third kernel (``_split_operands``).
 ``reinforce_reduction`` splits once and hands the tiles to both passes;
-each pass called alone splits for itself.
+each pass called alone splits for itself. They take any descriptor width
+D, as the JAX reduction does: up to ``RESIDENT_D`` a block keeps its f1
+tile in shared memory, beyond it f1's tile streams in ``CHUNK``-deep
+chunks beside f2's, and the split lays f1 out accordingly.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. There is no backward:
@@ -36,7 +39,7 @@ import torch
 
 TILE_M = 128  # rows of f1 per block, columns of f2 per tile (csrc/reinforce.cu LM)
 CHUNK = 16  # depth of one f2 chunk of the split tiles (csrc/reinforce.cu LKC)
-MAX_D = 128
+RESIDENT_D = 128  # widest f1 tile a block keeps whole (csrc/reinforce.cu RESIDENT_D)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -70,8 +73,8 @@ def _raise_on(rc: int, what: str) -> None:
 
 def kernels_take(D: int) -> bool:
     """Whether the kernels take descriptors of width D (csrc/reinforce.cu
-    ``check_shape``)."""
-    return 0 < D <= MAX_D
+    ``check_shape``): any positive width."""
+    return D > 0
 
 
 def _shapes(f1, f2):
@@ -80,7 +83,7 @@ def _shapes(f1, f2):
     if f2.shape != (B, n, D):
         raise ValueError(f"f2 has shape {tuple(f2.shape)}, expected ({B}, n, {D})")
     if not kernels_take(D):
-        raise ValueError(f"the kernels need 0 < D <= {MAX_D}; got D = {D}")
+        raise ValueError(f"the kernels need D > 0; got D = {D}")
     return B, m, n, D
 
 
@@ -106,12 +109,18 @@ def _tf32_rna(x):
     return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
+def f1_resident(D: int) -> bool:
+    """Whether a block keeps f1's tile whole at width D (its split is then
+    one chunk of the whole depth), or streams it in CHUNK-deep chunks."""
+    return D <= RESIDENT_D
+
+
 def _split_plain(x, whole: bool):
     """Plain version of the split of x [B, rows, D]: x = hi + lo, both
     TF32, flat in the kernels' tile layout [B][tile][chunk][hi, lo][cq][128][4]
     (tiles of TILE_M rows, chunks of ``cq`` groups of 4 depths, zero beyond
-    rows and D). f1's tiles (``whole``) are one chunk of the whole depth,
-    f2's chunks CHUNK deep."""
+    rows and D). ``whole``: one chunk of the whole depth (f1 where
+    ``f1_resident``), else chunks CHUNK deep (f2, and a wider f1)."""
     B, rows, D = x.shape
     depth, tiles = CHUNK * -(-D // CHUNK), -(-rows // TILE_M)
     xp = x.new_zeros((B, tiles * TILE_M, depth))
@@ -136,7 +145,7 @@ def _split_operands(f1, f2):
     launches, counted as one split). Returns flat (f1s, f2s) in the layout
     of ``_split_plain``, which runs on CPU tensors."""
     if f1.device.type == "cpu":
-        return _split_plain(f1, True), _split_plain(f2, False)
+        return _split_plain(f1, f1_resident(f1.shape[-1])), _split_plain(f2, False)
     from ._build import load_kernels
 
     B, m, n, D = _shapes(f1, f2)

@@ -29,7 +29,28 @@ def test_build_variants_compiles_each_rewritten_copy(tmp_path, monkeypatch):
         assert f"built {so}" in log
         args, text = open(so).read().split("\n", 1)
         # the copy first, then the library's other sources as they are, with csrc on the include path
-        assert args.endswith(f"'{tmp_path / 'out' / name}.cu', '{_build.PKG / 'csrc' / 'fused_head.cu'}']")
+        others = ", ".join(f"'{src}'" for src in _build.SOURCES if src.name != "reinforce.cu")
+        assert args.endswith(f"'{tmp_path / 'out' / name}.cu', {others}]")
         assert f"'-I', '{_build.PKG / 'csrc'}'" in args and "'arch=compute_90a,code=sm_90a'" in args
     assert open(out["cut"][0]).read().split("\n", 1)[1] == "// cut\n"
     assert open(out["full"][0]).read().split("\n", 1)[1] == (_build.PKG / "csrc" / "reinforce.cu").read_text()
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """``build`` starts one nvcc per source with -c (no -shared), then
+    links the objects into the library, keeps every process's ptxas log,
+    and removes the objects."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable).replace(
+        'cu = next(a for a in args if a.endswith(".cu"))', 'cu = next(a for a in args if a.endswith((".cu", ".o")))'))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    info = _build.build(force=True)
+    so = info["path"]
+    assert so.parent == tmp_path / "build" and so.exists() and not list(so.parent.glob("*.o"))
+    for src in _build.SOURCES:
+        assert f"{so.stem}.{src.stem}." in info["log"]
+    args = open(so).read().split("\n", 1)[0]
+    assert "'-shared'" in args and "'-c'" not in args and args.count(".o'") == len(_build.SOURCES)
+    assert so.with_suffix(".log").read_text() == info["log"]

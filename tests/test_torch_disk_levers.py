@@ -70,7 +70,7 @@ def test_levers_match_jax_given_draws(levers):
     epoch = 1
     l_ref, c_ref, g_ref = _jax_loss(cfg, prob, epoch, key)
     draws = jax_disk_draws(prob[0], prob[1], key, G)
-    assert not DiskLoss(copy.deepcopy(cfg))._use_streamed(prob[2].shape[-1])
+    assert not DiskLoss(copy.deepcopy(cfg))._use_streamed()
     l_got, c_got, g_got = _port_loss(cfg, prob, epoch, draws)
     np.testing.assert_allclose(l_got, l_ref, rtol=1e-4)
     assert set(c_got) == set(c_ref)

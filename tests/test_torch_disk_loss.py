@@ -121,8 +121,8 @@ def test_disk_loss_matches_jax_given_draws(case):
     l_ref, c_ref, g_ref = _jax_loss(cfg, prob, epoch, key)
     draws = jax_disk_draws(prob[0], prob[1], key, G)
     loss_mod = DiskLoss(copy.deepcopy(cfg))
-    assert loss_mod._use_streamed(C) == (use_pallas == "interpret"
-                                         and reward == "constant_reward" and not rescale)
+    assert loss_mod._use_streamed() == (use_pallas == "interpret"
+                                       and reward == "constant_reward" and not rescale)
     l_got, c_got, g_got = _port_loss(cfg, prob, epoch, draws)
 
     np.testing.assert_allclose(l_got, l_ref, rtol=2e-4, atol=1e-5)
@@ -147,8 +147,8 @@ def test_unported_levers_raise():
     # construct, and take the dense loss where the streamed one was eligible
     for key, val in (("loc_weight", 0.1), ("reward_at_refined", True)):
         loss_mod = DiskLoss({**BASE_CONFIG, key: val})
-        assert getattr(loss_mod, key) == val and not loss_mod._use_streamed(C)
-        assert DiskLoss(BASE_CONFIG)._use_streamed(C)
+        assert getattr(loss_mod, key) == val and not loss_mod._use_streamed()
+        assert DiskLoss(BASE_CONFIG)._use_streamed()
     with pytest.raises(ValueError, match="epipolar_reward"):
         DiskLoss({**BASE_CONFIG, "epipolar_reward": "linear_reward"})
     assert LOSSES["DiskLoss"] is DiskLoss

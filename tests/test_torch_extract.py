@@ -202,3 +202,37 @@ def test_head_choice_reaches_the_model_and_config_yaml(tmp_path, dataflow, mode)
     lh = saved["model_config"]["localheader_config"]
     assert lh["fused_upsample"] == dataflow
     assert lh.get("fused_head_mode") == mode
+
+
+@pytest.mark.parametrize("mode", ["v3", "v1"])
+def test_f32_pallas_head_extractors_write_matching_npz(tmp_path, rng, weights, monkeypatch, mode):
+    """The f32 extraction with ``head_dataflow: pallas`` (the settings of
+    configs/extract_hpatches.yaml plus the fused head, which the card now
+    runs at f32): the port's Extractor on the CPU (the kernels' plain
+    versions) against JAX's with the same setting (its Pallas head
+    interpreted; POSFEAT_HEAD_MODE picks v1 there, ``head_mode`` here), at
+    this file's tolerances."""
+    import cv2
+
+    from posfeat_tpu.data.synthetic import _texture
+    from posfeat_tpu.extract import Extractor as JaxExtractor
+
+    _, _, ck = weights
+    seq = tmp_path / "hp" / "i_x"
+    seq.mkdir(parents=True)
+    cv2.imwrite(str(seq / "1.ppm"), cv2.cvtColor(_texture(rng, H, W), cv2.COLOR_RGB2BGR))
+    if mode == "v1":
+        monkeypatch.setenv("POSFEAT_HEAD_MODE", "v1")
+    cfg = _config(tmp_path, f"jax_{mode}", ck)
+    cfg["head_dataflow"] = "pallas"
+    JaxExtractor(cfg, ckpt_root=str(tmp_path / "out")).extract()
+    cfg = dict(_config(tmp_path, f"port_{mode}", ck), head_dataflow="pallas", head_mode=mode)
+    ex = Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu")
+    head = ex.model.localheader
+    assert head.fused_upsample == "pallas" and head.fused_head_mode == mode and ex.config["compute_dtype"] == "float32"
+    ex.extract()
+    ref = np.load(tmp_path / "out" / f"ex_jax_{mode}" / "desc" / "i_x" / "1.ppm.pf")
+    got = np.load(tmp_path / "out" / f"ex_port_{mode}" / "desc" / "i_x" / "1.ppm.pf")
+    assert got["keypoints"].shape == ref["keypoints"].shape and got["descriptors"].dtype == np.float32
+    _pairs_close(got["keypoints"], got["scores"][:, 0], got["descriptors"],
+                 ref["keypoints"], ref["scores"][:, 0], ref["descriptors"])

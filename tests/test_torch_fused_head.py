@@ -209,10 +209,28 @@ def test_head_tail_rows_per_block():
     assert fh.head_tail_rows_per_block(16, 307200) == 4800  # the flagship point: 64 blocks per image
 
 
+def _close_conv(z, s, q, zr, sr, qr, dtype, bf16_rtol):
+    """A conv kernel's z and summed moments against its plain version's:
+    bf16 z at bf16 resolution (``bf16_rtol``) and moments at rtol 1e-3
+    (f32 sums, another order); f32 z within 1e-5 of max|z| and moments at
+    rtol 1e-5 of the sums of |z| and z^2 (f32 FMAs in another order: no
+    rounding of z)."""
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(z.float(), zr.float(), rtol=bf16_rtol, atol=1e-2)
+        torch.testing.assert_close(s.sum(1), sr.sum(1), rtol=1e-3, atol=1e-1)
+        torch.testing.assert_close(q.sum(1), qr.sum(1), rtol=1e-3, atol=1e-1)
+        return
+    assert z.dtype == torch.float32
+    torch.testing.assert_close(z, zr, rtol=0, atol=1e-5 * zr.abs().max().item())
+    torch.testing.assert_close(s.sum(1), sr.sum(1), rtol=1e-5, atol=1e-5 * zr.abs().sum((1, 2)).max().item())
+    torch.testing.assert_close(q.sum(1), qr.sum(1), rtol=1e-5, atol=0)
+
+
 @pytest.mark.gpu
-def test_cuda_kernels_match_plain_versions():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_kernels_match_plain_versions(dtype):
     """K1 and K2 on the card against their plain versions, on the same
-    bf16 inputs: ragged tiles (h, w not multiples of the 8 x 16 tile), B = 2
+    inputs, in each compute dtype's instance: ragged tiles (h, w not multiples of the 8 x 16 tile), B = 2
     (wm[b] and b2b[b] differ per image), the least C (32), N = 256, 384 (a
     last half step of 128 channels) and 2048, a small flagship-like shape,
     and C or KP too wide for the halo and patch tile to stay resident
@@ -231,18 +249,16 @@ def test_cuda_kernels_match_plain_versions():
     for B, h, w, C, cout, out_ch, KP in shapes:
         N = 16 * cout
         g = lambda *s, sc=1.0: torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).to(dev)
-        bf = torch.bfloat16
-        tp, kph = g(B, h + 2, w + 2, C).to(bf), g(9, C, N, sc=0.05).to(bf)
-        pat, wm, b2b = g(B, h, w, KP).to(bf), g(B, KP, N, sc=0.05).to(bf), g(B, N, sc=0.1)
-        n1 = fh.conv_phase.launches
+        tp, kph = g(B, h + 2, w + 2, C).to(dtype), g(9, C, N, sc=0.05).to(dtype)
+        pat, wm, b2b = g(B, h, w, KP).to(dtype), g(B, KP, N, sc=0.05).to(dtype), g(B, N, sc=0.1)
+        count = "launches_f32" if dtype == torch.float32 else "launches"
+        n1, n_other = getattr(fh.conv_phase, count), fh.conv_phase.launches + fh.conv_phase.launches_f32
         z, s, q = fh.conv_phase(tp, kph, pat, wm, b2b)
         torch.cuda.synchronize()
-        assert fh.conv_phase.launches == n1 + 1
+        assert getattr(fh.conv_phase, count) == n1 + 1
+        assert fh.conv_phase.launches + fh.conv_phase.launches_f32 == n_other + 1
         zr, sr, qr = fh.conv_phase_plain(tp, kph, pat, wm, b2b)
-        # z at bf16 resolution, moments at rtol 1e-3 (f32 sums, other order)
-        torch.testing.assert_close(z.float(), zr.float(), rtol=1e-2, atol=1e-2)
-        torch.testing.assert_close(s.sum(1), sr.sum(1), rtol=1e-3, atol=1e-1)
-        torch.testing.assert_close(q.sum(1), qr.sum(1), rtol=1e-3, atol=1e-1)
+        _close_conv(z, s, q, zr, sr, qr, dtype, bf16_rtol=1e-2)
         if (cout // 8) & (cout // 8 - 1):
             continue  # K2 takes Cout / 8 a power of two
         mu, sc = g(B, cout, sc=0.1), g(B, cout).abs() + 0.5
@@ -256,10 +272,11 @@ def test_cuda_kernels_match_plain_versions():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("cout", [8, 16, 32, 64, 128, 256])
-def test_cuda_head_tail_every_instance(cout):
-    """K2 against its plain version for every compiled instance: lanes
-    per row Cout / 8 = 1 ... 32, out_ch 1-4, at B = 2 and an R (5 x 10 x 16
+def test_cuda_head_tail_every_instance(cout, dtype):
+    """K2 against its plain version for every compiled instance: z in bf16
+    and f32, lanes per row Cout / 8 = 1 ... 32, out_ch 1-4, at B = 2 and an R (5 x 10 x 16
     = 800 phase rows, 3 blocks of 267) that is a multiple of neither the
     rows per block nor a warp's trip."""
     if not torch.cuda.is_available():
@@ -271,15 +288,16 @@ def test_cuda_head_tail_every_instance(cout):
     rows = fh.head_tail_rows_per_block(B, R)
     assert R % rows and rows % 32
     g = lambda *s, sc=1.0: torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).to(dev)
-    z = g(B, h, w, 16 * cout).to(torch.bfloat16)
+    z = g(B, h, w, 16 * cout).to(dtype)
     mu, sc = g(B, cout, sc=0.1), g(B, cout).abs() + 0.5
     a = torch.tensor([0.25], device=dev)
+    count = "launches_f32" if dtype == torch.float32 else "launches"
     for out_ch in (1, 2, 3, 4):
         w3, b3 = g(cout, out_ch, sc=0.1), g(out_ch)
-        n0 = fh.head_tail.launches
+        n0 = getattr(fh.head_tail, count)
         u, us, uq = fh.head_tail(z, mu, sc, a, w3, b3)
         torch.cuda.synchronize()
-        assert fh.head_tail.launches == n0 + 1 and us.shape == (B, -(-R // rows), out_ch)
+        assert getattr(fh.head_tail, count) == n0 + 1 and us.shape == (B, -(-R // rows), out_ch)
         ur, usr, uqr = fh.head_tail_plain(z, mu, sc, a, w3, b3)
         torch.testing.assert_close(u, ur, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(us.sum(1), usr.sum(1), rtol=1e-3, atol=1e-2)

@@ -93,8 +93,9 @@ def test_keypoint_det_rejects_unknown_dataflows():
 
 
 @pytest.mark.parametrize("dataflow, dtype, device, refused", [
-    ("pallas", torch.float32, "cuda", True),
+    ("pallas", torch.float32, "cuda", False),
     ("pallas", torch.float16, "cuda", True),
+    ("pallas", torch.float64, "cuda", True),
     ("pallas", torch.bfloat16, "cuda", False),
     ("pallas", torch.float32, "cpu", False),
     (False, torch.float32, "cuda", False),
@@ -103,14 +104,14 @@ def test_keypoint_det_rejects_unknown_dataflows():
     ("always", torch.float32, "cuda", False),
 ])
 def test_fused_head_refused_on_the_card_below_bf16(dataflow, dtype, device, refused):
-    """The fused head's kernels take bf16 only: (pallas, not bf16, cuda)
-    raises ValueError naming K1/K2 and the dataflows that run at f32;
-    every other dataflow, bf16 on the card, and every dtype on the CPU
-    (the plain versions) pass."""
+    """The fused head's kernels take bf16 and f32: (pallas, any other
+    dtype, cuda) raises ValueError naming K1/K2, the dtypes they take and
+    the dataflows that run at any dtype; every other dataflow, bf16 and
+    f32 on the card, and every dtype on the CPU (the plain versions) pass."""
     from posfeat_tpu_torch.models.keypoint_det import check_head_dataflow
 
     if refused:
-        with pytest.raises(ValueError, match=r"K1/K2.*False, True, 'phase' or 'always'"):
+        with pytest.raises(ValueError, match=r"K1/K2.*bfloat16 and float32 only.*False, True, 'phase' or 'always'"):
             check_head_dataflow(dataflow, dtype, device)
     else:
         check_head_dataflow(dataflow, dtype, device)

@@ -172,25 +172,33 @@ def test_tf32_rounding_model():
 def _unsplit(f1s, f2s, B, m, n, D):
     """(hi, lo) of f1 [B, m', depth] and of f2 [B, n', depth] (m', n'
     whole tiles) read back from the split tiles at the offsets the
-    kernels read them: a block's f1 tile at (b * row_tiles + tile) *
-    2 * (depth / 4) * 128 * 4 floats, hi then lo, each [depth / 4][128][4];
-    f2's chunk i = column_tile * chunks + c at i * 2 * 16 * 128 floats, hi
-    then lo, each [4][128][4]."""
+    kernels read them: up to D = RESIDENT_D a block's f1 tile at
+    (b * row_tiles + tile) * 2 * (depth / 4) * 128 * 4 floats, hi then
+    lo, each [depth / 4][128][4]; f2's chunk i = column_tile * chunks + c
+    at i * 2 * 16 * 128 floats, hi then lo, each [4][128][4], and so a
+    wider f1's chunk c of row tile i."""
     t, ck = rf.TILE_M, rf.CHUNK
     depth = ck * -(-D // ck)
     nck, mt, nt = depth // ck, -(-m // t), -(-n // t)
-    a = f1s.view(B * mt, 2, depth // 4, t, 4)  # [block][hi, lo][q][r][k]
-    a = a.permute(1, 0, 3, 2, 4).reshape(2, B, mt * t, depth)
-    c = f2s.view(B * nt, nck, 2, ck // 4, t, 4)  # [tile][chunk][hi, lo][q][r][k]
-    c = c.permute(2, 0, 4, 1, 3, 5).reshape(2, B, nt * t, depth)
-    return a, c
+
+    def chunked(x, tiles):
+        c = x.view(B * tiles, nck, 2, ck // 4, t, 4)  # [tile][chunk][hi, lo][q][r][k]
+        return c.permute(2, 0, 4, 1, 3, 5).reshape(2, B, tiles * t, depth)
+
+    if rf.f1_resident(D):
+        a = f1s.view(B * mt, 2, depth // 4, t, 4)  # [block][hi, lo][q][r][k]
+        a = a.permute(1, 0, 3, 2, 4).reshape(2, B, mt * t, depth)
+    else:
+        a = chunked(f1s, mt)
+    return a, chunked(f2s, nt)
 
 
-@pytest.mark.parametrize("D", [128, 36, 20, 126, 30, 5])
+@pytest.mark.parametrize("D", [128, 36, 20, 126, 30, 5, 256, 200])
 def test_split_layout_is_what_both_kernels_read(D):
     """``_split_operands`` on the CPU, ``_split_plain``, gives f1 and f2 as
     the kernels read them, in the tile layout [B][tile][chunk][hi, lo][cq]
-    [128][4] that ``lse_split_kernel`` writes: read back at the passes'
+    [128][4] that ``lse_split_kernel`` writes (f1 whole up to D = 128, in
+    16-deep chunks beyond, where it streams): read back at the passes'
     offsets, hi is x rounded to TF32 bit for bit (the numpy model of
     cvt.rna), lo is x - hi rounded, zero beyond m, n and D; the 3xTF32
     product of the tiles is the modelled one."""
@@ -250,7 +258,7 @@ def _aff_of_dots(dot, T):
     return v * torch.tensor(np.log(2.0), dtype=torch.float32)
 
 
-@pytest.mark.parametrize("D", [128, 36, 126])
+@pytest.mark.parametrize("D", [128, 36, 126, 256, 200])
 def test_3xtf32_reward_model_matches_pallas_interpret(D):
     """The reward pass on the lse pass's 3xTF32 product, modelled on the
     CPU at the training path's T = 60: the modelled dots (the tensor
@@ -281,26 +289,24 @@ def test_3xtf32_reward_model_matches_pallas_interpret(D):
         torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("D, takes", [(128, True), (64, True), (130, False), (126, True), (30, True), (129, False)])
-def test_streamed_loss_only_at_widths_the_kernels_take(D, takes):
-    """DiskLoss picks the streamed reduction only where its kernels take
-    the descriptors' width (D <= 128), from the width alone, before any
-    launch, as the JAX package picks its path from the config; where the
-    width alone sends a streamed configuration to the dense loss, it
-    warns."""
+@pytest.mark.parametrize("D", [128, 64, 130, 126, 30, 129])
+def test_streamed_loss_only_at_widths_the_kernels_take(D):
+    """The kernels take any positive width, as the JAX reduction does, so
+    DiskLoss picks the streamed reduction in the streamed configuration
+    at every width, D = 129 and 130 beyond the resident f1 tile included,
+    with no warning; ``use_pallas: False`` still takes the dense loss."""
     import warnings
 
     from posfeat_tpu_torch.losses import DiskLoss
 
     cfg = dict(_SHIPPED_LOSS, use_pallas="auto")
-    assert rf.kernels_take(D) is takes
+    assert rf.kernels_take(D) and not rf.kernels_take(0)
+    assert rf.f1_resident(D) is (D <= 128)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        assert DiskLoss(cfg)._use_streamed(D) is takes
-        assert DiskLoss(dict(cfg, use_pallas=False))._use_streamed(D) is False
-    assert [str(w.message) for w in caught] == ([] if takes else [
-        f"DiskLoss: descriptor width {D} is wider than the streamed reduction's kernels take (128); "
-        "taking the dense loss"])
+        assert DiskLoss(cfg)._use_streamed() is True
+        assert DiskLoss(dict(cfg, use_pallas=False))._use_streamed() is False
+    assert not caught
 
 
 # configs/train_kp.yaml's DiskLoss_config, the streamed path's configuration
@@ -311,42 +317,74 @@ _SHIPPED_LOSS = {
 }
 
 
-def test_wide_descriptors_take_the_dense_loss(monkeypatch):
-    """At D = 130 (beyond the kernels' 128) a DiskLoss step in the
-    streamed configuration takes the dense path and matches the dense
-    loss: the reduction is never called."""
+@pytest.mark.parametrize("D", [130, 256])
+def test_wide_descriptors_take_the_streamed_loss(D, monkeypatch):
+    """At D = 130 and 256 (beyond the resident f1 tile of 128) a DiskLoss
+    step in the streamed configuration takes the streamed reduction, with
+    no warning, on the same draws as the dense step and as JAX's DiskLoss
+    with its Pallas reduction (interpret=True): the loss at rtol 2e-4 and
+    the score maps' gradient at rtol 2e-3 (test_pallas_reinforce.py:121-128),
+    the streamed against the dense step and against JAX."""
+    import warnings
+
+    import jax
+    import jax.numpy as jnp
+
+    from posfeat_tpu.losses.disk_loss import DiskLoss as JaxDiskLoss
     from posfeat_tpu_torch.losses import DiskLoss
     from posfeat_tpu_torch.losses import disk_loss as dl
+    from torch_port_helpers import jax_disk_draws, torch_draws
 
     rng = np.random.RandomState(4)
-    B, H, W, D, G = 2, 32, 48, 130, 8
-    kp1, kp2 = (torch.from_numpy(rng.randn(B, H, W, 1).astype(np.float32)) for _ in range(2))
-    xf1 = torch.from_numpy(rng.randn(B, H // 4, W // 4, D).astype(np.float32))
-    xf2 = xf1 + 0.3 * torch.from_numpy(rng.randn(B, H // 4, W // 4, D).astype(np.float32))
-    F = torch.from_numpy(_fundamental(rng, B))
-    inputs = {"F1": F, "F2": F.mT.contiguous()}
+    B, H, W, G = 2, 32, 48, 8
+    kp1, kp2 = (rng.randn(B, H, W, 1).astype(np.float32) for _ in range(2))
+    xf1 = rng.randn(B, H // 4, W // 4, D).astype(np.float32)
+    xf2 = (xf1 + 0.3 * rng.randn(B, H // 4, W // 4, D)).astype(np.float32)
+    F = _fundamental(rng, B)
+    Ft = np.ascontiguousarray(F.transpose(0, 2, 1))
+    key = jax.random.PRNGKey(5)
+    draws = jax_disk_draws(kp1, kp2, key, G)
 
     def step(cfg):
-        k1, k2 = kp1.clone().requires_grad_(True), kp2.clone().requires_grad_(True)
-        out = {"preds1": {"local_point": k1, "local_map": xf1}, "preds2": {"local_point": k2, "local_map": xf2},
-               "epoch": 1}
-        loss, comps = DiskLoss(cfg)(inputs, out, None, generator=torch.Generator().manual_seed(0))
+        k1, k2 = torch.from_numpy(kp1).requires_grad_(True), torch.from_numpy(kp2).requires_grad_(True)
+        out = {"preds1": {"local_point": k1, "local_map": torch.from_numpy(xf1)},
+               "preds2": {"local_point": k2, "local_map": torch.from_numpy(xf2)}, "epoch": 1}
+        loss, comps = DiskLoss(cfg)({"F1": torch.from_numpy(F), "F2": torch.from_numpy(Ft)}, out, None,
+                                    draws=torch_draws(draws))
         loss.backward()
-        return loss.item(), comps, k1.grad
+        return loss.item(), comps, [k1.grad.numpy(), k2.grad.numpy()]
 
-    def never(*a, **k):
-        raise AssertionError("the streamed reduction ran at D = 130")
+    calls = []
 
-    monkeypatch.setattr(dl, "reinforce_reduction", never)
-    with pytest.warns(UserWarning, match="descriptor width 130"):
-        l_auto, c_auto, g_auto = step(dict(_SHIPPED_LOSS, use_pallas="auto"))
-    l_dense, c_dense, g_dense = step(dict(_SHIPPED_LOSS, use_pallas=False))
-    assert np.isfinite(l_auto) and l_auto == l_dense
-    assert set(c_auto) == set(c_dense) and "cor max" in c_auto
-    torch.testing.assert_close(g_auto, g_dense, rtol=0, atol=0)
+    def counted(*a, **k):
+        calls.append(a[0].shape[-1])
+        return rf.reinforce_reduction(*a, **k)
+
+    monkeypatch.setattr(dl, "reinforce_reduction", counted)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        l_st, c_st, g_st = step(dict(_SHIPPED_LOSS, use_pallas="auto"))
+    assert calls == [D]
+    l_de, c_de, g_de = step(dict(_SHIPPED_LOSS, use_pallas=False))
+    assert calls == [D] and np.isfinite(l_st)
+
+    jax_loss = JaxDiskLoss(dict(_SHIPPED_LOSS, use_pallas="interpret"))
+
+    def f(a, b):
+        outputs = {"preds1": {"local_point": a, "local_map": jnp.asarray(xf1)},
+                   "preds2": {"local_point": b, "local_map": jnp.asarray(xf2)}, "epoch": 1}
+        return jax_loss({"F1": jnp.asarray(F), "F2": jnp.asarray(Ft)}, outputs, None, key=key)
+
+    (l_jax, c_jax), g_jax = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(jnp.asarray(kp1), jnp.asarray(kp2))
+    for l_ref, g_ref in ((l_de, g_de), (float(l_jax), [np.asarray(g) for g in g_jax])):
+        np.testing.assert_allclose(l_st, l_ref, rtol=2e-4, atol=1e-5)
+        for g, r in zip(g_st, g_ref):
+            np.testing.assert_allclose(g, r, rtol=2e-3, atol=1e-5)
+    np.testing.assert_allclose(float(c_st["reinforce"]), float(c_jax["reinforce"]), rtol=2e-4, atol=1e-6)
+    assert set(c_st) == set(c_de) and "cor max" in c_st
 
 
-@pytest.mark.parametrize("D", [128, 36])
+@pytest.mark.parametrize("D", [128, 36, 256, 200])
 def test_3xtf32_lse_model_matches_pallas_interpret(D):
     """The lse pass's 3xTF32 product, modelled on the CPU, at the
     training path's T = 60: its row and column log-sum-exp against the
@@ -375,10 +413,13 @@ def test_3xtf32_lse_model_matches_pallas_interpret(D):
     "shape",
     [(2, 150, 97, 128), (1, 64, 64, 16), (3, 37, 200, 36), (2, 129, 257, 16), (1, 129, 257, 128),
      (2, 150, 97, 36), (1, 300, 130, 128), (2, 150, 600, 36), (2, 389, 261, 128), (1, 517, 300, 20),
-     (2, 150, 97, 126), (1, 260, 131, 30), (2, 129, 70, 5)],
+     (2, 150, 97, 126), (1, 260, 131, 30), (2, 129, 70, 5), (2, 150, 97, 256), (1, 389, 261, 256),
+     (2, 129, 257, 200), (1, 300, 130, 130), (2, 150, 97, 129), (1, 260, 131, 520)],
     ids=["ragged_d128", "one_tile_d16", "ragged_d36", "ragged_129x257_d16", "ragged_129x257_d128",
          "ragged_d36_b", "three_row_tiles_d128", "five_column_tiles_d36", "four_row_tiles_d128",
-         "five_row_tiles_d20", "ragged_depth_d126", "ragged_depth_d30", "ragged_depth_d5"],
+         "five_row_tiles_d20", "ragged_depth_d126", "ragged_depth_d30", "ragged_depth_d5",
+         "streamed_d256", "four_row_tiles_d256", "streamed_ragged_depth_d200", "streamed_d130",
+         "streamed_ragged_depth_d129", "streamed_d520"],
 )
 def test_cuda_kernels_match_plain_versions(shape):
     """Each kernel against its plain version on the same inputs (the
@@ -393,7 +434,7 @@ def test_cuda_kernels_match_plain_versions(shape):
     T = KW["temperature"]
     f1s, f2s = rf._split_operands(f1, f2)
     torch.cuda.synchronize()
-    assert torch.equal(f1s, rf._split_plain(f1, True)) and torch.equal(f2s, rf._split_plain(f2, False))
+    assert torch.equal(f1s, rf._split_plain(f1, rf.f1_resident(D))) and torch.equal(f2s, rf._split_plain(f2, False))
     n0 = (rf.lse_pass.launches, rf.reward_pass.launches, rf._split_operands.launches)
     rl, cl = rf.lse_pass(f1, f2, T)
     torch.cuda.synchronize()

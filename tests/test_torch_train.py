@@ -83,7 +83,7 @@ def test_one_step_matches_jax_gradient_and_sgd_update(tmp_path):
 
     total, comps, grad_norms, finite = tr.train_step(tr.to_device(batch_np), 1, draws=torch_draws(draws))
     # the port's streamed path, plain on CPU, at the descriptors' width
-    assert finite and tr.loss_fns[0][2]._use_streamed(SMALL_CONFIG["backbone_config"]["fine_out_ch"])
+    assert finite and tr.loss_fns[0][2]._use_streamed()
     np.testing.assert_allclose(float(total), float(l_ref), rtol=1e-3, atol=2e-4)
     np.testing.assert_allclose(float(comps["reinforce"]), float(comps_ref["reinforce"]), rtol=1e-3, atol=2e-4)
     g_want = head_state_dict({"params": jax.tree.map(np.asarray, g_ref)})

@@ -37,6 +37,23 @@ def test_from_jax_variables_round_trips_exactly():
     _assert_trees_equal(import_keypoint_det(sd_h), variables["localheader"])
 
 
+def test_from_jax_variables_carries_a_256_wide_descriptor():
+    """The stage-2 path at D = 256 (``fine_out_ch: 256``): the carrier maps
+    a 256-wide fine head of the backbone and the head's 320 inputs
+    (256 + the 64-channel local_map_small) name for name, exactly."""
+    cfg = copy.deepcopy(SMALL_CONFIG)
+    cfg["backbone_config"]["fine_out_ch"] = 256
+    cfg["localheader_config"]["in_channels"] = 256 + 64
+    _, variables = jax_posfeat(cfg, seed=5, im_shape=(1, 32, 32, 3))
+    model = port_posfeat(variables, cfg)
+    assert model.localheader.conv1.weight.shape == (320, 320, 3, 3)
+    assert max(v.shape[0] for k, v in model.backbone.state_dict().items() if v.ndim == 4) >= 256
+    _assert_trees_equal(import_resunet({k: v.numpy() for k, v in model.backbone.state_dict().items()}),
+                        variables["backbone"])
+    _assert_trees_equal(import_keypoint_det({k: v.numpy() for k, v in model.localheader.state_dict().items()}),
+                        variables["localheader"])
+
+
 def test_resunet_hr_layout_round_trips(rng):
     from posfeat_tpu.models import ResUNetHR
 
