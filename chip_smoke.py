@@ -9,11 +9,12 @@ Phases, one line each (more for the build):
      registers, shared memory and spills from -Xptxas -v (and the conv
      kernels' dynamic shared memory at Cin = 192; K2's 24 template
      instances for each z dtype, bf16 and f32, in one line each); the
-     four bf16 and four f32 conv kernels, all 48 K2 instances and the
-     reduction kernels (the split, the lse and reward passes with f1
-     resident and streamed) must not spill, nor any but the bf16 conv
-     kernels keep a stack frame, nor ptxas inject warpgroup.waits
-     (C7517) into the lse or the reward pass;
+     four bf16 and four f32 conv kernels, the f32 ones' two split
+     kernels, all 48 K2 instances and the reduction kernels (the split,
+     the lse and reward passes with f1 resident and streamed) must not
+     spill, nor any but the bf16 conv kernels keep a stack frame, nor
+     ptxas inject warpgroup.waits (C7517) into the lse or the reward pass
+     or the f32 conv kernels;
   3. kernels: K1 and K2 at the shapes the main path gives them (B=16,
      h=120, w=160, Cin=192, Cout=128, out_ch=1) against their plain
      versions on the same bf16 inputs, the fused head's score map with
@@ -141,15 +142,18 @@ Phases, one line each (more for the build):
  17. slice H: (a) the f32 instances of K1, K3 (and T1, T2, which the
      conv body gives) and K2 against their plain f32 versions at phases 3
      and 8's shapes (z within 1e-5 x max|z|, moments within rtol 1e-5,
-     u within 1e-4), with times beside the 3xTF32 bound, the plain
-     version and cuDNN's f32 trunk conv or an f32 linear(prelu);
+     u within 1e-4; the conv kernels run 3xTF32 on the split's hi and
+     lo parts, and K1's split is held bit for bit to its plain version),
+     with times beside the 3xTF32 bound, the plain version and cuDNN's f32
+     trunk conv or an f32 linear(prelu);
      (b) the f32 fused head against the f32 reference dataflow at
      480x640 in v3 and v1 (rtol 2e-3 / atol 2e-4, the JAX test's);
      (c) the f32 extraction with ``head_dataflow: pallas`` in v3 and v1
      and, beside it, the shipped f32 config's reference dataflow, 64
      images each after a warm-up batch: im/s, peak memory, the f32
-     instances launched and the bf16 ones not; (d) the reduction at
-     D = 256 and 200 (f1 streamed) with phase 6's checks and times; (e)
+     instances launched (one split per conv launch) and the bf16 ones
+     not; (d) the reduction at D = 256 and 200 (f1 streamed) with phase
+     6's checks and times; (e)
      phase 7's stage 2 at ``fine_out_ch: 256`` (the head's inputs 320):
      the kernels step against the dense one, then a warm-up and 5 timed
      Trainer steps, the reduction launched once a step, the dense loss
@@ -237,8 +241,10 @@ def _bound(ops, peak, nbytes):
 
 CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_img_none_kernel",
                 "conv_phase_img_phase_kernel")
-# csrc/fused_head_f32.cu's conv_f32_kernel<MODE>, by the kernel each MODE is
-F32_CONV_KERNELS = ("conv_f32_kernel<K1>", "conv_f32_kernel<K3>", "conv_f32_kernel<T1>", "conv_f32_kernel<T2>")
+# csrc/fused_head_f32.cu's 3xTF32 conv_phase_f32_kernel<MODE>, by the kernel each MODE is, and its split
+F32_CONV_KERNELS = ("conv_phase_f32_kernel<K1>", "conv_phase_f32_kernel<K3>", "conv_phase_f32_kernel<T1>",
+                    "conv_phase_f32_kernel<T2>")
+F32_SPLIT_KERNELS = ("split_tiles_kernel", "split_b_kernel")
 # the reduction passes' instances: f1 resident (D <= 128), f1 streamed (D > 128)
 REDUCTION_KERNELS = ("lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", "lse_pass_kernel<streamed>",
                      "reward_pass_kernel<streamed>")
@@ -253,13 +259,13 @@ def _kernel_key(mangled):
     m = re.search(r"head_tail_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
     if m:
         return f"head_tail_kernel<{'f32,' if m.group(1) == 'f' else ''}{m.group(2)},{m.group(3)}>"
-    m = re.search(r"conv_f32_kernelILi(\d)E", mangled)
+    m = re.search(r"conv_phase_f32_kernelILi(\d)E", mangled)
     if m:
         return F32_CONV_KERNELS[int(m.group(1))]
     m = re.search(r"(lse_pass_kernel|reward_pass_kernel)ILb([01])E", mangled)
     if m:
         return m.group(1) + ("<streamed>" if m.group(2) == "1" else "")
-    return next(k for k in (*CONV_KERNELS, "lse_split_kernel", mangled) if k in mangled)
+    return next(k for k in (*CONV_KERNELS, *F32_SPLIT_KERNELS, "lse_split_kernel", mangled) if k in mangled)
 
 
 def _ptxas_summary(log):
@@ -486,8 +492,9 @@ def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None, dtype="bfl
 
 
 def _zero_counts(fh):
-    """Every fused-head kernel's launch count to 0, bf16 and f32 instances."""
-    fh.conv_phase.launches = fh.conv_phase.launches_f32 = 0
+    """Every fused-head kernel's launch count to 0, bf16 and f32 instances
+    and the f32 instances' split."""
+    fh.conv_phase.launches = fh.conv_phase.launches_f32 = fh.split_conv_operands.launches = 0
     fh.head_tail.launches = fh.head_tail.launches_f32 = 0
     fh.conv_phase_img.launches = dict.fromkeys(fh.IMG_LAYOUTS, 0)
     fh.conv_phase_img.launches_f32 = dict.fromkeys(fh.IMG_LAYOUTS, 0)
@@ -2044,7 +2051,7 @@ def slice_h_kernels(torch, fh, rng):
     records, lines = [], []
 
     def conv_record(name, replaces, ops, nbytes, err, ms, plain, lib):
-        bound = _bound(3 * ops, PEAK_TF32, nbytes)  # the same products as 3xTF32 on the tensor cores
+        bound = _bound(3 * ops, PEAK_TF32, nbytes)  # the kernel's 3xTF32 products on the tensor cores
         ffma_ms = ops / PEAK_F32 * 1e3
         lines.append(f"[17] (a) {name}: z max|err| {err:.4g}; {ms:.4f} ms per B={B} launch (bound {bound[0]:.4f} ms "
                      f"by {bound[1]}: 3xTF32; as f32 FMAs {ffma_ms:.4f} ms), plain {plain:.4f} ms, cuDNN f32 trunk "
@@ -2055,8 +2062,18 @@ def slice_h_kernels(torch, fh, rng):
                 "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib}
 
-    # K1 at f32
+    # the split of K1's operands into TF32 hi and lo, bit for bit its plain version's
     pat, wm, b2b = g(B, h, w, KP), g(B, KP, N, scale=0.03), g(B, N, scale=0.1)
+    split = fh.split_conv_operands(tp, kph, pat, wm)
+    torch.cuda.synchronize()
+    for got, want in zip(split, fh.split_conv_operands_plain(tp, kph, pat, wm), strict=True):
+        assert torch.equal(got, want)
+    del split
+    split_ms = _time_ms(lambda: fh.split_conv_operands(tp, kph, pat, wm), n=5, warmup=1)
+    lines.append(f"[17] (a) split of K1's operands (tp, kph, pat, wm) into TF32 hi and lo: bit for bit the plain "
+                 f"split; {split_ms:.4f} ms per B={B} launch, inside K1's time below")
+
+    # K1 at f32
     z, s, q = fh.conv_phase(tp, kph, pat, wm, b2b)
     torch.cuda.synchronize()
     zr, sr, qr = fh.conv_phase_plain(tp, kph, pat, wm, b2b)
@@ -2178,6 +2195,7 @@ def slice_h_extraction(torch, fh, rng, records):
             conv = "K1 conv_phase f32" if mode == "v3" else "K3 conv_phase_img f32"
             other = "K3 conv_phase_img f32" if mode == "v3" else "K1 conv_phase f32"
             assert f32n[conv] > 0 and f32n["K2 head_tail f32"] > 0 and f32n[other] == 0, f32n
+            assert fh.split_conv_operands.launches == f32n[conv], (fh.split_conv_operands.launches, f32n)
             for r in records:
                 if r["name"] == conv or (mode == "v3" and r["name"] == "K2 head_tail f32"):
                     r["launches"] = f32n[r["name"]]
@@ -2315,18 +2333,20 @@ def main() -> int:
         print(f"[2]   head_tail_kernel, all {len(group)} {dt} instances: registers "
               f"{min(v['regs'] for v in group)}-{max(v['regs'] for v in group)}, stack "
               f"{max(v['stack'] for v in group)} B, spills {sum(v['spill_stores'] + v['spill_loads'] for v in group)} B")
-    for kname in (*CONV_KERNELS, *F32_CONV_KERNELS, *k2, *REDUCTION_KERNELS):
+    for kname in (*CONV_KERNELS, *F32_CONV_KERNELS, *F32_SPLIT_KERNELS, *k2, *REDUCTION_KERNELS):
         props = summary[kname]
         assert props["spill_stores"] == props["spill_loads"] == 0, (kname, props)
         if kname not in CONV_KERNELS:
             assert props["stack"] == 0, (kname, props)
     # a warpgroup.wait that ptxas injects (C7517, before a read of registers
     # a wgmma defines) serializes the wgmmas of product_tiles, the loop both
-    # reduction passes run; its column tiles' first wgmmas write their
-    # accumulators without reading them, and the build has none
-    for kname in ("lse_pass_kernel", "reward_pass_kernel"):
+    # reduction passes run, and of the f32 conv kernels, which run the same
+    # steps; their first wgmmas of a tile write the accumulators without
+    # reading them, and the build has none
+    for kname, which in (("lse_pass_kernel", "both"), ("reward_pass_kernel", "both"),
+                         ("conv_phase_f32_kernel", "all four")):
         injected = [x for x in info["log"].splitlines() if "C7517" in x and kname in x]
-        print(f"[2]   {kname} (both instances): {len(injected)} warpgroup.wait injected by ptxas (C7517)")
+        print(f"[2]   {kname} ({which} instances): {len(injected)} warpgroup.wait injected by ptxas (C7517)")
         assert not injected, injected
 
     rng = np.random.default_rng(SEED)

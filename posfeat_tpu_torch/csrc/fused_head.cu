@@ -193,10 +193,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                : "memory");
 }
 
-__device__ __forceinline__ void named_bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
 // a[i] of lane t -> a[t] of lane i, inside each quad of lanes (t = lane % 4):
 // two xor steps, each swapping the off-diagonal halves of 2 x 2 blocks
 __device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int t) {
@@ -234,15 +230,6 @@ __device__ __forceinline__ void reduce_scatter_step(float (&d)[128], int lane) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
 }
 
 // d[64 x 256] (+)= A[64 x 16] * B[16 x 256], both bf16 in shared memory, K-major

@@ -131,6 +131,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.posfeat_conv_phase.restype = i
     lib.posfeat_conv_phase_img.argtypes = [p] * 7 + [i] * 9 + [p]
     lib.posfeat_conv_phase_img.restype = i
+    lib.posfeat_conv_split_f32.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.posfeat_conv_split_f32.restype = i
     lib.posfeat_conv_phase_f32.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.posfeat_conv_phase_f32.restype = i
     lib.posfeat_conv_phase_img_f32.argtypes = [p] * 7 + [i] * 9 + [p]

@@ -28,6 +28,10 @@ f32, as the JAX head runs its kernels at the trunk's dtype:
 - K2 ``head_tail``: u = PReLU((z − μ)·s) @ w3 + b3 in f32, plus per-tile
   Σu and Σu².
 
+The f32 conv instances run 3×TF32 on the tensor cores: a split
+(``split_conv_operands``) first writes every operand as TF32 hi and lo
+parts, x = hi + lo, into scratch laid out as the conv kernel reads it.
+
 On a CUDA tensor each wrapper launches its hand-written kernel or
 raises; on a CPU tensor it runs the plain PyTorch version beside it.
 ``launches`` counts the bf16 instance's launches, ``launches_f32`` the
@@ -45,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .phase import _edge_pad1, _phase_kernel, ring_correction_strips, space_to_phase
+from .reinforce import _tf32_rna
 
 # conv tile (trunk rows × columns per CUDA block) of K1/K3/T1/T2;
 # csrc/fused_head.cu rejects a launch whose tile differs from its
@@ -105,6 +110,102 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed ({rc}): {msg}")
 
 
+# ------------------------------------------------- the f32 instances' split
+
+
+def tf32_split(x):
+    """x [f32] = hi + lo, both TF32 values kept as f32, as the split kernels
+    form them: hi = x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to
+    nearest, ties away from zero, by bit arithmetic on the f32 word: the
+    reduction's ``_tf32_rna``), lo = x − hi rounded the same way."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+SPLIT_SLICE = 16  # channels of a halo or patch slice = depths of a kph or wm chunk
+SPLIT_BN = 128  # output channels of a kph or wm chunk (N % SPLIT_BN == 0)
+
+
+def _split_tiles_plain(x, rh, rw, h, w):
+    """x [B, HH, WW, CC] -> for each K1 tile of an h × w output the rh × rw
+    cells at its origin, zeros beyond x, split: flat [B][T][CC / 16][hi,
+    lo][4][rh·rw][4] (4-channel groups of each cell's 16-channel slice)."""
+    B, HH, WW, CC = x.shape
+    th, tw = K1_TILE
+    nty, ntx = -(-h // th), -(-w // tw)
+    xp = x.new_zeros((B, (nty - 1) * th + rh, (ntx - 1) * tw + rw, CC))
+    hh, ww = min(HH, xp.shape[1]), min(WW, xp.shape[2])
+    xp[:, :hh, :ww] = x[:, :hh, :ww]
+    reg = xp.unfold(1, rh, th).unfold(2, rw, tw)  # [B, nty, ntx, CC, rh, rw]
+    reg = reg.reshape(B, nty * ntx, CC // SPLIT_SLICE, 4, 4, rh * rw).permute(0, 1, 2, 3, 5, 4)
+    return torch.stack(tf32_split(reg), 3).flatten()
+
+
+def _split_b_plain(x, taps_inner):
+    """x [G, K, N] -> chunks of 16 depths × 128 columns, split: flat
+    [chunk][hi, lo][4][128][4], chunks in the order (N step, depth chunk,
+    g) when ``taps_inner`` (kph, G = 9 taps), else (g, N step, depth
+    chunk) (wm, G = B)."""
+    G, K, N = x.shape
+    y = x.reshape(G, K // SPLIT_SLICE, 4, 4, N // SPLIT_BN, SPLIT_BN)  # [g, kc, q, e, ns, n]
+    t = torch.stack(tf32_split(y), 0)  # [hl, g, kc, q, e, ns, n]
+    order = (5, 2, 1, 0, 3, 6, 4) if taps_inner else (1, 5, 2, 0, 3, 6, 4)
+    return t.permute(*order).flatten()
+
+
+def split_conv_operands_plain(tp, kph, pat=None, wm=None):
+    """Plain version of the f32 conv kernels' split (csrc/fused_head_f32.cu
+    ``split_tiles_kernel``, ``split_b_kernel``): (halo, kph chunks) for K3,
+    T1 and T2, plus (patch rows, wm chunks) for K1, each flat in the
+    layout the conv kernel reads. tp [B, h+2, w+2, C]: each tile's 10 × 18
+    halo; kph [9, C, N]; pat [B, h, w, KP]: the 10 × 18 cells at each
+    tile's origin too (the kernel reads its 8 × 16 patch rows there, in the
+    halo's geometry); wm [B, KP, N]."""
+    h, w = tp.shape[1] - 2, tp.shape[2] - 2
+    th, tw = K1_TILE
+    out = (_split_tiles_plain(tp, th + 2, tw + 2, h, w), _split_b_plain(kph, True))
+    if pat is None:
+        return out
+    return out + (_split_tiles_plain(pat, th + 2, tw + 2, h, w), _split_b_plain(wm, False))
+
+
+def split_conv_operands(tp, kph, pat=None, wm=None):
+    """The f32 conv kernels' split (csrc/fused_head_f32.cu, one launch per
+    operand, counted as one split in ``launches``): same contract as
+    ``split_conv_operands_plain``, which runs on CPU tensors; f32 operands
+    only, C and KP multiples of 32, N of 128."""
+    if tp.device.type == "cpu":
+        return split_conv_operands_plain(tp, kph, pat, wm)
+    from ._build import load_kernels
+
+    B, hp, wp, C = tp.shape
+    h, w = hp - 2, wp - 2
+    N = kph.shape[-1]
+    KP = 0 if pat is None else pat.shape[-1]
+    th, tw = K1_TILE
+    T = -(-h // th) * -(-w // tw)
+    f32, dev = torch.float32, tp.device
+    _check(tp, "tp", f32, (B, hp, wp, C), dev)
+    _check(kph, "kph", f32, (9, C, N), dev)
+    sizes = [B * T * C * 2 * (th + 2) * (tw + 2), 9 * C * N * 2]
+    if pat is not None:
+        _check(pat, "pat", f32, (B, h, w, KP), dev)
+        _check(wm, "wm", f32, (B, KP, N), dev)
+        sizes += [B * T * KP * 2 * (th + 2) * (tw + 2), B * KP * N * 2]
+    if C % 32 or KP % 32 or N % SPLIT_BN:
+        raise ValueError(f"the f32 split needs C, KP % 32 == 0 and N % {SPLIT_BN} == 0; got {C}, {KP}, {N}")
+    out = tuple(torch.empty(n, dtype=f32, device=dev) for n in sizes)
+    none = ctypes.c_void_p(None)
+    ptrs = [none if t is None else _ptr(t) for t in (tp, kph, pat, wm, *out, *(None,) * (4 - len(out)))]
+    rc = load_kernels().posfeat_conv_split_f32(*ptrs, B, h, w, C, KP, N, _stream())
+    split_conv_operands.launches += 1
+    _raise_on(rc, "f32 conv split")
+    return out
+
+
+split_conv_operands.launches = 0
+
+
 # ------------------------------------------------------------------- K1
 
 
@@ -159,9 +260,10 @@ def conv_phase(tp, kph, pat, wm, b2b):
     psq = torch.empty_like(psum)
     lib = load_kernels()
     if dt == torch.float32:
-        # FFMA over kph [9, C, N] and wm [B, KP, N] as they are
+        # 3xTF32 on the split's hi and lo tiles
+        halo_s, kph_s, pat_s, wm_s = split_conv_operands(tp, kph, pat, wm)
         rc = lib.posfeat_conv_phase_f32(
-            _ptr(tp), _ptr(kph), _ptr(pat), _ptr(wm), _ptr(b2b),
+            _ptr(halo_s), _ptr(kph_s), _ptr(pat_s), _ptr(wm_s), _ptr(b2b),
             _ptr(z), _ptr(psum), _ptr(psq), B, h, w, C, KP, N, th, tw, _stream(),
         )
         conv_phase.launches_f32 += 1
@@ -245,9 +347,14 @@ def conv_phase_img(tp, kph, zimg, b2, layout):
     img = ctypes.c_void_p(None) if layout == "none" else _ptr(zimg)
     f32 = dt == torch.float32
     lib = load_kernels()
-    launch = lib.posfeat_conv_phase_img_f32 if f32 else lib.posfeat_conv_phase_img
+    if f32:
+        # 3xTF32 on the split's hi and lo tiles
+        a, b = split_conv_operands(tp, kph)
+        launch = lib.posfeat_conv_phase_img_f32
+    else:
+        a, b, launch = tp, k_major(kph), lib.posfeat_conv_phase_img
     rc = launch(
-        _ptr(tp), _ptr(kph if f32 else k_major(kph)), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
+        _ptr(a), _ptr(b), img, _ptr(b2), _ptr(z), _ptr(psum), _ptr(psq),
         B, h, w, C, N, cout, IMG_LAYOUTS.index(layout), th, tw, _stream(),
     )
     (conv_phase_img.launches_f32 if f32 else conv_phase_img.launches)[layout] += 1

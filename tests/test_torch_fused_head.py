@@ -209,6 +209,50 @@ def test_head_tail_rows_per_block():
     assert fh.head_tail_rows_per_block(16, 307200) == 4800  # the flagship point: 64 blocks per image
 
 
+@pytest.mark.parametrize("depth", [8, 16], ids=["add_per_step", "add_per_chunk"])
+def test_f32_conv_split_and_3xtf32_steps_on_cpu(depth):
+    """The f32 conv kernels' arithmetic on the CPU (csrc/fused_head_f32.cu):
+    the split's hi has its 13 low mantissa bits clear and hi + lo is x
+    within 2^-22 |x|; and at the flagship depth (C = KP = 192, one 8 x 16
+    tile, N = 128), 3xTF32 products (lo.hi + hi.lo + hi.hi) summed with an
+    f32 rounded add per 8-deep step, or per 16-deep chunk as the kernel
+    adds them, read from the split's layouts in the kernel's order (halo
+    slices x 9 taps as shifted cells, then patch slices), give z within
+    1e-5 x max|z| of conv_phase_plain (chip_smoke.py's F32_Z_TOL)."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy((rng.standard_normal(4096) * 10.0 ** rng.uniform(-6, 6, 4096)).astype(np.float32))
+    hi, lo = fh.tf32_split(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any() and not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((x.double() - hi.double() - lo.double()).abs() <= 2.0**-22 * x.double().abs()).all()
+
+    C, KP, N, th, tw = 192, 192, 128, *fh.K1_TILE
+    g = lambda *s, sc=1.0: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * sc)
+    tp, kph, pat, wm, b2b = g(1, th + 2, tw + 2, C), g(9, C, N, sc=0.03), g(1, th, tw, KP), g(1, KP, N, sc=0.03), g(1, N)
+    halo, kb, pt, wb = fh.split_conv_operands(tp, kph, pat, wm)  # the plain split on CPU tensors
+    halo = halo.view(C // 16, 2, 4, (th + 2) * (tw + 2), 4)  # [slice][hi, lo][4][cell][4]
+    kb, pt, wb = kb.view(-1, 2, 4, N, 4), pt.view(KP // 16, 2, 4, (th + 2) * (tw + 2), 4), wb.view(-1, 2, 4, N, 4)
+    cells = (torch.arange(th)[:, None] * (tw + 2) + torch.arange(tw)).flatten()  # the tile's cells at tap 0
+    acc = torch.zeros(th * tw, N)
+
+    def chunk(a, b):  # a [hi, lo][4][128 rows][4], b [hi, lo][4][N][4]: 16 deep
+        nonlocal acc
+        a = a.permute(0, 2, 1, 3).reshape(2, th * tw, 16).double()
+        b = b.permute(0, 1, 3, 2).reshape(2, 16, N).double()
+        for k in (slice(0, 8), slice(8, 16)) if depth == 8 else (slice(0, 16),):
+            d = a[1][:, k] @ b[0][k] + a[0][:, k] @ b[1][k] + a[0][:, k] @ b[0][k]
+            acc = acc + d.float()  # the rounded f32 add
+
+    for j in range(C // 16):
+        for tap in range(9):
+            chunk(halo[j][:, :, cells + (tap // 3) * (tw + 2) + tap % 3], kb[j * 9 + tap])
+    for p in range(KP // 16):
+        chunk(pt[p][:, :, cells], wb[p])  # the patch rows at the tile's cells, as at tap 0
+    z = (acc + b2b).reshape(1, th, tw, N)
+    zr = fh.conv_phase_plain(tp, kph, pat, wm, b2b)[0]
+    err = (z - zr).abs().max().item()
+    assert err <= 1e-5 * zr.abs().max().item(), (err, zr.abs().max().item())
+
+
 def _close_conv(z, s, q, zr, sr, qr, dtype, bf16_rtol):
     """A conv kernel's z and summed moments against its plain version's:
     bf16 z at bf16 resolution (``bf16_rtol``) and moments at rtol 1e-3
@@ -233,9 +277,10 @@ def test_cuda_kernels_match_plain_versions(dtype):
     inputs, in each compute dtype's instance: ragged tiles (h, w not multiples of the 8 x 16 tile), B = 2
     (wm[b] and b2b[b] differ per image), the least C (32), N = 256, 384 (a
     last half step of 128 channels) and 2048, a small flagship-like shape,
-    and C or KP too wide for the halo and patch tile to stay resident
-    (C = 224 and 736 at KP = 192, KP = 512), which the kernel stages in
-    slices."""
+    C or KP too wide for the bf16 halo and patch tile to stay resident
+    (C = 224 and 736 at KP = 192, KP = 512), which that kernel stages in
+    slices, and the head input of ``fine_out_ch: 256`` (C = 320). The f32
+    instance streams its halo and patch slices at every C."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = resolve_device("cuda")  # also keeps the f32 plain versions out of TF32
@@ -244,7 +289,7 @@ def test_cuda_kernels_match_plain_versions(dtype):
         (1, 6, 20, 32, 16, 1, 192), (2, 12, 32, 192, 128, 2, 192),
         (2, 13, 21, 32, 16, 1, 192), (2, 9, 35, 192, 128, 2, 192), (3, 17, 33, 96, 16, 1, 192),
         (2, 9, 35, 64, 24, 1, 192), (2, 9, 21, 224, 16, 1, 192), (1, 10, 20, 736, 16, 1, 192),
-        (2, 6, 20, 32, 16, 1, 512),
+        (2, 6, 20, 32, 16, 1, 512), (1, 9, 21, 320, 16, 1, 192),
     )
     for B, h, w, C, cout, out_ch, KP in shapes:
         N = 16 * cout

@@ -132,9 +132,10 @@ def test_cuda_conv_phase_img_matches_plain_versions(dtype):
     """K3, T1 and T2 on the card against their plain versions, on the same
     inputs, in each compute dtype's instance: ragged tiles (h, w not multiples of the 8 x 16 tile), B >= 2,
     the least C (32), N = 256, 384 (a last half step of 128 channels) and
-    2048, a small flagship-like shape, and C = 256 and 800, too wide for the
-    halo to stay resident, which the bf16 kernel stages in slices: z and
-    moments as ``_close_conv`` holds them."""
+    2048, a small flagship-like shape, C = 256 and 800, too wide for the
+    halo to stay resident, which the bf16 kernel stages in slices, and the
+    head input of ``fine_out_ch: 256`` (C = 320): z and moments as
+    ``_close_conv`` holds them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = resolve_device("cuda")  # also keeps the f32 plain versions out of TF32
@@ -142,7 +143,7 @@ def test_cuda_conv_phase_img_matches_plain_versions(dtype):
     shapes = (
         (1, 6, 20, 32, 16), (2, 12, 32, 192, 128),
         (2, 13, 21, 32, 16), (2, 9, 35, 192, 128), (3, 17, 33, 96, 24),
-        (2, 9, 21, 256, 16), (1, 10, 20, 800, 16),
+        (2, 9, 21, 256, 16), (1, 10, 20, 800, 16), (1, 9, 21, 320, 16),
     )
     for B, h, w, C, cout in shapes:
         N = 16 * cout

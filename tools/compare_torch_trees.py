@@ -12,8 +12,10 @@ the inputs it sees there): phase_kernels (K1, K2 at B=16, 480x640),
 phase_head_vs_reference, phase_main_path (v3 extraction im/s),
 phase_reduction (the lse and reward passes at B=6, m=n=4800),
 phase_training (stage-2 s/step), phase_v1_kernels (K3, T1, T2), the v1
-head against the reference, phase_v1_path (v1 extraction im/s) and
-phase_stage1 (stage-1 s/step). The kernel phases check every kernel
+head against the reference, phase_v1_path (v1 extraction im/s),
+phase_stage1 (stage-1 s/step) and phase 17 (a)'s slice_h_kernels (the f32
+instances of K1, K3 (with T1, T2, printed) and K2, at B=16, 480x640;
+each tree's own f32 body). The kernel phases check every kernel
 against its plain version and time it with CUDA events (ms per launch);
 the end-to-end numbers are read from the lines the phases print. Prints one JSON line per turn, then
 nvidia-smi's name and power limit, and a last JSON line
@@ -46,7 +48,8 @@ v1 = chip_smoke.phase_v1_kernels(torch, fh, rng)
 chip_smoke.phase_head_vs_reference(torch, rng, mode="v1", tag="[9]")
 chip_smoke.phase_v1_path(torch, fh, rng, v1)
 chip_smoke.phase_stage1(torch, "")
-print("TURN " + json.dumps({r["name"]: r["ms"] for r in head + v1 + reduction}), flush=True)
+f32 = chip_smoke.slice_h_kernels(torch, fh, rng)
+print("TURN " + json.dumps({r["name"]: r["ms"] for r in head + v1 + reduction + f32}), flush=True)
 """
 # the end-to-end metrics, read from the lines that the phases print
 E2E = {
