@@ -14,7 +14,8 @@ Phases, one line each (more for the build):
      the lse and reward passes with f1 resident and streamed) must not
      spill, nor any but the bf16 conv kernels keep a stack frame, nor
      ptxas inject warpgroup.waits (C7517) into the lse or the reward pass
-     or the f32 conv kernels;
+     or the f32 conv kernels, nor serialize the passes' wgmmas (C7514,
+     C7518);
   3. kernels: K1 and K2 at the shapes the main path gives them (B=16,
      h=120, w=160, Cin=192, Cout=128, out_ch=1) against their plain
      versions on the same bf16 inputs, the fused head's score map with
@@ -245,27 +246,23 @@ CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_i
 F32_CONV_KERNELS = ("conv_phase_f32_kernel<K1>", "conv_phase_f32_kernel<K3>", "conv_phase_f32_kernel<T1>",
                     "conv_phase_f32_kernel<T2>")
 F32_SPLIT_KERNELS = ("split_tiles_kernel", "split_b_kernel")
-# the reduction passes' instances: f1 resident (D <= 128), f1 streamed (D > 128)
-REDUCTION_KERNELS = ("lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", "lse_pass_kernel<streamed>",
-                     "reward_pass_kernel<streamed>")
+# the reduction passes' instances: f1 resident (D <= 128), f1 streamed (D > 128, warp specialised)
+REDUCTION_KERNELS = ("lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", "lse_pass_streamed_kernel",
+                     "reward_pass_streamed_kernel")
 
 
 def _kernel_key(mangled):
     """A kernel's key in the ptxas summary: its name, with K2's template
     arguments as head_tail_kernel<LPR,OUT> (bf16 z) or
-    head_tail_kernel<f32,LPR,OUT>, the f32 conv's as F32_CONV_KERNELS
-    names them, and the reduction passes' streamed instances as
-    <name><streamed>."""
+    head_tail_kernel<f32,LPR,OUT>, and the f32 conv's as F32_CONV_KERNELS
+    names them."""
     m = re.search(r"head_tail_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
     if m:
         return f"head_tail_kernel<{'f32,' if m.group(1) == 'f' else ''}{m.group(2)},{m.group(3)}>"
     m = re.search(r"conv_phase_f32_kernelILi(\d)E", mangled)
     if m:
         return F32_CONV_KERNELS[int(m.group(1))]
-    m = re.search(r"(lse_pass_kernel|reward_pass_kernel)ILb([01])E", mangled)
-    if m:
-        return m.group(1) + ("<streamed>" if m.group(2) == "1" else "")
-    return next(k for k in (*CONV_KERNELS, *F32_SPLIT_KERNELS, "lse_split_kernel", mangled) if k in mangled)
+    return next(k for k in (*CONV_KERNELS, *F32_SPLIT_KERNELS, *REDUCTION_KERNELS, mangled) if k in mangled)
 
 
 def _ptxas_summary(log):
@@ -717,7 +714,11 @@ def reduction_problem(torch, rng, D=128):
 #   of sum|x y| (= 1 at most for unit rows): 3 from the split (each lo
 #   rounded to TF32, lo.lo dropped), 5.5 from the tensor cores' truncating
 #   adds inside an 8-deep step (11 adds at 2^-23), D / 32 from the D / 8
-#   rounded f32 adds of the steps (2^-24 each; 4 at D = 128: 12.5 in all);
+#   rounded f32 adds of the steps (2^-24 each; 4 at D = 128: 12.5 in all).
+#   Beyond D = 128 (f1 streamed) a rounded add takes a 16-deep chunk, two
+#   steps in one truncating chain: the first step's 11 adds are bounded by
+#   its own sum|x y| and the second's by the chunk's, so 2 x 5.5 = 11 units
+#   at most, and the D / 16 rounded adds give D / 64 (18 in all at D = 256);
 #   the plain f32 product up to S0_C_DOT_P = D 2^-24 = D / 4 units (32 at
 #   D = 128), its sequential worst case;
 # - aff and lp: up to 2u (T + 3|aff| + |aff - row_lse| + |aff - col_lse| + |lp|),
@@ -735,8 +736,11 @@ S0_K_SUM = 512
 
 
 def s0_dot_units(D):
-    """(S0_C_DOT_K, S0_C_DOT_P) at descriptor width D: (12.5, 32) at 128."""
-    return 8.5 + D / 32, D / 4
+    """(S0_C_DOT_K, S0_C_DOT_P) at descriptor width D: (12.5, 32) at 128,
+    (18, 64) at 256 (a rounded add per 16-deep chunk beyond 128)."""
+    if D <= 128:
+        return 8.5 + D / 32, D / 4
+    return 14 + D / 64, D / 4
 
 
 def s0_bound_note(D=128):
@@ -2339,15 +2343,23 @@ def main() -> int:
         if kname not in CONV_KERNELS:
             assert props["stack"] == 0, (kname, props)
     # a warpgroup.wait that ptxas injects (C7517, before a read of registers
-    # a wgmma defines) serializes the wgmmas of product_tiles, the loop both
-    # reduction passes run, and of the f32 conv kernels, which run the same
-    # steps; their first wgmmas of a tile write the accumulators without
-    # reading them, and the build has none
-    for kname, which in (("lse_pass_kernel", "both"), ("reward_pass_kernel", "both"),
+    # a wgmma defines) serializes the wgmmas of product_tiles and
+    # stream_product, the loops the reduction passes run, and of the f32
+    # conv kernels, which run the same steps; their first wgmmas of a tile
+    # write the accumulators without reading them, and the build has none
+    for kname, which in (("lse_pass_kernel", "f1 resident"), ("reward_pass_kernel", "f1 resident"),
+                         ("lse_pass_streamed_kernel", "f1 streamed"), ("reward_pass_streamed_kernel", "f1 streamed"),
                          ("conv_phase_f32_kernel", "all four")):
         injected = [x for x in info["log"].splitlines() if "C7517" in x and kname in x]
-        print(f"[2]   {kname} ({which} instances): {len(injected)} warpgroup.wait injected by ptxas (C7517)")
+        print(f"[2]   {kname} ({which}): {len(injected)} warpgroup.wait injected by ptxas (C7517)")
         assert not injected, injected
+    # ptxas serializing the wgmmas outright (C7514, C7518: a non-wgmma read
+    # of accumulators in flight, or a wait on a divergent path) made the
+    # streamed passes 2.5-3x slower while they were built; the build has none
+    serialized = [x for x in info["log"].splitlines()
+                  if ("C7514" in x or "C7518" in x) and ("lse_pass" in x or "reward_pass" in x)]
+    print(f"[2]   lse and reward passes: {len(serialized)} wgmma serializations reported by ptxas (C7514, C7518)")
+    assert not serialized, serialized
 
     rng = np.random.default_rng(SEED)
     # phase 6's reward-pass draw of the former compare order, replayed on a

@@ -143,9 +143,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.posfeat_head_tail.restype = i
     lib.posfeat_reinforce_split.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.posfeat_reinforce_split.restype = i
-    lib.posfeat_lse_pass.argtypes = [p] * 5 + [i] * 4 + [f] + [p]
+    lib.posfeat_lse_pass.argtypes = [p] * 6 + [i] * 5 + [f] + [p]
     lib.posfeat_lse_pass.restype = i
-    lib.posfeat_reward_pass.argtypes = [p] * 12 + [i] * 4 + [f] * 4 + [p]
+    lib.posfeat_reward_pass.argtypes = [p] * 12 + [i] * 5 + [f] * 4 + [p]
     lib.posfeat_reward_pass.restype = i
     for name in ("posfeat_error_string", "posfeat_reinforce_error_string"):
         getattr(lib, name).argtypes = [i]

@@ -24,7 +24,8 @@ f2 split into TF32 hi and lo tiles by a third kernel (``_split_operands``).
 each pass called alone splits for itself. They take any descriptor width
 D, as the JAX reduction does: up to ``RESIDENT_D`` a block keeps its f1
 tile in shared memory, beyond it f1's tile streams in ``CHUNK``-deep
-chunks beside f2's, and the split lays f1 out accordingly.
+chunks beside f2's, the split lays f1 out accordingly, and each half of
+a block's rows writes its own column partials (``_partials``).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. There is no backward:
@@ -115,14 +116,23 @@ def f1_resident(D: int) -> bool:
     return D <= RESIDENT_D
 
 
+def _chunks(D):
+    """CHUNK-deep chunks of a tile's depth at width D, zero-filled beyond
+    D: an even count where f1 streams, which the streamed loop takes in
+    pairs (csrc/reinforce.cu ``tile_chunks``)."""
+    nck = -(-D // CHUNK)
+    return nck if f1_resident(D) else nck + nck % 2
+
+
 def _split_plain(x, whole: bool):
     """Plain version of the split of x [B, rows, D]: x = hi + lo, both
     TF32, flat in the kernels' tile layout [B][tile][chunk][hi, lo][cq][128][4]
-    (tiles of TILE_M rows, chunks of ``cq`` groups of 4 depths, zero beyond
-    rows and D). ``whole``: one chunk of the whole depth (f1 where
-    ``f1_resident``), else chunks CHUNK deep (f2, and a wider f1)."""
+    (tiles of TILE_M rows, ``_chunks(D)`` CHUNK deep in all, chunks of
+    ``cq`` groups of 4 depths, zero beyond rows and D). ``whole``: one
+    chunk of the whole depth (f1 where ``f1_resident``), else chunks CHUNK
+    deep (f2, and a wider f1)."""
     B, rows, D = x.shape
-    depth, tiles = CHUNK * -(-D // CHUNK), -(-rows // TILE_M)
+    depth, tiles = CHUNK * _chunks(D), -(-rows // TILE_M)
     xp = x.new_zeros((B, tiles * TILE_M, depth))
     xp[:, :rows, :D] = x
     hi = _tf32_rna(xp)
@@ -135,8 +145,39 @@ def _split_plain(x, whole: bool):
     return torch.cat([lay(hi), lay(lo)], 3).flatten()
 
 
+MAX_SPLITS = 4  # column ranges of a row tile in the streamed passes, at most (csrc/reinforce.cu)
+
+
+def _column_splits(blocks, n_ct, sms):
+    """How many column-tile ranges (one block each) the streamed passes cut
+    a row tile's n_ct column tiles into, for ``blocks`` (row tile, batch
+    element) pairs on ``sms`` SMs, one block an SM: the count s, up to
+    MAX_SPLITS and n_ct / 4, that gives the fewest tiles on the longest
+    path, ceil(blocks s / sms) waves of ceil(n_ct / s) tiles; the smallest
+    on ties. At B = 6, m = n = 4800 (228 blocks of 38 tiles on 132 SMs):
+    4, 7 waves of 10 tiles where one range takes 2 waves of 38."""
+    cands = range(1, max(1, min(MAX_SPLITS, n_ct // 4)) + 1)
+    return min(cands, key=lambda s: (-(-blocks * s // sms) * -(-n_ct // s), s))
+
+
+def _splits(B, m, n, D, device):
+    """The column ranges of a pass at these shapes on ``device``: 1 where
+    f1 stays resident, else ``_column_splits`` at its SM count."""
+    if f1_resident(D):
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _column_splits(B * -(-m // TILE_M), -(-n // TILE_M), sms)
+
+
+def _partials(m, D):
+    """Rows of column partials the passes write per batch element: one
+    per row tile of TILE_M rows while f1 stays resident, one per half tile
+    (a warpgroup's 64 rows) where it streams."""
+    return -(-m // TILE_M) * (1 if f1_resident(D) else 2)
+
+
 def _split_floats(B, rows, D):
-    return B * -(-rows // TILE_M) * 2 * CHUNK * -(-D // CHUNK) * TILE_M
+    return B * -(-rows // TILE_M) * 2 * CHUNK * _chunks(D) * TILE_M
 
 
 def _split_operands(f1, f2):
@@ -191,9 +232,11 @@ def lse_pass_plain(f1, f2, temperature: float):
 
 
 def merge_col_partials(col_max, col_sum):
-    """Column log-sum-exp [B, n] from the lse pass's per-row-tile (max,
-    Σexp) partials [B, tiles, n], Σexp clipped at 1e-30 as
-    ``lse_pass_plain`` does."""
+    """Log-sum-exp along dim 1 of (max, Σexp) partials, Σexp clipped at
+    1e-30 as ``lse_pass_plain`` does: the lse pass's column partials
+    [B, rows, n] (``_partials``) into the column log-sum-exp [B, n], and
+    beyond RESIDENT_D its row partials [B, ranges, m] (``_splits``) into
+    the row log-sum-exp [B, m]."""
     mx = col_max.amax(dim=1, keepdim=True)
     se = (col_sum * torch.exp(col_max - mx)).sum(dim=1)
     return mx.squeeze(1) + torch.log(se.clamp_min(1e-30))
@@ -213,16 +256,21 @@ def lse_pass(f1, f2, temperature: float, *, tiles=None):
     _check(f1, "f1", (B, m, D), dev)
     _check(f2, "f2", (B, n, D), dev)
     f1s, f2s = _tiles(tiles, f1, f2, B, m, n, D)
-    mt = -(-m // TILE_M)
+    mt, splits = _partials(m, D), _splits(B, m, n, D, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    row_lse = torch.empty((B, m), **f32)
     col_max, col_sum = torch.empty((B, mt, n), **f32), torch.empty((B, mt, n), **f32)
+    if f1_resident(D):
+        row_lse, row_sum = torch.empty((B, m), **f32), None
+    else:  # each column range's (max, Σexp) per row
+        row_lse, row_sum = torch.empty((B, splits, m), **f32), torch.empty((B, splits, m), **f32)
     rc = load_kernels().posfeat_lse_pass(
-        _ptr(f1s), _ptr(f2s), _ptr(row_lse), _ptr(col_max), _ptr(col_sum),
-        B, m, n, D, float(temperature), _stream(),
+        _ptr(f1s), _ptr(f2s), _ptr(row_lse), None if row_sum is None else _ptr(row_sum), _ptr(col_max),
+        _ptr(col_sum), B, m, n, D, splits, float(temperature), _stream(),
     )
     lse_pass.launches += 1
     _raise_on(rc, "lse_pass")
+    if row_sum is not None:
+        row_lse = merge_col_partials(row_lse, row_sum)
     return row_lse, merge_col_partials(col_max, col_sum)
 
 
@@ -298,19 +346,21 @@ def reward_pass(f1, f2, line1, c2h, line2, c1h, accept1, accept2, row_lse, col_l
         _check(t, name, shape, dev)
     f1s, f2s = _tiles(tiles, f1, f2, B, m, n, D)
     cols = _pack_columns(c2h, line2, accept2, col_lse)
-    mt = -(-m // TILE_M)
+    mt, splits = _partials(m, D), _splits(B, m, n, D, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    row_w, p_rowsum = torch.empty((B, m), **f32), torch.empty((B, m), **f32)
+    # the rows' sums over each column range
+    row_w, p_rowsum = torch.empty((B, splits, m), **f32), torch.empty((B, splits, m), **f32)
     colw_part, pcol_part = torch.empty((B, mt, n), **f32), torch.empty((B, mt, n), **f32)
-    stats = torch.empty((B, mt, 4), **f32)
+    stats = torch.empty((B, mt * splits, 4), **f32)
     rc = load_kernels().posfeat_reward_pass(
         *map(_ptr, (f1s, f2s, line1, c1h, accept1, row_lse, cols,
                     row_w, p_rowsum, colw_part, pcol_part, stats)),
-        B, m, n, D, float(temperature), float(thr), float(good_reward), float(bad_reward),
+        B, m, n, D, splits, float(temperature), float(thr), float(good_reward), float(bad_reward),
         _stream(),
     )
     reward_pass.launches += 1
     _raise_on(rc, "reward_pass")
+    row_w, p_rowsum = (x[:, 0] if splits == 1 else x.sum(1) for x in (row_w, p_rowsum))
     return (
         stats[..., 0].sum(1), row_w, colw_part.sum(1), p_rowsum, pcol_part.sum(1),
         stats[..., 1].amax(1), stats[..., 2].sum(1), stats[..., 3].sum(1),

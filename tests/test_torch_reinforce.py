@@ -96,17 +96,36 @@ def _row_tile_partials(aff, tile):
     return mx, se
 
 
+@pytest.mark.parametrize("D", [36, 256])
 @pytest.mark.parametrize("temperature", [10.0, 60.0])
-def test_col_partials_merge_matches_logsumexp(rng, temperature):
+def test_col_partials_merge_matches_logsumexp(rng, temperature, D):
     """The lse wrapper's merge of the kernel's column partials, fed
-    partials of the plain affinity over row tiles of TILE_M rows at a
-    ragged m (three tiles, the last one short), is the column
-    log-sum-exp."""
-    f1, f2 = (torch.from_numpy(a) for a in _problem(rng, B=2, m=2 * rf.TILE_M + 44, n=97, D=36)[:2])
+    partials of the plain affinity at a ragged m (three tiles of TILE_M
+    rows, the last one short) as the kernel writes them, is the column
+    log-sum-exp: one partial per row tile where f1 stays resident (D =
+    36), one per half tile where it streams (D = 256), the last half tile
+    holding no row (max -1e30 in base 2, Σexp 0)."""
+    m = 2 * rf.TILE_M + 44
+    f1, f2 = (torch.from_numpy(a) for a in _problem(rng, B=2, m=m, n=97, D=D)[:2])
     aff = rf._affinity(f1, f2, temperature)
-    mx, se = _row_tile_partials(aff, rf.TILE_M)
-    assert mx.shape == (2, 3, 97)
+    rows = rf.TILE_M * -(-m // rf.TILE_M) // rf._partials(m, D)
+    mx, se = _row_tile_partials(aff, rows)
+    empty = rf._partials(m, D) - mx.shape[1]
+    mx = torch.cat([mx, torch.full((2, empty, 97), -1e30 * float(np.log(2.0)))], 1)
+    se = torch.cat([se, torch.zeros(2, empty, 97)], 1)
+    assert mx.shape == (2, 3 if D == 36 else 6, 97)
     torch.testing.assert_close(rf.merge_col_partials(mx, se), torch.logsumexp(aff, 1), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("blocks, n_ct, sms, want", [(228, 38, 132, 4), (264, 38, 132, 1), (12, 3, 132, 1),
+                                                     (12, 38, 132, 4), (228, 38, 114, 1)])
+def test_column_splits_shorten_the_longest_path(blocks, n_ct, sms, want):
+    """The streamed passes cut each row tile's column tiles into the count
+    of ranges (up to 4, each at least 4 tiles) whose waves of blocks give
+    the fewest tiles on the longest path: at the training path's 228 blocks
+    of 38 tiles on 132 SMs, 4 (7 waves of 10 tiles against 2 of 38); none
+    where the blocks fill whole waves or a tile row is short."""
+    assert rf._column_splits(blocks, n_ct, sms) == want
 
 
 def _tf32_rna(x):
@@ -138,23 +157,33 @@ def _rz(x):
     return f
 
 
-def _product_3xtf32_truncating(f1, f2):
-    """f1·f2ᵀ as the passes' product forms it on the card: per 8-deep
-    step, lo·hi, then + hi·lo, then + hi·hi into one tensor-core
-    accumulator, each result truncated toward zero (the tensor cores'
-    accumulation), then added to an f32 running sum rounded to nearest."""
+def _product_3xtf32_truncating(f1, f2, depth=8):
+    """f1·f2ᵀ as the passes' product forms it on the card: per chunk of
+    ``depth`` (8 or 16) depths, lo·hi and hi·lo of each 8-deep step of
+    the chunk, then hi·hi of each, into one tensor-core accumulator, each
+    result truncated toward zero (the tensor cores' accumulation), then
+    added to an f32 running sum rounded to nearest."""
     h1, h2 = _tf32_rna(f1), _tf32_rna(f2)
     parts = [torch.from_numpy(a).double() for a in (h1, _tf32_rna(f1 - h1), h2, _tf32_rna(f2 - h2))]
     h1, l1, h2, l2 = parts
     mm = lambda a, b: torch.bmm(a, b.transpose(1, 2))  # noqa: E731
     acc = torch.zeros(f1.shape[0], f1.shape[1], f2.shape[1])
-    for k in range(0, f1.shape[2], 8):
-        s = slice(k, k + 8)
-        d = _rz(mm(l1[..., s], h2[..., s]))
-        d = _rz(d.double() + mm(h1[..., s], l2[..., s]))
-        d = _rz(d.double() + mm(h1[..., s], h2[..., s]))
+    for k in range(0, f1.shape[2], depth):
+        steps = [slice(j, j + 8) for j in range(k, min(k + depth, f1.shape[2]), 8)]
+        terms = [t for s in steps for t in ((l1, h2, s), (h1, l2, s))] + [(h1, h2, s) for s in steps]
+        d = None
+        for a, b, s in terms:
+            p = mm(a[..., s], b[..., s])
+            d = _rz(p if d is None else d.double() + p)
         acc = acc + d
     return acc
+
+
+def _kernel_dots(f1, f2):
+    """The dots of the passes' product at f1 and f2's width: a rounded
+    add per 8-deep step while f1 stays resident, per 16-deep chunk where
+    it streams (csrc/reinforce.cu product_tiles, stream_product)."""
+    return _product_3xtf32_truncating(f1, f2, 8 if rf.f1_resident(f1.shape[-1]) else rf.CHUNK)
 
 
 def test_tf32_rounding_model():
@@ -176,10 +205,13 @@ def _unsplit(f1s, f2s, B, m, n, D):
     (b * row_tiles + tile) * 2 * (depth / 4) * 128 * 4 floats, hi then
     lo, each [depth / 4][128][4]; f2's chunk i = column_tile * chunks + c
     at i * 2 * 16 * 128 floats, hi then lo, each [4][128][4], and so a
-    wider f1's chunk c of row tile i."""
+    wider f1's chunk c of row tile i. Where f1 streams, a tile holds an
+    even count of chunks (zero beyond D)."""
     t, ck = rf.TILE_M, rf.CHUNK
-    depth = ck * -(-D // ck)
-    nck, mt, nt = depth // ck, -(-m // t), -(-n // t)
+    nck = -(-D // ck)
+    if not rf.f1_resident(D):
+        nck += nck % 2
+    depth, mt, nt = ck * nck, -(-m // t), -(-n // t)
 
     def chunked(x, tiles):
         c = x.view(B * tiles, nck, 2, ck // 4, t, 4)  # [tile][chunk][hi, lo][q][r][k]
@@ -198,10 +230,11 @@ def test_split_layout_is_what_both_kernels_read(D):
     """``_split_operands`` on the CPU, ``_split_plain``, gives f1 and f2 as
     the kernels read them, in the tile layout [B][tile][chunk][hi, lo][cq]
     [128][4] that ``lse_split_kernel`` writes (f1 whole up to D = 128, in
-    16-deep chunks beyond, where it streams): read back at the passes'
-    offsets, hi is x rounded to TF32 bit for bit (the numpy model of
-    cvt.rna), lo is x - hi rounded, zero beyond m, n and D; the 3xTF32
-    product of the tiles is the modelled one."""
+    16-deep chunks beyond, where it streams, an even count of them per
+    tile, as f2's there): read back at the passes' offsets, hi is x
+    rounded to TF32 bit for bit (the numpy model of cvt.rna), lo is x - hi
+    rounded, zero beyond m, n and D; the 3xTF32 product of the tiles is
+    the modelled one."""
     B, m, n = 2, 2 * rf.TILE_M + 3, rf.TILE_M + 1
     args = _problem(np.random.RandomState(D), B=B, m=m, n=n, D=D)
     f1s, f2s = rf._split_operands(torch.from_numpy(args[0]), torch.from_numpy(args[1]))
@@ -275,7 +308,7 @@ def test_3xtf32_reward_model_matches_pallas_interpret(D):
     T = kw["temperature"]
     args = _problem(np.random.RandomState(D + 1), B=2, m=300, n=290, D=D)
     t = list(map(torch.from_numpy, args))
-    aff = _aff_of_dots(_product_3xtf32_truncating(args[0], args[1]), T)
+    aff = _aff_of_dots(_kernel_dots(args[0], args[1]), T)
     row_lse, col_lse = torch.logsumexp(aff, 2), torch.logsumexp(aff, 1)
     rkw = {k: kw[k] for k in ("thr", "good_reward", "bad_reward")}
     got = rf._reward_of_affinity(aff, *t[2:], row_lse, col_lse, **rkw)
@@ -389,7 +422,10 @@ def test_3xtf32_lse_model_matches_pallas_interpret(D):
     """The lse pass's 3xTF32 product, modelled on the CPU, at the
     training path's T = 60: its row and column log-sum-exp against the
     plain f32 version, and the whole reduction on them against the
-    Pallas reduction (interpret=True), at the reduction's tolerance."""
+    Pallas reduction (interpret=True), at the reduction's tolerance.
+    Where f1 streams (D = 256, 200) the model is the streamed product's
+    schedule, the tensor cores' truncation and a rounded add per 16-deep
+    chunk, turned into aff with the kernels' arithmetic."""
     import jax.numpy as jnp
     from posfeat_tpu.ops.pallas.reinforce import reinforce_reduction as jax_reduction
 
@@ -397,7 +433,10 @@ def test_3xtf32_lse_model_matches_pallas_interpret(D):
     T = kw["temperature"]
     args = _problem(np.random.RandomState(D), B=2, m=300, n=290, D=D)
     t = list(map(torch.from_numpy, args))
-    aff = T * _product_3xtf32(args[0], args[1]) - T
+    if rf.f1_resident(D):
+        aff = T * _product_3xtf32(args[0], args[1]) - T
+    else:
+        aff = _aff_of_dots(_kernel_dots(args[0], args[1]), T)
     row_lse, col_lse = torch.logsumexp(aff, 2), torch.logsumexp(aff, 1)
     rlp, clp = rf.lse_pass_plain(t[0], t[1], T)
     torch.testing.assert_close(row_lse, rlp, rtol=RTOL, atol=ATOL)

@@ -12,7 +12,10 @@ the parent's library and on this tree's (parent, change, change, parent,
 after warm-up). Prints each turn's ms, whether the two libraries' split,
 row and column log-sum-exps and reward outputs are equal bit for bit, and
 nvidia-smi's name and power limit. Needs a CUDA card; both trees must
-share the reduction's C interface.
+share the reduction's C interface and partials layout (posfeat_lse_pass
+and posfeat_reward_pass took their column ranges, ``splits``, and wrote
+row partials beyond D = 128 from the warp-specialised streamed
+instances on: a tree from before them does not compare with one after).
 """
 
 import argparse
