@@ -159,6 +159,23 @@ Phases, one line each (more for the build):
      the kernels step against the dense one, then a warm-up and 5 timed
      Trainer steps, the reduction launched once a step, the dense loss
      never. Budget: 120 s;
+ 18. slice K, ``spatial_shard`` over several devices: one seeded 2048x3072
+     frame (6.3 Mpx, above the 4 Mpx default threshold) through the
+     flagship model with the Aachen detector (configs/extract_aachen.yaml:
+     20480 points, NMS radius 3, thr 0.5 abs), in f32 (the reference
+     dataflow) and bf16 (the "phase" dataflow), unsharded and banded over
+     2 and 4 bands on cuda:0 (and over distinct cards where the machine
+     has them): ms per image by CUDA events after a warm-up, peak memory
+     per device, no kernel launched on the banded path; against the
+     unsharded run of the same dataflow valid_count within 1e-3, at most
+     1e-3 of the slate without a partner at its pixel, matched scores
+     rtol 1e-3 and descriptors atol 1e-4 in f32, scores within 2e-2 x
+     mean|score| in bf16; the bf16 slates' top-k overlap with the
+     unsharded fused head ("pallas"); then the Extractor's own sharded
+     route (``spatial_shard: 2``, its visible devices seen as two; on one
+     card the mesh lists cuda:0 twice) on that frame in bf16, its fused
+     head swapped for "phase" there: its npz equal to the banded
+     program's slate. Budget: 60 s;
 then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2, T3, the two
 reduction kernels, and slice H's f32 K1, K3, K2 and D = 256 passes), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
@@ -2299,6 +2316,203 @@ def phase_slice_h(torch, fh, rng, smi):
     return records
 
 
+SLICE_K_BUDGET_S = 60.0
+# an Aachen-class frame (6.3 Mpx, above the 4 Mpx default spatial_threshold_px)
+# and the Aachen detector (configs/extract_aachen.yaml:33-39)
+SLICE_K_H, SLICE_K_W = 2048, 3072
+AACHEN_DET = {"num_pts": 20480, "stable": True, "use_nms": True, "nms_radius": 3, "thr": 0.5, "thr_mod": "abs"}
+# banded against unsharded: valid_count within 1e-3 of it, at most 1e-3 of the
+# slate without a partner at the same pixel, matched f32 scores rtol 1e-3 and
+# descriptors atol 1e-4, matched bf16 scores within 2e-2 x mean|score|
+SLICE_K_VALID_RTOL, SLICE_K_UNMATCHED, SLICE_K_BF16_SCORE = 1e-3, 1e-3, 2e-2
+
+
+def _frame(rng, h, w):
+    """One seeded uint8 frame: smooth blobs plus noise, as ``_images``."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = rng.uniform(0.01, 0.08, size=(3, 2))
+    ph = rng.uniform(0, 2 * np.pi, size=(3, 2))
+    base = np.stack([np.sin(f[c, 0] * yy + ph[c, 0]) * np.cos(f[c, 1] * xx + ph[c, 1]) for c in range(3)], -1)
+    return np.clip(127.5 + 80 * base + rng.normal(0, 20, size=(h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def slice_k_program(torch, model, mesh):
+    """uint8 [1, H, W, 3] on the card -> (pixel coords, scores, descriptors,
+    valid): the Extractor's device program, unsharded (``mesh`` None) or
+    banded over ``mesh``."""
+    from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
+    from posfeat_tpu_torch.ops.coords import denormalize_coords
+    from posfeat_tpu_torch.ops.detect import generate_kpts_single
+    from posfeat_tpu_torch.ops.grid_sample import sample_feat_by_coord
+    from posfeat_tpu_torch.parallel import detect, sample_feat_by_coord as banded_sample, spatial_extract
+
+    dev0 = mesh.devices[0] if mesh is not None else next(model.parameters()).device
+    mean = torch.as_tensor(IMAGENET_MEAN, device=dev0)
+    std = torch.as_tensor(IMAGENET_STD, device=dev0)
+
+    def banded_post(o):
+        coord_n, score, valid = detect(o["local_point"], **AACHEN_DET)
+        return coord_n, score, banded_sample(o["local_map"], coord_n, True), valid
+
+    forward = None if mesh is None else spatial_extract(model, mesh, banded_post)
+
+    @torch.inference_mode()
+    def run(im_u8):
+        im = (im_u8.to(dev0).float() / 255.0 - mean) / std
+        if forward is None:
+            o = model.extract(im)
+            coord_n, score, valid = generate_kpts_single(o["local_point"], **AACHEN_DET)
+            feat = sample_feat_by_coord(o["local_map"], coord_n, True)
+        else:
+            coord_n, score, feat, valid = forward(im)
+        return denormalize_coords(coord_n, *im_u8.shape[1:3]), score, feat, valid
+
+    return run
+
+
+def _timed_slate(torch, run, im_u8, devices, reps=3):
+    """(host slate trimmed to the reference's count, ms per image over
+    ``reps`` runs after a warm-up, peak bytes per device): CUDA events on
+    the first device, every device synchronized."""
+    run(im_u8)
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        out = run(im_u8)
+    t1.record()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    coords, score, feat, valid = (t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy() for t in out)
+    n = int(max(min(AACHEN_DET["num_pts"], int(valid[0])), 128))
+    slate = (coords[0, :n], score[0, :n, 0], feat[0, :n], int(valid[0]))
+    return slate, t0.elapsed_time(t1) / reps, [torch.cuda.max_memory_allocated(d) for d in devices]
+
+
+def _pair_slates(got, ref):
+    """Each point of ``got`` paired with the point of ``ref`` in its pixel
+    (the nearest within 0.5 px; NMS winners are more than 3 px apart).
+    Returns (share of ``got`` unpaired, pairs as index arrays)."""
+    kg, kr = got[0], ref[0]
+    table = {}
+    for j, (x, y) in enumerate(np.rint(kr).astype(np.int64)):
+        table.setdefault((x, y), []).append(j)
+    gi, ri = [], []
+    for i, (x, y) in enumerate(np.rint(kg).astype(np.int64)):
+        near = [j for dx in (-1, 0, 1) for dy in (-1, 0, 1) for j in table.get((x + dx, y + dy), ())]
+        if near:
+            j = min(near, key=lambda j: float(np.abs(kr[j] - kg[i]).max()))
+            if np.abs(kr[j] - kg[i]).max() <= 0.5:
+                gi.append(i)
+                ri.append(j)
+    return 1.0 - len(gi) / max(len(kg), 1), np.array(gi, np.int64), np.array(ri, np.int64)
+
+
+def slice_k_compare(got, ref, f32):
+    """Banded slate against the unsharded one of the same dataflow; returns
+    the printed figures. Raises past the limits above."""
+    unmatched, gi, ri = _pair_slates(got, ref)
+    dv = abs(got[3] - ref[3])
+    ds = np.abs(got[1][gi] - ref[1][ri])
+    dd = np.abs(got[2][gi] - ref[2][ri]).max() if len(gi) else 0.0
+    assert dv <= SLICE_K_VALID_RTOL * ref[3], (got[3], ref[3])
+    assert unmatched <= SLICE_K_UNMATCHED, unmatched
+    if f32:
+        assert (ds <= 1e-3 * np.abs(ref[1][ri]) + 1e-5).all(), ds.max()
+        assert dd <= 1e-4, dd
+    else:
+        assert ds.max() <= SLICE_K_BF16_SCORE * np.abs(ref[1]).mean(), (ds.max(), np.abs(ref[1]).mean())
+    return (f"valid {got[3]} (|d| {dv}), unmatched {unmatched:.6f}, scores max |d| {ds.max():.3e} "
+            f"(rel {np.max(ds / np.abs(ref[1][ri])):.3e}), descriptors max |d| {dd:.3e}")
+
+
+def slice_k_extractor(torch, tmp, frame, slate):
+    """The Extractor's own sharded route in bf16 (``spatial_shard: 2`` with
+    the visible devices seen as two, as the CPU test patches them; on one
+    card the mesh lists cuda:0 twice): its fused head swapped for "phase"
+    in the banded program only, and its npz equal to ``slate``, the banded
+    bf16 "phase" program's slate on the same weights and image."""
+    from posfeat_tpu_torch.extract import Extractor
+    from posfeat_tpu_torch.extract import extractor as ex_mod
+
+    saved = ex_mod._visible_devices, ex_mod.spatial_mesh
+    ex_mod._visible_devices = lambda device: 2
+    if torch.cuda.device_count() < 2:
+        ex_mod.spatial_mesh = lambda devices: saved[1]([torch.device("cuda", 0)] * len(devices))
+    try:
+        cfg = {
+            "output_root": "slice_k", "postfix": "npz", "load_path": None, "loss_distance": "cos",
+            "output_desc": True, "output_img": False, "compute_dtype": "bfloat16", "model": "PoSFeat",
+            "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
+            "data_config_extract": {"batch_size": BATCH, "workers": 1}, "use_sift": False,
+            "detector": "generate_kpts_single", "detector_config": dict(AACHEN_DET), "spatial_shard": 2,
+        }
+        item = {"im1": None, "im1_ori": frame, "coord1": np.zeros((0, 2), np.float32), "name1": "k/frame.png",
+                "pad1": (0, 0, 0, 0)}
+        ex = Extractor(cfg, ckpt_root=tmp, dataset=[item], seed=SEED)
+        assert ex._use_spatial(frame.shape[:2]) and len(ex._spatial_mesh.devices) == 2
+        ex.extract()
+        assert ex.model.localheader.fused_upsample == "pallas"
+    finally:
+        ex_mod._visible_devices, ex_mod.spatial_mesh = saved
+    f = np.load(f"{ex.desc_root}/k/frame.png.npz")
+    assert ("spatial", frame.shape[:2], "detector_config") in ex._programs
+    assert np.array_equal(f["keypoints"], slate[0]) and np.array_equal(f["scores"][:, 0], slate[1])
+    assert np.array_equal(f["descriptors"], slate[2])
+    return len(f["keypoints"])
+
+
+def phase_slice_k(torch, fh, rng, smi):
+    """Phase 18: slice K, extraction of one Aachen-class frame banded over
+    the spatial mesh."""
+    from posfeat_tpu_torch.models import PoSFeat
+    from posfeat_tpu_torch.parallel import spatial_mesh
+
+    t_phase = time.perf_counter()
+    frame = _frame(rng, SLICE_K_H, SLICE_K_W)
+    im_u8 = torch.from_numpy(frame)[None].cuda()
+    card = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+    meshes = [(f"{k} bands on cuda:0", spatial_mesh([card] * k)) for k in (2, 4)]
+    meshes += [(f"{k} bands on cuda:0-{k - 1}", spatial_mesh([torch.device("cuda", i) for i in range(k)]))
+               for k in (2, 4) if k <= n_cards]
+    slates = {}
+    for dtype, label, dataflow in ((torch.float32, "f32 reference", False), (torch.bfloat16, "bf16 phase", "phase")):
+        cfg = copy.deepcopy(FLAGSHIP_MODEL_CONFIG)
+        cfg["localheader_config"]["fused_upsample"] = dataflow
+        model = PoSFeat(cfg, dtype=dtype, device=card, seed=SEED)
+        ref, ms_ref, peak_ref = _timed_slate(torch, slice_k_program(torch, model, None), im_u8, [card])
+        print(f"[18] {label}, unsharded: {ms_ref:.4f} ms/image, peak {peak_ref[0] / 2**30:.2f} GiB, "
+              f"valid {ref[3]}, slate {len(ref[0])}")
+        for name, mesh in meshes:
+            devs = sorted(set(mesh.devices), key=str)
+            _zero_counts(fh)
+            got, ms, peaks = _timed_slate(torch, slice_k_program(torch, model, mesh), im_u8, devs)
+            launches = {**_read_counts(fh), **_read_counts(fh, " f32")}
+            assert not any(launches.values()), launches  # no kernel lies on the banded path
+            per = ", ".join(f"{d}: {p / 2**30:.2f}" for d, p in zip(devs, peaks))
+            print(f"[18] {label}, {name}: {ms:.4f} ms/image ({ms / ms_ref:.3f}x unsharded), peak GiB {per} "
+                  f"(total {sum(peaks) / 2**30:.2f}); {slice_k_compare(got, ref, dtype == torch.float32)}")
+            slates[(label, name)] = got
+        if dtype == torch.bfloat16:
+            model.localheader.fused_upsample = "pallas"
+            fused, ms_fused, _ = _timed_slate(torch, slice_k_program(torch, model, None), im_u8, [card])
+            for name, _ in meshes:
+                overlap = 1.0 - _pair_slates(slates[(label, name)], fused)[0]
+                print(f"[18] bf16 {name} against the unsharded fused head ('pallas', {ms_fused:.4f} ms/image): "
+                      f"top-k overlap {overlap:.4f}")
+        del model
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        n = slice_k_extractor(torch, tmp, frame, slates[("bf16 phase", "2 bands on cuda:0")])
+    print(f"[18] Extractor, spatial_shard: 2 (bf16, its fused head swapped for 'phase' in the banded program): "
+          f"the {SLICE_K_H}x{SLICE_K_W} frame ran banded, its npz ({n} keypoints) equal to spatial_extract's slate")
+    seconds = time.perf_counter() - t_phase
+    print(f"[18] slice K: {seconds:.1f} s (budget {SLICE_K_BUDGET_S:g} s); {smi}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2383,6 +2597,7 @@ def main() -> int:
     phase_slice_f(torch, fh, rng, smi, probe_state)
     phase_slice_g(torch, rng, smi, ims_main, s_step_main)
     slice_h = phase_slice_h(torch, fh, rng, smi)
+    phase_slice_k(torch, fh, rng, smi)
     records += v1 + reduction + slice_h
 
     print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")

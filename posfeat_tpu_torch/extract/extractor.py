@@ -35,8 +35,15 @@ writes ``config.yaml`` and appends to ``logging_file.txt`` as the JAX
 extractor does, and the ``FileExistsError`` check applies to
 single-shard runs only. ``spatial_shard`` (``auto``, ``True`` or a device
 count) resolves its device count as JAX does (the visible cards; 1 on the
-CPU): on one device the images run unsharded, as in JAX; more than one
-device is not ported yet and raises ``NotImplementedError``.
+CPU). On one device every image runs unsharded, as in JAX. Over more,
+images above ``spatial_threshold_px`` run one at a time through the
+banded program of ``parallel/spatial.py`` (posfeat_tpu/extract/
+extractor.py:195-219, 282-348): the image's rows split over the cards,
+backbone, head, detector and descriptor sampling run on the bands, the
+slate comes back whole; the fused head ("pallas") is swapped for the
+"phase" dataflow there. Smaller images and the SIFT passthrough run
+unsharded. A detector or backbone the banded program does not run is
+refused before any work.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from ..models.keypoint_det import check_head_dataflow
 from ..ops.coords import denormalize_coords, normalize_coords
 from ..ops.detect import DETECTORS
 from ..ops.grid_sample import sample_feat_by_coord
+from ..parallel import banded_detect, spatial_extract, spatial_mesh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -131,11 +139,23 @@ class Extractor:
         # shards an image over its spatial mesh (default 4M, about 2048x2048)
         self.spatial_threshold = int(self.config.get("spatial_threshold_px", 4 * 1024 * 1024))
         n_spatial = spatial_devices(self.config.get("spatial_shard", False), self.device)
+        self._spatial_mesh = None
+        self._spatial_forward = None
         if n_spatial > 1:
-            raise NotImplementedError(
-                f"spatial_shard over {n_spatial} devices: not ported yet; see ROADMAP.md: "
-                "spatial_shard over more than one device"
-            )
+            # the refusals come before any work (parallel/banded_detect.py, parallel/spatial.py)
+            if not self.sift_kp:
+                for key in ("detector_config", "detector_config_query"):
+                    if key in self.config:
+                        banded_detect.check_detector(self.config["detector"], self.config[key])
+            backbone = (self.config.get("model_config") or {}).get("backbone")
+            if backbone == "ResUNetHR":
+                raise NotImplementedError(
+                    "spatial_shard with backbone ResUNetHR: the banded program runs ResUNet only; "
+                    f"see ROADMAP.md: {banded_detect.REFUSED_ITEM}")
+            # distinct devices, as JAX's mesh over jax.devices()[:n]; the CPU is one
+            devices = ([torch.device("cuda", i) for i in range(n_spatial)] if self.device.type == "cuda"
+                       else [self.device] * n_spatial)
+            self._spatial_mesh = spatial_mesh(devices)
         dtype = _DTYPES[self.config.get("compute_dtype", "float32")]
 
         # bf16 extraction on the card takes the fused head (its kernels are
@@ -185,6 +205,9 @@ class Extractor:
         self.logger = _make_logger("extractor", os.path.join(self.save_root, "logging_file.txt"))
         if n_spatial == 1:
             self.logger.info("spatial_shard: one device, so every image runs unsharded")
+        elif self._spatial_mesh is not None:
+            self.logger.info(f"spatial sharding enabled: {n_spatial}-device H-axis bands for images "
+                             f"> {self.spatial_threshold} px")
         if hr and isinstance(lh_cfg, dict):
             self.logger.info(f"ResUNetHR: the head's trunk is at H/2, so it takes the reference dataflow "
                              f"(fused_upsample {lh_cfg.get('fused_upsample', True)!r}); K1/K2 are not launched")
@@ -241,6 +264,52 @@ class Extractor:
                 feat = sample_feat_by_coord(outputs["local_map"], coord_n, cos)
                 out = (denormalize_coords(coord_n, H, W), score, feat, valid)
                 return out + (outputs["local_point"][..., 0].float(),) if want_map else out
+
+            self._programs[key] = run
+        return self._programs[key]
+
+    def _use_spatial(self, shape) -> bool:
+        return self._spatial_mesh is not None and shape[0] * shape[1] > self.spatial_threshold
+
+    def _spatial_model(self):
+        """The model of the banded program: this Extractor's model, or where
+        its head is the fused one ('pallas', a single-device kernel) a copy
+        with the 'phase' dataflow in its place, as the JAX extractor swaps
+        it (extractor.py:288-303)."""
+        if self.model.localheader.fused_upsample != "pallas":
+            return self.model
+        model = copy.deepcopy(self.model)
+        model.localheader.fused_upsample = "phase"
+        self.logger.info("spatial_shard: the fused head ('pallas') runs on one device, so the banded "
+                         "program takes fused_upsample 'phase'")
+        return model
+
+    def _spatial_fn(self, shape, det_cfg_key: str):
+        """``_learned_fn``'s program for one [1, H, W, 3] image over the
+        spatial bands (JAX ``_spatial_fn``, extractor.py:305-348): the
+        backbone, head, detector and sampling banded, the slate (and the
+        score map that ``output_img`` asks for) whole on the first device."""
+        key = ("spatial", shape, det_cfg_key)
+        if key not in self._programs:
+            if self._spatial_forward is None:  # the replicas, once
+                self._spatial_forward = spatial_extract(self._spatial_model(), self._spatial_mesh)
+            forward = self._spatial_forward
+            H, W = shape
+            det_cfg = {k: v for k, v in self.config[det_cfg_key].items() if k != "scale"}
+            cos = self.config["loss_distance"] == "cos"
+            dev0 = self._spatial_mesh.devices[0]
+            mean = torch.as_tensor(IMAGENET_MEAN, device=dev0)
+            std = torch.as_tensor(IMAGENET_STD, device=dev0)
+            want_map = bool(self.config.get("output_img"))
+
+            @torch.inference_mode()
+            def run(im_u8):
+                im = (im_u8.to(dev0).float() / 255.0 - mean) / std
+                outputs = forward(im)
+                coord_n, score, valid = banded_detect.detect(outputs["local_point"], **det_cfg)
+                feat = banded_detect.sample_feat_by_coord(outputs["local_map"], coord_n, cos)
+                out = (denormalize_coords(coord_n, H, W), score, feat, valid)
+                return out + (outputs["local_point"].concat()[..., 0].float(),) if want_map else out
 
             self._programs[key] = run
         return self._programs[key]
@@ -351,7 +420,8 @@ class Extractor:
     def _extract_learned_batched(self, names: Dict[int, str]) -> int:
         """Shape-bucketed, batched, pipelined extraction. Partial final
         buckets are padded by repeating the last image; padded slots are
-        dropped on the host."""
+        dropped on the host. Images that run banded go one at a time
+        (the whole mesh works on one image's rows)."""
         bs = self.batch_size
         cuda = self.device.type == "cuda"
         buckets: Dict[Any, list] = {}
@@ -382,14 +452,18 @@ class Extractor:
             while len(write_futs) > write_cap:
                 write_futs.popleft().result()
 
+        def bucket_cap(key) -> int:
+            return 1 if self._use_spatial(key[0]) else bs
+
         def dispatch(key):
             items = buckets.pop(key)
             ims = [np.asarray(it["im1_ori"], np.uint8) for it in items]
-            ims += [ims[-1]] * (bs - len(ims))  # pad a partial bucket
+            ims += [ims[-1]] * (bucket_cap(key) - len(ims))  # pad a partial bucket
             batch = torch.from_numpy(np.stack(ims))
             if cuda:
                 batch = batch.pin_memory().to(self.device, non_blocking=True)
-            out = self._learned_fn(key[0], key[1])(batch)
+            program = self._spatial_fn if self._use_spatial(key[0]) else self._learned_fn
+            out = program(key[0], key[1])(batch)
             # device -> pinned host copies, waited for on the fetch thread
             host = [t.to("cpu", non_blocking=True) for t in out]
             done = None
@@ -408,7 +482,7 @@ class Extractor:
                 H, W = inputs["im1_ori"].shape[:2]
                 key = ((H, W), self._det_cfg_key(inputs))
                 buckets.setdefault(key, []).append(inputs)
-                if len(buckets[key]) == bs:
+                if len(buckets[key]) == bucket_cap(key):
                     dispatch(key)
                 elif sum(len(v) for v in buckets.values()) >= pending_cap:
                     dispatch(max(buckets, key=lambda k: len(buckets[k])))

@@ -162,12 +162,13 @@ def softargmax_offsets_at(kp_map: torch.Tensor, coord: torch.Tensor, temperature
     return _softargmax(_window_at(kp_map[..., 0], coord, r, "replicate"), temperature, window)
 
 
-def _offset_grids(off: torch.Tensor, H: int, W: int, dtype) -> torch.Tensor:
+def _offset_grids(off: torch.Tensor, H: int, W: int, dtype, row0: int = 0) -> torch.Tensor:
     """Interior pixel centres plus offsets [B, H-2, W-2, 2] in pixels ->
-    normalized coordinates at ``dtype``."""
+    normalized coordinates at ``dtype``; ``off`` may hold the interior
+    rows from ``row0`` on only."""
     dev = off.device
     jj = torch.arange(1, W - 1, dtype=torch.float32, device=dev)
-    ii = torch.arange(1, H - 1, dtype=torch.float32, device=dev)
+    ii = torch.arange(1 + row0, 1 + row0 + off.shape[1], dtype=torch.float32, device=dev)
     kx = -1.0 + 2.0 * (jj[None, None, :] + off[..., 0]) / (W - 1)
     ky = -1.0 + 2.0 * (ii[None, :, None] + off[..., 1]) / (H - 1)
     return torch.stack([kx, ky], dim=-1).to(dtype)
@@ -192,12 +193,11 @@ def _quad5_filters(device=None) -> torch.Tensor:
     return torch.from_numpy(F_.reshape(6, 5, 5).astype(np.float32)).to(device)
 
 
-def _quad5_refine_grids(kp_map: torch.Tensor) -> torch.Tensor:
-    """5×5 least-squares quadratic peak fit of every interior pixel
-    (detect.py:174-214): edge pad 2, one conv with the 6 filters, offsets
-    clamped to ±1 px, the pixel centre where the fitted Hessian is not a
-    well-posed local maximum. [B, H-2, W-2, 2], math in f32."""
-    B, H, W, _ = kp_map.shape
+def _quad5_offsets(kp_map: torch.Tensor) -> torch.Tensor:
+    """The 5×5 least-squares quadratic peak fit's offsets [B, H, W, 2] of
+    every pixel (detect.py:174-214): edge pad 2, one conv with the 6
+    filters, offsets clamped to ±1 px, zero where the fitted Hessian is
+    not a well-posed local maximum; math in f32."""
     s = kp_map[..., 0].float()
     sp = F.pad(s[:, None], (2, 2, 2, 2), mode="replicate")
     coeffs = F.conv2d(sp, _quad5_filters(s.device)[:, None])  # [B, 6, H, W]
@@ -206,9 +206,17 @@ def _quad5_refine_grids(kp_map: torch.Tensor) -> torch.Tensor:
     ok = (det > 1e-12) & (a < 0.0)
     safe = torch.where(ok, det, torch.ones_like(det))
     zero = torch.zeros_like(det)
-    ox = torch.where(ok, -(2.0 * b * d - c * e) / safe, zero).clamp(-1.0, 1.0)[:, 1:-1, 1:-1]
-    oy = torch.where(ok, -(2.0 * a * e - c * d) / safe, zero).clamp(-1.0, 1.0)[:, 1:-1, 1:-1]
-    return _offset_grids(torch.stack([ox, oy], dim=-1), H, W, kp_map.dtype)
+    ox = torch.where(ok, -(2.0 * b * d - c * e) / safe, zero).clamp(-1.0, 1.0)
+    oy = torch.where(ok, -(2.0 * a * e - c * d) / safe, zero).clamp(-1.0, 1.0)
+    return torch.stack([ox, oy], dim=-1)
+
+
+def _quad5_refine_grids(kp_map: torch.Tensor) -> torch.Tensor:
+    """The 5×5 fit's refined coordinates of every interior pixel:
+    [B, H-2, W-2, 2], the pixel centre where the fit is not a local
+    maximum."""
+    B, H, W, _ = kp_map.shape
+    return _offset_grids(_quad5_offsets(kp_map)[:, 1:-1, 1:-1], H, W, kp_map.dtype)
 
 
 def refined_grids(kp_map: torch.Tensor, refine: str = "avg3", stride: int = 1,

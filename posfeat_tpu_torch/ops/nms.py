@@ -25,12 +25,17 @@ def nms(score: torch.Tensor, patch_radius: int) -> torch.Tensor:
     Hp, Wp = H + 2 * r, W + 2 * r
     # linear index of every padded position
     lin = torch.arange(Hp * Wp, dtype=torch.int32, device=score.device)
-    lin = lin.reshape(1, Hp, Wp)
+    return nms_window(sp, lin.reshape(1, Hp, Wp), r)[..., None]
 
-    best_val = torch.full((B, H, W), float("-inf"), dtype=score.dtype,
-                          device=score.device)
-    best_idx = torch.full((B, H, W), torch.iinfo(torch.int32).max,
-                          dtype=torch.int32, device=score.device)
+
+def nms_window(sp: torch.Tensor, lin: torch.Tensor, r: int) -> torch.Tensor:
+    """The NMS mask [B, h, w] of the padded window sp [B, h + 2r, w + 2r]
+    whose positions carry the padded image's linear indices lin
+    [1, h + 2r, w + 2r] (the tie-break)."""
+    B = sp.shape[0]
+    H, W = sp.shape[1] - 2 * r, sp.shape[2] - 2 * r
+    best_val = torch.full((B, H, W), float("-inf"), dtype=sp.dtype, device=sp.device)
+    best_idx = torch.full((B, H, W), torch.iinfo(torch.int32).max, dtype=torch.int32, device=sp.device)
     for dy in range(2 * r + 1):
         for dx in range(2 * r + 1):
             v = sp[:, dy : dy + H, dx : dx + W]
@@ -38,9 +43,7 @@ def nms(score: torch.Tensor, patch_radius: int) -> torch.Tensor:
             better = (v > best_val) | ((v == best_val) & (li < best_idx))
             best_val = torch.where(better, v, best_val)
             best_idx = torch.where(better, li, best_idx)
-
-    center = lin[:, r : r + H, r : r + W]
-    return (best_idx == center)[..., None]
+    return best_idx == lin[:, r : r + H, r : r + W]
 
 
 def soft_nms(score: torch.Tensor, patch_radius: int) -> torch.Tensor:

@@ -12,12 +12,18 @@ from .pooling import avg_pool2d, pad2d
 def ssim_prior(x: torch.Tensor, channel_mean: bool = False) -> torch.Tensor:
     """Self-dissimilarity via SSIM against the 1px-diagonal shift.
     [B, H, W, C] -> [B, H, W, C] (or [B, H, W, 1] with channel_mean)."""
-    C1 = 0.01**2
-    C2 = 0.03**2
     x_pad = pad2d(x.abs(), (0, 1, 0, 1), mode="reflect")
     x_lu = pad2d(x_pad[:, :-1, :-1, :], (1, 1, 1, 1), mode="reflect")
     x_rb = pad2d(x_pad[:, 1:, 1:, :], (1, 1, 1, 1), mode="reflect")
+    return ssim_from_shifts(x_lu, x_rb, channel_mean)
 
+
+def ssim_from_shifts(x_lu: torch.Tensor, x_rb: torch.Tensor, channel_mean: bool = False) -> torch.Tensor:
+    """``ssim_prior`` from its two reflect-padded shifted maps (1 px wider
+    on every side than the output): the 3×3 moments and the SSIM
+    dissimilarity."""
+    C1 = 0.01**2
+    C2 = 0.03**2
     m_lu = avg_pool2d(x_lu, 3, 1)
     m_rb = avg_pool2d(x_rb, 3, 1)
     sig_lu = avg_pool2d(x_lu**2, 3, 1) - m_lu**2

@@ -1,0 +1,247 @@
+"""``generate_kpts_single`` (stable top-k) and ``sample_feat_by_coord``
+on row bands of the score map and the local map (posfeat_tpu/ops/
+detect.py:217-429 and ops/grid_sample.py:253 under the JAX spatial
+program).
+
+The slate is the unsharded slate: the same points in the same order
+wherever the scores are bitwise equal. Band i owns the interior rows
+(image rows 1 .. H−2) of its own image rows. Its NMS window reads the
+neighbours' rows, reflect-padded at the interior's edges, with the
+padded map's global linear indices as the tie-break. The fold blocks
+start at interior row 0, so a block can straddle a band edge: each band
+reduces the blocks whose first row it owns, reading up to fold − 1 rows
+below. Each band's top-k (ties to the lower index) then merges on the
+first device by a stable sort of the scores in band order, which breaks
+ties by the global block index as the unsharded sort does. The slate's
+coordinates and scores are read on the band that owns each point's row.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.detect import (
+    REFINERS,
+    _offset_grids,
+    _pad_slate,
+    _quad5_offsets,
+    quad_refine_offsets,
+    softargmax3_offsets,
+    top_k,
+)
+from ..ops.grid_sample import l2_normalize
+from ..ops.nms import nms_window
+from ..ops.pooling import avg_pool2d, max_pool2d
+from .banded_ops import Bands, global_max, global_sum
+
+# the ROADMAP.md item that names what the banded program refuses
+REFUSED_ITEM = "spatial_shard's refused detectors and backbones"
+
+
+def check_detector(name: str, cfg: Dict) -> None:
+    """Raises, before any work, for a detector configuration the banded
+    program does not run: any detector but ``generate_kpts_single``,
+    Gumbel selection (``stable: False``), a stride other than 1."""
+    if name != "generate_kpts_single":
+        raise NotImplementedError(
+            f"spatial_shard with detector {name!r}: the banded program runs generate_kpts_single only; "
+            f"see ROADMAP.md: {REFUSED_ITEM}")
+    if not cfg.get("stable", True):
+        raise NotImplementedError(
+            "spatial_shard with stable: False (Gumbel selection): not banded; "
+            f"see ROADMAP.md: {REFUSED_ITEM}")
+    if cfg.get("stride", 1) != 1:
+        raise NotImplementedError(
+            f"spatial_shard with detector stride {cfg['stride']}: the banded detector runs stride 1; "
+            f"see ROADMAP.md: {REFUSED_ITEM}")
+    refine = cfg.get("refine", "avg3")
+    if refine not in REFINERS:
+        raise ValueError(f"unknown refine {refine!r}; expected one of {REFINERS}")
+    if cfg.get("use_nms", True) == "softnms" and not cfg.get("thr", False):
+        raise ValueError("use_nms='softnms' needs a threshold to count valid points")
+
+
+def _interior_rows(kp: Bands, i: int, lo: int, hi: int):
+    """Interior rows lo .. hi (image rows + 1) on band i, reflect-padded
+    at the interior's edges, columns 1 .. W − 2: [B, hi − lo, W − 2]."""
+    h2 = kp.total - 2
+    rows = [(-q if q < 0 else 2 * (h2 - 1) - q if q >= h2 else q) + 1 for q in range(lo, hi)]
+    return kp.gather(i, rows)[:, :, 1:-1, 0]
+
+
+def _grids(kp: Bands, i: int, q0: int, q1: int, refine: str, temperature: float) -> torch.Tensor:
+    """``refined_grids`` at stride 1 for interior rows q0 .. q1 of band i:
+    [B, q1 − q0, W − 2, 2]."""
+    H, W = kp.total, kp.parts[0].shape[2]
+    n = q1 - q0
+    dt, dev = kp.parts[i].dtype, kp.parts[i].device
+    clamp = lambda lo, hi: [min(max(r, 0), H - 1) for r in range(lo, hi)]
+    if refine == "avg3":
+        win = kp.gather(i, range(q0, q1 + 2))
+        ys = torch.linspace(-1, 1, H, dtype=dt, device=dev)[q0 : q1 + 2]
+        xs = torch.linspace(-1, 1, W, dtype=dt, device=dev)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        grids_org = torch.stack([gx, gy], dim=-1)[None]
+        return avg_pool2d(win * grids_org, 3, 1) / avg_pool2d(win, 3, 1)
+    if refine == "quad":
+        off = quad_refine_offsets(kp.gather(i, range(q0, q1 + 2)))[:, 1:-1, 1:-1]
+    elif refine == "quad5":
+        off = _quad5_offsets(kp.gather(i, clamp(q0 - 1, q1 + 3)))[:, 2 : 2 + n, 1:-1]
+    else:
+        r = 2 if refine == "soft5" else 1
+        win = kp.gather(i, clamp(q0 + 1 - r, q1 + 1 + r))
+        off = softargmax3_offsets(win, temperature, 2 * r + 1)[:, r : r + n, 1:-1]
+    return _offset_grids(off, H, W, dt, row0=q0)
+
+
+def detect(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=False,
+           thr_mod: str = "mean", stable: bool = True, temperature: float = 1.0, stride: int = 1,
+           refine: str = "avg3", refine_temperature: float = 20.0):
+    """``generate_kpts_single`` with ``stable=True`` on bands of the score
+    map [B, rows, W, 1] -> (kps_n [B, num_pts, 2], scores [B, num_pts, 1],
+    valid_count [B] int32) on the first band's device. ``temperature``
+    belongs to the Gumbel selection, which is refused."""
+    check_detector("generate_kpts_single", dict(stable=stable, stride=stride, refine=refine,
+                                                use_nms=use_nms, thr=thr))
+    H, W = kp_map.total, kp_map.parts[0].shape[2]
+    B = kp_map.parts[0].shape[0]
+    h2, w2 = H - 2, W - 2
+    dev0, dt = kp_map.parts[0].device, kp_map.parts[0].dtype
+    r = nms_radius
+    own = [(max(a - 1, 0), min(b - 1, h2)) for a, b in zip(kp_map.starts, kp_map.stops)]
+
+    # the threshold's reference value (putils:232-240), global
+    if thr and thr_mod == "max":
+        kp_thr = global_max([_interior_rows(kp_map, i, q0, q1).reshape(B, -1).amax(dim=1)
+                             for i, (q0, q1) in enumerate(own)])
+    elif thr and thr_mod == "mean":
+        kp_thr = global_sum([_interior_rows(kp_map, i, q0, q1).reshape(B, -1).sum(dim=1)
+                             for i, (q0, q1) in enumerate(own)]) / (h2 * w2)
+    elif thr and thr_mod != "abs":
+        raise ValueError(f"unknown thr_mod {thr_mod}")
+    else:
+        kp_thr = torch.ones((B,), dtype=dt, device=dev0)
+
+    fold = min(r + 1, 4) if (use_nms is True and r >= 1) else 0
+    wb = -(-w2 // fold) if fold > 1 else 0  # blocks per block row
+    cand, counts = [], []
+    for i, (q0, q1) in enumerate(own):
+        if fold > 1:
+            bs0 = -(-q0 // fold) * fold  # the first block whose first row the band owns
+            be = (q1 - 1) // fold * fold + fold
+            e = min(be, h2)
+        else:
+            e = q1
+        interior = _interior_rows(kp_map, i, q0, e)  # [B, e − q0, w2]
+        if use_nms == "softnms" or use_nms is True:
+            win = _interior_rows(kp_map, i, q0 - r, e + r)
+            sp = F.pad(win[:, None], (r, r, 0, 0), mode="reflect")[:, 0]
+        if use_nms == "softnms":
+            s = interior
+            local_mean = avg_pool2d(sp[..., None], 2 * r + 1, 1)[..., 0]
+            nms_mask = F.softplus(s - local_mean)
+            count_src = None
+        elif use_nms:
+            Wp = w2 + 2 * r
+            lin = (torch.arange(q0, e + 2 * r, dtype=torch.int32, device=sp.device)[:, None] * Wp
+                   + torch.arange(Wp, dtype=torch.int32, device=sp.device)[None, :])[None]
+            nms_mask = nms_window(sp, lin, r).to(dt)
+            count_src = nms_mask
+        else:
+            nms_mask = torch.ones_like(interior)
+            count_src = nms_mask
+        if thr:
+            tmask = (interior > thr * kp_thr.to(interior.device).reshape(B, 1, 1)).to(dt)
+            nms_mask = tmask * nms_mask
+            count_src = tmask if use_nms == "softnms" else nms_mask
+        counts.append(count_src[:, : q1 - q0].reshape(B, -1).sum(dim=1).to(torch.int32))
+        masked = nms_mask * interior
+        if fold > 1:
+            mm = F.pad(masked[:, bs0 - q0 :], (0, wb * fold - w2, 0, be - e))
+            nbr = (be - bs0) // fold
+            blocks = mm.reshape(B, nbr, fold, wb, fold).permute(0, 1, 3, 2, 4).reshape(B, nbr * wb, fold * fold)
+            bmax, barg = blocks.max(dim=-1)
+            vals, li = top_k(bmax, min(num_pts, bmax.shape[1]))
+            cand.append((vals, li + (bs0 // fold) * wb, torch.gather(barg, 1, li)))
+        else:
+            flat = masked[:, : q1 - q0].reshape(B, -1)
+            vals, li = top_k(flat, min(num_pts, flat.shape[1]))
+            cand.append((vals, li + q0 * w2, None))
+    valid_count = global_sum(counts)
+
+    # merge: a stable sort of the scores in band order puts ties in global index order
+    vals = torch.cat([c[0].to(dev0) for c in cand], dim=1)
+    gidx = torch.cat([c[1].to(dev0) for c in cand], dim=1)
+    order = torch.sort(vals, dim=1, descending=True, stable=True)[1]
+    if fold > 1:
+        k = min(num_pts, (-(-h2 // fold)) * wb)
+        order = order[:, :k]
+        bidx = torch.gather(gidx, 1, order)
+        inner = torch.gather(torch.cat([c[2].to(dev0) for c in cand], dim=1), 1, order)
+        yy = (bidx // wb) * fold + inner // fold
+        xx = (bidx % wb) * fold + inner % fold
+        # zero-score pad blocks may decode past the interior; their slots
+        # lie beyond valid_count and are trimmed on the host
+        idx = torch.clamp(yy * w2 + xx, 0, h2 * w2 - 1)
+    else:
+        k = min(num_pts, h2 * w2)
+        idx = torch.gather(gidx, 1, order[:, :k])
+
+    kps = torch.zeros((B, k, 2), dtype=dt, device=dev0)
+    kp_score = torch.zeros((B, k, 1), dtype=dt, device=dev0)
+    for i, (q0, q1) in enumerate(own):
+        dev = kp_map.parts[i].device
+        grids = _grids(kp_map, i, q0, q1, refine, refine_temperature).reshape(B, -1, 2)
+        score_map = max_pool2d(kp_map.gather(i, range(q0, q1 + 2)), 3, 1).reshape(B, -1, 1)
+        li = idx.to(dev) - q0 * w2
+        sel = ((li >= 0) & (li < (q1 - q0) * w2))[..., None]
+        li = li.clamp(0, (q1 - q0) * w2 - 1)[..., None]
+        g = torch.gather(grids, 1, li.expand(-1, -1, 2))
+        s = torch.gather(score_map, 1, li)
+        kps = torch.where(sel.to(dev0), g.to(dev0), kps)
+        kp_score = torch.where(sel.to(dev0), s.to(dev0), kp_score)
+    kps, kp_score = _pad_slate(num_pts, k, kps, kp_score)
+    return kps, kp_score, valid_count
+
+
+def sample_feat_by_coord(x: Bands, coord_n: torch.Tensor, norm: bool = False) -> torch.Tensor:
+    """``sample_feat_by_coord`` on bands of the map [B, h, w, C]: each
+    point's bilinear taps (align_corners=False, zeros outside the map) at
+    global coordinates, read on the band that owns its upper tap row with
+    one row below (and above, for the first band's row −1). In f32, then
+    the L2 norm where ``norm``; [B, N, C] on coord_n's device."""
+    h, w = x.total, x.parts[0].shape[2]
+    dev0 = coord_n.device
+    c = coord_n.float()
+    ix = ((c[..., 0] + 1) * w - 1) / 2
+    iy = ((c[..., 1] + 1) * h - 1) / 2
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    nw = (x0 + 1 - ix) * (y0 + 1 - iy)
+    ne = (ix - x0) * (y0 + 1 - iy)
+    sw = (x0 + 1 - ix) * (iy - y0)
+    se = (ix - x0) * (iy - y0)
+    x0l, y0l = x0.long(), y0.long()
+    ext = x.halo(1, 1)
+    out = None
+    n_bands = len(x)
+    for i, (e, a, b) in enumerate(zip(ext, x.starts, x.stops)):
+        dev = e.device
+        B, rows, _, C = e.shape
+        flat = e.float().reshape(B, -1, C)
+        yb, xb = y0l.to(dev), x0l.to(dev)
+        sel = ((yb >= a) | (i == 0)) & ((yb < b) | (i == n_bands - 1))
+        acc = None
+        for dy, dx, wt in ((0, 0, nw), (0, 1, ne), (1, 0, sw), (1, 1, se)):
+            yy, xx = yb + dy, xb + dx
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            li = (yy - (a - 1)).clamp(0, rows - 1) * w + xx.clamp(0, w - 1)
+            v = torch.gather(flat, 1, li[..., None].expand(-1, -1, C))
+            v = torch.where(ok[..., None], v, torch.zeros_like(v)) * wt.to(dev)[..., None]
+            acc = v if acc is None else acc + v
+        acc = acc.to(dev0)
+        out = acc if out is None else torch.where(sel.to(dev0)[..., None], acc, out)
+    # the first band's result stands where no later band owns the point
+    return l2_normalize(out) if norm else out

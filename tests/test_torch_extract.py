@@ -119,7 +119,10 @@ def test_extractors_write_matching_npz(tmp_path, rng, weights, monkeypatch):
 def test_deferred_features_raise(tmp_path, rng, monkeypatch):
     """spatial_shard resolves its device count as JAX does: on one device
     (the CPU) ``True`` and ``auto`` run every image unsharded, equal to the
-    plain run; over more devices it is not ported and raises."""
+    plain run. Over two devices (two CPU bands here) an image above
+    ``spatial_threshold_px`` runs through the banded program, whose npz
+    holds the plain run's slate (tests/test_spatial.py:92-106's
+    tolerances), and an image below it stays bit-equal."""
     # use_sift, save_h5 and output_img are ported (tests/test_torch_extract_remainders.py)
     import cv2
 
@@ -129,22 +132,39 @@ def test_deferred_features_raise(tmp_path, rng, monkeypatch):
     seq = tmp_path / "hp" / "i_x"
     seq.mkdir(parents=True)
     cv2.imwrite(str(seq / "1.ppm"), cv2.cvtColor(_texture(rng, H, W), cv2.COLOR_RGB2BGR))
-    files = {}
-    for sp in (False, True, "auto"):
-        cfg = _config(tmp_path, f"sp_{sp}", tmp_path / "none")
-        cfg["spatial_shard"] = sp
+
+    def run(tag, **extra):
+        cfg = {**_config(tmp_path, tag, tmp_path / "none"), **extra}
         ex = Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu")
         assert ex.extract()[0] == 1
-        files[sp] = np.load(f"{ex.desc_root}/i_x/1.ppm.pf")
+        return ex, np.load(f"{ex.desc_root}/i_x/1.ppm.pf")
+
+    _, plain = run("sp_False", spatial_shard=False)
     for sp in (True, "auto"):
+        _, got = run(f"sp_{sp}", spatial_shard=sp)
         for key in ("keypoints", "scores", "descriptors"):
-            np.testing.assert_array_equal(files[sp][key], files[False][key], err_msg=f"{sp} {key}")
+            np.testing.assert_array_equal(got[key], plain[key], err_msg=f"{sp} {key}")
     monkeypatch.setattr(ex_mod, "_visible_devices", lambda device: 2)
-    for sp in (True, "auto", 2):
-        cfg = _config(tmp_path, f"sp2_{sp}", tmp_path / "none")
-        cfg["spatial_shard"] = sp
-        with pytest.raises(NotImplementedError, match="ROADMAP.md: spatial_shard over more than one device"):
-            Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu", dataset=[])
+    # with 2, the fused head: the banded program takes "phase" in its place
+    for sp, extra in ((True, {}), ("auto", {}), (2, {"head_dataflow": "pallas", "output_img": True})):
+        ex, got = run(f"sp2_{sp}", spatial_shard=sp, spatial_threshold_px=H * W - 1, **extra)
+        assert ex._spatial_mesh.devices == (torch.device("cpu"),) * 2
+        assert ("spatial", (H, W), "detector_config") in ex._programs
+        if extra:
+            assert ex.model.localheader.fused_upsample == "pallas"
+            root = tmp_path / "out" / "ex_sp2_2"
+            assert "the banded program takes fused_upsample 'phase'" in (root / "logging_file.txt").read_text()
+            assert (root / "image" / "i_x" / "1_score_map.jpg").exists()
+        assert got["keypoints"].shape == plain["keypoints"].shape
+        ia = np.lexsort((got["keypoints"][:, 1], got["keypoints"][:, 0]))
+        ib = np.lexsort((plain["keypoints"][:, 1], plain["keypoints"][:, 0]))
+        np.testing.assert_allclose(got["keypoints"][ia], plain["keypoints"][ib], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got["scores"][ia], plain["scores"][ib], rtol=1e-3, atol=1e-5)
+        np.testing.assert_allclose(got["descriptors"][ia], plain["descriptors"][ib], rtol=1e-3, atol=1e-4)
+    ex, got = run("sp2_below", spatial_shard=2, spatial_threshold_px=H * W)
+    assert ex._spatial_mesh is not None and not any(k[0] == "spatial" for k in ex._programs)
+    for key in ("keypoints", "scores", "descriptors"):
+        np.testing.assert_array_equal(got[key], plain[key], err_msg=key)
 
 
 def test_bf16_selects_fused_head_only_on_the_card(tmp_path):
