@@ -176,6 +176,34 @@ Phases, one line each (more for the build):
      card the mesh lists cuda:0 twice) on that frame in bf16, its fused
      head swapped for "phase" there: its npz equal to the banded
      program's slate. Budget: 60 s;
+ 19. slice L (0 b): one seeded 3024x4032 frame (a 12 MP phone photo,
+     above the 2^31 output elements of one resize that the reference
+     head's x4 resize of its 192-channel trunk reaches near 11 Mpx),
+     flagship model, Aachen detector, unsharded: f32 with the reference
+     dataflow (the resize and conv2 in row blocks) and bf16 with the
+     "phase" head, each against the frame over 4 bands on cuda:0 with
+     phase 18's checks (the bf16 unmatched share held to the unsharded
+     program's own under 1e-6 of input noise where that is larger: cuDNN
+     picks other algorithms for the whole map than for a band); then the
+     bf16 fused head (K1 and K2 on the 756x1008 trunk, launched once a
+     forward) against the "phase" head with phase 4's limits. Budget:
+     90 s;
+ 20. slice L (a): the training launcher (``python -m
+     posfeat_tpu_torch.train`` without ``--device``) on
+     configs/train_kp.yaml, flagship model, f32, SyntheticPairs 480x640,
+     batch 6, 3 steps: two ranks on cuda:0 over gloo (and over every card
+     on NCCL where there are several), each fed its rows of the
+     launcher's one loader: the trained head against the one-process run
+     (rtol 1e-3 / atol 2e-4), K4+K5 and K6 launched once a step on every
+     rank, s/step per rank beside the one-process run's. Budget: 150 s;
+ 21. slice L (b): phase 18's frame over 2 bands on cuda:0 in bf16
+     ("phase") against the unsharded run of the same configuration, with
+     phase 18's limits, for ResUNetHR, generate_kpts_single_noavg, the
+     grid detector (grid 8, stable) and generate_kpts_single at stride 2
+     (its NaN slots counted apart): ms/image and peak memory of each;
+     then Gumbel selection at 256x256, 512 points, on 2 bands against the
+     unsharded detector with the same seeded noise, bit for bit. Budget:
+     90 s;
 then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2, T3, the two
 reduction kernels, and slice H's f32 K1, K3, K2 and D = 256 passes), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
@@ -194,6 +222,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -2336,13 +2365,13 @@ def _frame(rng, h, w):
     return np.clip(127.5 + 80 * base + rng.normal(0, 20, size=(h, w, 3)), 0, 255).astype(np.uint8)
 
 
-def slice_k_program(torch, model, mesh):
+def slice_k_program(torch, model, mesh, detector="generate_kpts_single", det=AACHEN_DET):
     """uint8 [1, H, W, 3] on the card -> (pixel coords, scores, descriptors,
-    valid): the Extractor's device program, unsharded (``mesh`` None) or
-    banded over ``mesh``."""
+    valid): the Extractor's device program with ``detector`` on ``det``,
+    unsharded (``mesh`` None) or banded over ``mesh``."""
     from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
     from posfeat_tpu_torch.ops.coords import denormalize_coords
-    from posfeat_tpu_torch.ops.detect import generate_kpts_single
+    from posfeat_tpu_torch.ops.detect import DETECTORS
     from posfeat_tpu_torch.ops.grid_sample import sample_feat_by_coord
     from posfeat_tpu_torch.parallel import detect, sample_feat_by_coord as banded_sample, spatial_extract
 
@@ -2351,17 +2380,19 @@ def slice_k_program(torch, model, mesh):
     std = torch.as_tensor(IMAGENET_STD, device=dev0)
 
     def banded_post(o):
-        coord_n, score, valid = detect(o["local_point"], **AACHEN_DET)
+        coord_n, score, valid = detect(o["local_point"], detector, **det)
         return coord_n, score, banded_sample(o["local_map"], coord_n, True), valid
 
     forward = None if mesh is None else spatial_extract(model, mesh, banded_post)
 
     @torch.inference_mode()
-    def run(im_u8):
+    def run(im_u8, scale=None):
         im = (im_u8.to(dev0).float() / 255.0 - mean) / std
+        if scale is not None:  # the normalized input times ``scale``
+            im = im * scale
         if forward is None:
             o = model.extract(im)
-            coord_n, score, valid = generate_kpts_single(o["local_point"], **AACHEN_DET)
+            coord_n, score, valid = DETECTORS[detector](o["local_point"], **det)
             feat = sample_feat_by_coord(o["local_map"], coord_n, True)
         else:
             coord_n, score, feat, valid = forward(im)
@@ -2370,7 +2401,7 @@ def slice_k_program(torch, model, mesh):
     return run
 
 
-def _timed_slate(torch, run, im_u8, devices, reps=3):
+def _timed_slate(torch, run, im_u8, devices, reps=3, num_pts=AACHEN_DET["num_pts"]):
     """(host slate trimmed to the reference's count, ms per image over
     ``reps`` runs after a warm-up, peak bytes per device): CUDA events on
     the first device, every device synchronized."""
@@ -2385,10 +2416,15 @@ def _timed_slate(torch, run, im_u8, devices, reps=3):
     t1.record()
     for d in devices:
         torch.cuda.synchronize(d)
+    return _trim(out, num_pts), t0.elapsed_time(t1) / reps, [torch.cuda.max_memory_allocated(d) for d in devices]
+
+
+def _trim(out, num_pts=AACHEN_DET["num_pts"]):
+    """A device program's output as the host slate, trimmed to the
+    reference's count max(min(num_pts, valid), 128)."""
     coords, score, feat, valid = (t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy() for t in out)
-    n = int(max(min(AACHEN_DET["num_pts"], int(valid[0])), 128))
-    slate = (coords[0, :n], score[0, :n, 0], feat[0, :n], int(valid[0]))
-    return slate, t0.elapsed_time(t1) / reps, [torch.cuda.max_memory_allocated(d) for d in devices]
+    n = int(max(min(num_pts, int(valid[0])), 128))
+    return coords[0, :n], score[0, :n, 0], feat[0, :n], int(valid[0])
 
 
 def _pair_slates(got, ref):
@@ -2410,15 +2446,16 @@ def _pair_slates(got, ref):
     return 1.0 - len(gi) / max(len(kg), 1), np.array(gi, np.int64), np.array(ri, np.int64)
 
 
-def slice_k_compare(got, ref, f32):
+def slice_k_compare(got, ref, f32, unmatched_limit=SLICE_K_UNMATCHED):
     """Banded slate against the unsharded one of the same dataflow; returns
-    the printed figures. Raises past the limits above."""
+    the printed figures. Raises past the limits above (the unmatched share
+    past ``unmatched_limit``)."""
     unmatched, gi, ri = _pair_slates(got, ref)
     dv = abs(got[3] - ref[3])
     ds = np.abs(got[1][gi] - ref[1][ri])
     dd = np.abs(got[2][gi] - ref[2][ri]).max() if len(gi) else 0.0
     assert dv <= SLICE_K_VALID_RTOL * ref[3], (got[3], ref[3])
-    assert unmatched <= SLICE_K_UNMATCHED, unmatched
+    assert unmatched <= unmatched_limit, (unmatched, unmatched_limit)
     if f32:
         assert (ds <= 1e-3 * np.abs(ref[1][ri]) + 1e-5).all(), ds.max()
         assert dd <= 1e-4, dd
@@ -2512,6 +2549,248 @@ def phase_slice_k(torch, fh, rng, smi):
     seconds = time.perf_counter() - t_phase
     print(f"[18] slice K: {seconds:.1f} s (budget {SLICE_K_BUDGET_S:g} s); {smi}")
 
+# slice L: a 12 MP phone photo (4032x3024, H x W = 3024 x 4032) unsharded,
+# above the 2^31 output elements of one channels-last resize that the
+# reference head's x4 resize of its 192-channel trunk reaches near 11 Mpx
+SLICE_L_H, SLICE_L_W = 3024, 4032
+SLICE_L_12MP_BUDGET_S = 90.0
+SLICE_L_LAUNCH_BUDGET_S = 150.0
+SLICE_L_BANDS_BUDGET_S = 90.0
+SLICE_L_STEPS = 3
+# the lifted spatial_shard configurations on phase 18's frame: (label, backbone, detector, its config)
+SLICE_L_CONFIGS = (
+    ("ResUNetHR, generate_kpts_single", "ResUNetHR", "generate_kpts_single", AACHEN_DET),
+    ("generate_kpts_single_noavg", "ResUNet", "generate_kpts_single_noavg", AACHEN_DET),
+    # configs/train_kp.yaml's grid (8), stable
+    ("generate_kpts_regular_grid_single", "ResUNet", "generate_kpts_regular_grid_single",
+     {"grid_size": 8, "num_pts": AACHEN_DET["num_pts"], "nms_radius": 3, "stable": True}),
+    ("generate_kpts_single, stride 2", "ResUNet", "generate_kpts_single", {**AACHEN_DET, "stride": 2}),
+)
+# Gumbel selection on the bands against the unsharded detector with the same noise
+SLICE_L_GUMBEL = (256, 256, 512)
+
+
+def slice_l_12mp(torch, fh, rng, smi):
+    """(0 b) One seeded 3024x4032 frame unsharded, flagship model, Aachen
+    detector: f32 with the reference dataflow (its x4 resize of the
+    192-channel trunk writes 2.34e9 elements, in row blocks below
+    ``resize.BLOCK_ELEMENTS``) and bf16 with the "phase" dataflow, each
+    against the frame banded over 4 bands on cuda:0 with phase 18's limits;
+    then the bf16 fused head ("pallas": K1 and K2 on the 756x1008 trunk),
+    its score map against the "phase" head's within phase 4's limits
+    (mean |d| 2e-2, max |d| 1e-1 x mean|score|) and its slate's overlap
+    with the banded one printed. The bf16 banded slate is held to the
+    unsharded one's unmatched share under 1e-6 of input noise where that
+    is above phase 18's 1e-3 (cuDNN's algorithms for the whole map differ
+    from a band's at this size)."""
+    from posfeat_tpu_torch.models import PoSFeat
+    from posfeat_tpu_torch.ops import resize
+    from posfeat_tpu_torch.parallel import spatial_mesh
+
+    t_phase = time.perf_counter()
+    frame = _frame(rng, SLICE_L_H, SLICE_L_W)
+    im_u8 = torch.from_numpy(frame)[None].cuda()
+    card = torch.device("cuda", 0)
+    mesh = spatial_mesh([card] * 4)
+    cin = FLAGSHIP_MODEL_CONFIG["localheader_config"]["in_channels"]
+    elems = SLICE_L_H * SLICE_L_W * cin
+    rows = resize.BLOCK_ELEMENTS // (cin * 4 * SLICE_L_W) - 2
+    print(f"[19] slice L (0 b): a {SLICE_L_H}x{SLICE_L_W} frame ({SLICE_L_H * SLICE_L_W / 1e6:.2f} Mpx); the "
+          f"reference head's x4 resize writes {elems:.4g} elements (one call takes < 2^31 = {2**31:.4g}): "
+          f"{-(-SLICE_L_H // 4 // rows)} row blocks of {rows} trunk rows")
+    slates = {}
+    for dtype, label, dataflow in ((torch.float32, "f32 reference", False), (torch.bfloat16, "bf16 phase", "phase")):
+        cfg = copy.deepcopy(FLAGSHIP_MODEL_CONFIG)
+        cfg["localheader_config"]["fused_upsample"] = dataflow
+        model = PoSFeat(cfg, dtype=dtype, device=card, seed=SEED)
+        torch.cuda.empty_cache()
+        ref = None
+        try:
+            ref, ms_ref, peak_ref = _timed_slate(torch, slice_k_program(torch, model, None), im_u8, [card], reps=2)
+            print(f"[19] {label}, unsharded: {ms_ref:.4f} ms/image, peak {peak_ref[0] / 2**30:.2f} GiB, "
+                  f"valid {ref[3]}, slate {len(ref[0])}")
+        except torch.cuda.OutOfMemoryError as e:
+            if dtype != torch.float32:
+                raise
+            print(f"[19] {label}, unsharded: does not fit on one card ({torch.cuda.max_memory_allocated(card) / 2**30:.2f} "
+                  f"GiB allocated at the peak): {str(e).splitlines()[0]}")
+        torch.cuda.empty_cache()
+        got, ms, peaks = _timed_slate(torch, slice_k_program(torch, model, mesh), im_u8, [card], reps=2)
+        assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all() and np.isfinite(got[2]).all()
+        norms = np.linalg.norm(got[2], axis=1)
+        assert np.abs(norms - 1).max() < 1e-3, norms
+        limit, floor_note = SLICE_K_UNMATCHED, ""
+        if ref is not None and dtype == torch.bfloat16:
+            # the bf16 slate moves under rounding alone (phase 18: 2% under 1e-6
+            # of input noise); at this size cuDNN picks other algorithms for the
+            # whole map's convs than for a band's, so the banded backbone maps
+            # are no longer the unsharded ones bit for bit, and the banded slate
+            # is held to the unsharded program's own rounding floor where that
+            # is above phase 18's 1e-3
+            g = torch.Generator(device=card).manual_seed(SEED)
+            noise = 1 + 1e-6 * torch.randn((1, SLICE_L_H, SLICE_L_W, 3), generator=g, device=card)
+            floor = _pair_slates(_trim(slice_k_program(torch, model, None)(im_u8, noise)), ref)[0]
+            limit = max(SLICE_K_UNMATCHED, floor)
+            floor_note = (f"; unmatched limit {limit:.6f}: the unsharded program's own slate under x (1 + 1e-6 "
+                          f"N(0, 1)) of input leaves {floor:.6f} of it unmatched")
+            del noise
+        cmp = (slice_k_compare(got, ref, dtype == torch.float32, limit) if ref is not None
+               else "no unsharded run to hold it to")
+        print(f"[19] {label}, 4 bands on cuda:0: {ms:.4f} ms/image ({ms / ms_ref:.3f}x unsharded), peak "
+              f"{peaks[0] / 2**30:.2f} GiB; {cmp}{floor_note}" if ref is not None else
+              f"[19] {label}, 4 bands on cuda:0: {ms:.4f} ms/image, peak {peaks[0] / 2**30:.2f} GiB; {cmp}")
+        slates[label] = got
+        if dtype == torch.bfloat16:
+            with torch.inference_mode():
+                im = im_u8.float() / 255.0  # any normalisation: both heads see the same input
+                phase_map = model.extract(im)["local_point"].float()
+                model.localheader.fused_upsample = "pallas"
+                _zero_counts(fh)
+                fused_map = model.extract(im)["local_point"].float()
+                counts = _read_counts(fh)
+            assert counts["K1 conv_phase"] == 1 and counts["K2 head_tail"] == 1, counts
+            d = (fused_map - phase_map).abs()
+            err, err_mean, scale = float(d.max()), float(d.mean()), float(phase_map.abs().mean())
+            # phase 4's limits on a bf16 head: the mean within 2e-2 and the max within 1e-1 of mean|score|
+            assert err_mean < 2e-2 * scale and err < 1e-1 * scale, (err_mean, err, scale)
+            del phase_map, fused_map, d
+            torch.cuda.empty_cache()
+            fused, ms_fused, peak_fused = _timed_slate(torch, slice_k_program(torch, model, None), im_u8, [card], reps=2)
+            overlap = 1.0 - _pair_slates(got, fused)[0]
+            print(f"[19] bf16 fused head ('pallas', unsharded; K1 and K2 on the {SLICE_L_H // 4}x{SLICE_L_W // 4} "
+                  f"trunk, launches {counts['K1 conv_phase']} / {counts['K2 head_tail']} in one forward): "
+                  f"{ms_fused:.4f} ms/image, peak {peak_fused[0] / 2**30:.2f} GiB; score map against the 'phase' "
+                  f"head's: mean |d| {err_mean:.4g}, max |d| {err:.4g} (limits 2e-2 / 1e-1 x mean|score| {scale:.4g}, "
+                  f"phase 4's); top-k overlap with the 4-band bf16 slate {overlap:.4f}")
+        del model
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= SLICE_L_12MP_BUDGET_S, seconds
+    print(f"[19] slice L (0 b): {seconds:.1f} s (budget {SLICE_L_12MP_BUDGET_S:g} s); {smi}")
+
+
+def _per_rank_s_step(run_dir):
+    times = [json.loads(x) for x in open(f"{run_dir}/step_times.jsonl")]
+    ranks = sorted({t.get("rank", 0) for t in times})
+    return [float(np.mean([t["step_time_s"] for t in times if t.get("rank", 0) == r][1:])) for r in ranks]
+
+
+def slice_l_launcher(torch, smi, s_step_main):
+    """(a) The launcher (``python -m posfeat_tpu_torch.train``'s path) on
+    configs/train_kp.yaml, flagship model, f32, SyntheticPairs 480x640,
+    batch 6, SLICE_L_STEPS steps: two ranks on cuda:0 over gloo (and over
+    every card on NCCL where there are several), each fed its rows of the
+    launcher's one loader; the trained head against the one-process run
+    on the card (rtol 1e-3 / atol 2e-4, phase 16 (a)'s), the split, K4+K5
+    and K6 launched once a step on every rank, s/step per rank."""
+    from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.train import Trainer
+    from posfeat_tpu_torch.train.launch import kernel_launches, launch
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    cfg.update(checkpoint_name="smoke_launch", epoch_step=SLICE_L_STEPS)
+    runs = [("two ranks on cuda:0", ["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() >= 2:
+        runs.append((f"ranks over cuda:0-{torch.cuda.device_count() - 1}", None))
+    with tempfile.TemporaryDirectory() as tmp:
+        before = kernel_launches()
+        Trainer(cfg, ckpt_root=f"{tmp}/one", device="cuda").train()
+        one = {k: v - before[k] for k, v in kernel_launches().items()}
+        assert one["K4+K5 lse_pass"] == one["K6 reward_pass"] == SLICE_L_STEPS, one
+        want = torch.load(f"{tmp}/one/smoke_launch/001/localheader.pth", weights_only=True)
+        s_one = _per_rank_s_step(f"{tmp}/one/smoke_launch")[0]
+        for i, (label, devices) in enumerate(runs):
+            torch.cuda.empty_cache()  # the ranks share the card with this process
+            plan = launch(cfg, devices=devices, ckpt_root=f"{tmp}/run{i}")
+            assert len(plan["ranks"]) == len(plan["devices"]) > 1, plan
+            for rec in plan["ranks"]:
+                assert rec["launches"]["K4+K5 lse_pass"] == rec["launches"]["K6 reward_pass"] == SLICE_L_STEPS, rec
+            got = torch.load(f"{tmp}/run{i}/smoke_launch/001/localheader.pth", weights_only=True)
+            worst = max(_close(got[k].cpu(), want[k].cpu(), f"launched head {k}")[1] for k in want)
+            s_ranks = _per_rank_s_step(f"{tmp}/run{i}/smoke_launch")
+            print(f"[20] slice L (a) launcher, {label} ({plan['backend']}, {len(plan['devices'])} of {plan['of']} "
+                  f"devices, global batch {TRAIN_BATCH}): head after {SLICE_L_STEPS} steps against the one-process "
+                  f"run, worst share of rtol 1e-3 / atol 2e-4 {worst:.3g}; launches per rank "
+                  f"{[rec['launches'] for rec in plan['ranks']]}; s/step per rank "
+                  + ", ".join(f"{x:.4f}" for x in s_ranks)
+                  + f" (after the first step) beside the one-process run's {s_one:.4f} (phase 7's {s_step_main:.4f}); "
+                  f"rank seconds {[round(rec['seconds'], 1) for rec in plan['ranks']]}")
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= SLICE_L_LAUNCH_BUDGET_S, seconds
+    print(f"[20] slice L (a): {seconds:.1f} s (budget {SLICE_L_LAUNCH_BUDGET_S:g} s); {smi}")
+
+
+def _finite_rows(slate):
+    """The slate's points with finite coordinates (a stride above 1 leaves
+    NaN slots past its strided grids, as JAX's gather fills them) and the
+    count of the others."""
+    ok = np.isfinite(slate[0]).all(axis=1)
+    return (slate[0][ok], slate[1][ok], slate[2][ok], slate[3]), int((~ok).sum())
+
+
+def slice_l_bands(torch, fh, rng, smi, frame):
+    """(b) Phase 18's frame over 2 bands on cuda:0 in bf16 ("phase") for
+    each lifted configuration (ResUNetHR; generate_kpts_single_noavg;
+    the grid detector; a stride of 2) against the unsharded run of the
+    same configuration, with phase 18's limits; then Gumbel selection on
+    bands against the unsharded detector with the same noise, bit for
+    bit."""
+    from posfeat_tpu_torch.models import PoSFeat
+    from posfeat_tpu_torch.ops.detect import generate_kpts_single
+    from posfeat_tpu_torch.parallel import detect, spatial_extract, spatial_mesh
+
+    t_phase = time.perf_counter()
+    im_u8 = torch.from_numpy(frame)[None].cuda()
+    card = torch.device("cuda", 0)
+    mesh = spatial_mesh([card] * 2)
+    for label, backbone, detector, det in SLICE_L_CONFIGS:
+        cfg = copy.deepcopy(FLAGSHIP_MODEL_CONFIG)
+        cfg["backbone"] = backbone
+        cfg["localheader_config"]["fused_upsample"] = "phase"
+        model = PoSFeat(cfg, dtype=torch.bfloat16, device=card, seed=SEED)
+        n_pts = det["num_pts"]
+        _zero_counts(fh)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # ResUNetHR's H/2 trunk takes the reference dataflow, with a warning
+            ref, ms_ref, peak_ref = _timed_slate(torch, slice_k_program(torch, model, None, detector, det), im_u8,
+                                                 [card], num_pts=n_pts)
+            got, ms, peaks = _timed_slate(torch, slice_k_program(torch, model, mesh, detector, det), im_u8, [card],
+                                          num_pts=n_pts)
+        launches = _read_counts(fh)
+        assert not any(launches.values()), launches
+        (got_f, n_nan), (ref_f, n_nan_ref) = _finite_rows(got), _finite_rows(ref)
+        assert abs(n_nan - n_nan_ref) <= SLICE_K_UNMATCHED * len(ref[0]), (n_nan, n_nan_ref)
+        print(f"[21] slice L (b) bf16 phase, {label}: unsharded {ms_ref:.4f} ms/image (peak {peak_ref[0] / 2**30:.2f} "
+              f"GiB), 2 bands on cuda:0 {ms:.4f} ms/image ({ms / ms_ref:.3f}x, peak {peaks[0] / 2**30:.2f} GiB); "
+              f"{slice_k_compare(got_f, ref_f, False)}" + (f"; NaN slots {n_nan} / {n_nan_ref}" if n_nan_ref else ""))
+        del model
+        torch.cuda.empty_cache()
+
+    gh, gw, gpts = SLICE_L_GUMBEL
+    model = PoSFeat(copy.deepcopy(FLAGSHIP_MODEL_CONFIG), dtype=torch.float32, device=card, seed=SEED)
+    im = torch.from_numpy(_frame(rng, gh, gw))[None].cuda().float() / 255.0
+    kp_bands = spatial_extract(model, mesh)(im)["local_point"]
+    gum = dict(num_pts=gpts, nms_radius=1, stable=False, temperature=0.05)
+    gen = lambda: torch.Generator(device=card).manual_seed(SEED)
+    got = detect(kp_bands, "generate_kpts_single", generator=gen(), **gum)
+    want = generate_kpts_single(kp_bands.concat(), generator=gen(), **gum)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    print(f"[21] slice L (b) Gumbel selection ({gh}x{gw}, {gpts} points, one seeded generator) on 2 bands: slate "
+          f"equal to the unsharded detector's with the same noise, bit for bit")
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= SLICE_L_BANDS_BUDGET_S, seconds
+    print(f"[21] slice L (b): {seconds:.1f} s (budget {SLICE_L_BANDS_BUDGET_S:g} s); {smi}")
+
+
+def phase_slice_l(torch, fh, rng, smi, s_step_main):
+    """Phases 19-21: slice L (the 12 Mpx frame unsharded, the launcher, the
+    lifted spatial_shard configurations)."""
+    slice_l_12mp(torch, fh, rng, smi)
+    slice_l_launcher(torch, smi, s_step_main)
+    slice_l_bands(torch, fh, rng, smi, _frame(rng, SLICE_K_H, SLICE_K_W))
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2598,6 +2877,7 @@ def main() -> int:
     phase_slice_g(torch, rng, smi, ims_main, s_step_main)
     slice_h = phase_slice_h(torch, fh, rng, smi)
     phase_slice_k(torch, fh, rng, smi)
+    phase_slice_l(torch, fh, rng, smi, s_step_main)
     records += v1 + reduction + slice_h
 
     print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")

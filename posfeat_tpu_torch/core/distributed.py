@@ -51,6 +51,36 @@ def rank_device(cfg: Dict, device: torch.device) -> torch.device:
     return torch.device("cuda", index)
 
 
+def free_port() -> int:
+    """A free TCP port on localhost (from a bound socket, so two runs of
+    one machine do not pick the same)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def local_backend(devices: List[torch.device]) -> str:
+    """The process group's backend for ranks on ``devices``, one each:
+    ``nccl`` where they are distinct cards; ``gloo`` where the CPU or one
+    card is listed more than once (NCCL refuses two ranks on one card)."""
+    cards = [torch.device(d) for d in devices]
+    if all(d.type == "cuda" for d in cards) and len(set(cards)) == len(cards):
+        return "nccl"
+    return "gloo"
+
+
+def local_multihost(rank: int, world: int, device, port: int, backend: str,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> Dict:
+    """The ``multihost:`` block of rank ``rank`` of ``world`` ranks on this
+    machine, over a localhost process group at ``port``."""
+    device = torch.device(device)
+    return {"coordinator_address": f"localhost:{port}", "num_processes": world, "process_id": rank,
+            "backend": backend, "timeout_s": timeout_s,
+            "local_device_ids": [device.index or 0] if device.type == "cuda" else None}
+
+
 def init_multihost(cfg: Dict, device) -> int:
     """``torch.distributed.init_process_group`` from a ``multihost:`` block;
     returns this process's rank. Idempotent, as JAX's is (mesh.py:33-50).

@@ -28,6 +28,18 @@ def collate(samples: List[Dict]) -> Dict:
     }
 
 
+def batch_rows(batch: Dict, rank: int, world: int) -> Dict:
+    """Rank ``rank``'s rows r·b/n .. (r+1)·b/n of a global batch of b
+    (arrays and the lists of names and pads alike), as JAX's
+    ``shard_batch`` splits one host batch over its devices
+    (posfeat_tpu/core/mesh.py:94-113)."""
+    out = {}
+    for key, v in batch.items():
+        b = len(v) // world
+        out[key] = v[rank * b:(rank + 1) * b]
+    return out
+
+
 class PrefetchLoader:
     """Iterate dataset indices -> full batches, with worker threads.
 

@@ -42,8 +42,10 @@ extractor.py:195-219, 282-348): the image's rows split over the cards,
 backbone, head, detector and descriptor sampling run on the bands, the
 slate comes back whole; the fused head ("pallas") is swapped for the
 "phase" dataflow there. Smaller images and the SIFT passthrough run
-unsharded. A detector or backbone the banded program does not run is
-refused before any work.
+unsharded. ``stable: False`` (Gumbel or Categorical selection) needs a
+generator, which the Extractor does not have (as JAX's extractor has no
+PRNG key): under ``spatial_shard`` it is refused before any work, and
+unsharded the detector raises at the first image.
 """
 
 from __future__ import annotations
@@ -142,16 +144,12 @@ class Extractor:
         self._spatial_mesh = None
         self._spatial_forward = None
         if n_spatial > 1:
-            # the refusals come before any work (parallel/banded_detect.py, parallel/spatial.py)
+            # a detector configuration that cannot run is refused before any
+            # work (parallel/banded_detect.py): with no generator, stable: False
             if not self.sift_kp:
                 for key in ("detector_config", "detector_config_query"):
                     if key in self.config:
                         banded_detect.check_detector(self.config["detector"], self.config[key])
-            backbone = (self.config.get("model_config") or {}).get("backbone")
-            if backbone == "ResUNetHR":
-                raise NotImplementedError(
-                    "spatial_shard with backbone ResUNetHR: the banded program runs ResUNet only; "
-                    f"see ROADMAP.md: {banded_detect.REFUSED_ITEM}")
             # distinct devices, as JAX's mesh over jax.devices()[:n]; the CPU is one
             devices = ([torch.device("cuda", i) for i in range(n_spatial)] if self.device.type == "cuda"
                        else [self.device] * n_spatial)
@@ -306,7 +304,8 @@ class Extractor:
             def run(im_u8):
                 im = (im_u8.to(dev0).float() / 255.0 - mean) / std
                 outputs = forward(im)
-                coord_n, score, valid = banded_detect.detect(outputs["local_point"], **det_cfg)
+                coord_n, score, valid = banded_detect.detect(outputs["local_point"], self.detector_name,
+                                                             **det_cfg)
                 feat = banded_detect.sample_feat_by_coord(outputs["local_map"], coord_n, cos)
                 out = (denormalize_coords(coord_n, H, W), score, feat, valid)
                 return out + (outputs["local_point"].concat()[..., 0].float(),) if want_map else out

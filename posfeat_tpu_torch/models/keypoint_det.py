@@ -163,6 +163,34 @@ def _conv(x: torch.Tensor, weight: torch.Tensor, bias=None, padding: int = 0):
     return y.permute(0, 2, 3, 1)
 
 
+# elements of one conv's input: past the 32-bit index range cuDNN takes a
+# 64-bit direct kernel, which ran the reference head's conv2 of a 12 Mpx
+# frame (3.1e9 input elements) in 15.4 s on an H100
+# (tools/profile_torch_frame.py); such a conv runs in row blocks of at
+# most half of it
+CONV_MAX_ELEMENTS = 2**31 - 1
+
+
+def _conv_cat(parts, weight: torch.Tensor, padding: int = 1) -> torch.Tensor:
+    """``_conv(torch.cat(parts, -1), weight, None, padding)``; past
+    ``CONV_MAX_ELEMENTS`` input elements in blocks of output rows, each
+    concat taking ``padding`` rows of its neighbours above and below (zero
+    rows only beyond the map's edges)."""
+    B, H, W = parts[0].shape[:3]
+    C = sum(p.shape[-1] for p in parts)
+    if B * H * W * C <= CONV_MAX_ELEMENTS:
+        return _conv(torch.cat(parts, dim=-1), weight, None, padding)
+    rows = max(1, CONV_MAX_ELEMENTS // (2 * B * W * C) - 2 * padding)
+    out = []
+    for a in range(0, H, rows):
+        b = min(a + rows, H)
+        lo, hi = max(a - padding, 0), min(b + padding, H)
+        x = torch.cat([p[:, lo:hi] for p in parts], dim=-1).permute(0, 3, 1, 2)
+        x = F.pad(x, (padding, padding, padding - (a - lo), padding - (hi - b)))
+        out.append(F.conv2d(x, weight).permute(0, 2, 3, 1))
+    return torch.cat(out, dim=1)
+
+
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "Sigmoid":
         return torch.sigmoid(x)
@@ -225,6 +253,17 @@ class KeypointDet(nn.Module):
             return P.asl_peak_prior(x)
         return torch.ones_like(x).mean(dim=-1, keepdim=True)
 
+    def warn_off_ratio(self, h: int, w: int, H: int, W: int) -> None:
+        """Warns once where a fused dataflow was asked for and the trunk
+        (h, w) is not at 1/4 of the image (H, W): the head then takes the
+        reference dataflow."""
+        fu = self.fused_upsample
+        if fu in ("pallas", "phase", "always") and (H, W) != (4 * h, 4 * w) and not self._warned_ratio:
+            self._warned_ratio = True
+            warnings.warn(f"KeypointDet: fused_upsample={fu!r} is derived for a trunk at 1/4 of the image; "
+                          f"this trunk is {h}x{w} for a {H}x{W} image, so the head takes the reference "
+                          "dataflow (upsample, concat, conv2), as the JAX head does", stacklevel=3)
+
     def forward(self, fine_map: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         """fine_map [B, h, w, C_in], img [B, H, W, 3] -> score [B, H, W, out]."""
         dt = self.dtype
@@ -251,11 +290,7 @@ class KeypointDet(nn.Module):
         hwio = lambda t: t.permute(2, 3, 1, 0)
         fu = self.fused_upsample
         size_ok = H == 4 * h and W == 4 * w
-        if fu in ("pallas", "phase", "always") and not size_ok and not self._warned_ratio:
-            self._warned_ratio = True
-            warnings.warn(f"KeypointDet: fused_upsample={fu!r} is derived for a trunk at 1/4 of the image; "
-                          f"this trunk is {h}x{w} for a {H}x{W} image, so the head takes the reference "
-                          "dataflow (upsample, concat, conv2), as the JAX head does", stacklevel=2)
+        self.warn_off_ratio(h, w, H, W)
         if fu == "pallas" and size_ok:
             score = fused_head_tail(
                 trunk, s_img, y_img, hwio(self.convimg.weight), self.convimg.bias,
@@ -287,8 +322,7 @@ class KeypointDet(nn.Module):
                 x = prelu(instance_norm(z + conv2_img_part() + b2))
             else:
                 xu = interpolate_bilinear(trunk, (H, W), align_corners=False)
-                xcat = torch.cat([xu, img_feat], dim=-1)
-                x = _conv(xcat, k2.to(dt), None, 1) + b2
+                x = _conv_cat([xu, img_feat], k2.to(dt), 1) + b2
                 x = prelu(instance_norm(x))
             if dt in (torch.bfloat16, torch.float16):
                 # score values in f32 under a low-precision trunk: a bf16

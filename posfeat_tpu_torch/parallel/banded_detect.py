@@ -1,19 +1,26 @@
-"""``generate_kpts_single`` (stable top-k) and ``sample_feat_by_coord``
-on row bands of the score map and the local map (posfeat_tpu/ops/
-detect.py:217-429 and ops/grid_sample.py:253 under the JAX spatial
-program).
+"""The extraction detectors and ``sample_feat_by_coord`` on row bands of
+the score map and the local map (posfeat_tpu/ops/detect.py:217-547 and
+ops/grid_sample.py:253 under the JAX spatial program).
 
-The slate is the unsharded slate: the same points in the same order
-wherever the scores are bitwise equal. Band i owns the interior rows
-(image rows 1 .. H−2) of its own image rows. Its NMS window reads the
-neighbours' rows, reflect-padded at the interior's edges, with the
-padded map's global linear indices as the tie-break. The fold blocks
-start at interior row 0, so a block can straddle a band edge: each band
-reduces the blocks whose first row it owns, reading up to fold − 1 rows
-below. Each band's top-k (ties to the lower index) then merges on the
-first device by a stable sort of the scores in band order, which breaks
-ties by the global block index as the unsharded sort does. The slate's
-coordinates and scores are read on the band that owns each point's row.
+``generate_kpts_single`` with stable top-k at stride 1, the shipped
+configs' detector, runs on the bands. Its slate is the unsharded slate:
+the same points in the same order wherever the scores are bitwise equal.
+Band i owns the interior rows (image rows 1 .. H−2) of its own image
+rows. Its NMS window reads the neighbours' rows, reflect-padded at the
+interior's edges, with the padded map's global linear indices as the
+tie-break. The fold blocks start at interior row 0, so a block can
+straddle a band edge: each band reduces the blocks whose first row it
+owns, reading up to fold − 1 rows below. Each band's top-k (ties to the
+lower index) then merges on the first device by a stable sort of the
+scores in band order, which breaks ties by the global block index as the
+unsharded sort does. The slate's coordinates and scores are read on the
+band that owns each point's row.
+
+The other configurations (``generate_kpts_single_noavg``,
+``generate_kpts_regular_grid_single``, a stride above 1, Gumbel
+selection) run the unsharded port detector on the score map gathered on
+the first device: one channel, 1/128 of the 128-channel local map that
+banding spreads, so their slate is the unsharded one by construction.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.detect import (
+    DETECTORS,
     REFINERS,
     _offset_grids,
     _pad_slate,
@@ -37,30 +45,27 @@ from ..ops.nms import nms_window
 from ..ops.pooling import avg_pool2d, max_pool2d
 from .banded_ops import Bands, global_max, global_sum
 
-# the ROADMAP.md item that names what the banded program refuses
-REFUSED_ITEM = "spatial_shard's refused detectors and backbones"
+# the detectors that read ``stable`` (generate_kpts_single_noavg takes it
+# for the configs' sake and always selects by top-k)
+_DRAWING = ("generate_kpts_single", "generate_kpts_regular_grid_single")
 
 
-def check_detector(name: str, cfg: Dict) -> None:
-    """Raises, before any work, for a detector configuration the banded
-    program does not run: any detector but ``generate_kpts_single``,
-    Gumbel selection (``stable: False``), a stride other than 1."""
-    if name != "generate_kpts_single":
-        raise NotImplementedError(
-            f"spatial_shard with detector {name!r}: the banded program runs generate_kpts_single only; "
-            f"see ROADMAP.md: {REFUSED_ITEM}")
-    if not cfg.get("stable", True):
-        raise NotImplementedError(
-            "spatial_shard with stable: False (Gumbel selection): not banded; "
-            f"see ROADMAP.md: {REFUSED_ITEM}")
-    if cfg.get("stride", 1) != 1:
-        raise NotImplementedError(
-            f"spatial_shard with detector stride {cfg['stride']}: the banded detector runs stride 1; "
-            f"see ROADMAP.md: {REFUSED_ITEM}")
+def check_detector(name: str, cfg: Dict, draws: bool = False) -> None:
+    """Raises, before any work, for a detector configuration that cannot
+    run: an unknown detector or refiner, soft-NMS without a threshold,
+    and random selection (``stable: False``) without ``draws`` (a
+    generator or the noise): the Extractor has none, as JAX's extractor
+    has no PRNG key."""
+    if name not in DETECTORS:
+        raise ValueError(f"unknown detector {name!r}; expected one of {sorted(DETECTORS)}")
+    if name in _DRAWING and not cfg.get("stable", True) and not draws:
+        raise ValueError(f"{name} with stable: False selects at random and needs a generator or the noise; "
+                         "the Extractor has none, as JAX's extractor has no PRNG key")
     refine = cfg.get("refine", "avg3")
     if refine not in REFINERS:
         raise ValueError(f"unknown refine {refine!r}; expected one of {REFINERS}")
-    if cfg.get("use_nms", True) == "softnms" and not cfg.get("thr", False):
+    if (name != "generate_kpts_regular_grid_single" and cfg.get("use_nms", True) == "softnms"
+            and not cfg.get("thr", False)):
         raise ValueError("use_nms='softnms' needs a threshold to count valid points")
 
 
@@ -97,15 +102,27 @@ def _grids(kp: Bands, i: int, q0: int, q1: int, refine: str, temperature: float)
     return _offset_grids(off, H, W, dt, row0=q0)
 
 
-def detect(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=False,
-           thr_mod: str = "mean", stable: bool = True, temperature: float = 1.0, stride: int = 1,
-           refine: str = "avg3", refine_temperature: float = 20.0):
-    """``generate_kpts_single`` with ``stable=True`` on bands of the score
-    map [B, rows, W, 1] -> (kps_n [B, num_pts, 2], scores [B, num_pts, 1],
-    valid_count [B] int32) on the first band's device. ``temperature``
-    belongs to the Gumbel selection, which is refused."""
-    check_detector("generate_kpts_single", dict(stable=stable, stride=stride, refine=refine,
-                                                use_nms=use_nms, thr=thr))
+def detect(kp_map: Bands, detector: str = "generate_kpts_single", *, generator: torch.Generator = None,
+           noise: torch.Tensor = None, **cfg):
+    """``DETECTORS[detector]`` on bands of the score map [B, rows, W, 1]
+    -> (kps_n [B, num_pts, 2], scores [B, num_pts, 1], valid_count [B]
+    int32) on the first band's device. ``generator`` (or, for
+    ``generate_kpts_single``, ``noise``) feeds ``stable: False`` as the
+    unsharded detector takes them."""
+    check_detector(detector, cfg, generator is not None or noise is not None)
+    if detector == "generate_kpts_single" and cfg.get("stable", True) and cfg.get("stride", 1) == 1:
+        return _single(kp_map, **cfg)
+    extra = {"generator": generator} if generator is not None else {}
+    if noise is not None:
+        extra["noise"] = noise
+    return DETECTORS[detector](kp_map.concat(), **cfg, **extra)
+
+
+def _single(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=False, thr_mod: str = "mean",
+            stable: bool = True, temperature: float = 1.0, stride: int = 1, refine: str = "avg3",
+            refine_temperature: float = 20.0):
+    """``generate_kpts_single`` with stable top-k at stride 1 on the bands
+    (``temperature`` belongs to the Gumbel selection and is not read)."""
     H, W = kp_map.total, kp_map.parts[0].shape[2]
     B = kp_map.parts[0].shape[0]
     h2, w2 = H - 2, W - 2

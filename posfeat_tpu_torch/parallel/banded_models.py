@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.keypoint_det import _act, _conv
-from ..models.resunet import BasicBlock
+from ..models.resunet import BasicBlock, ResUNetHR
 from ..ops.phase import (
     _bilinear_taps_1d,
     _phase_kernel,
@@ -81,10 +81,15 @@ def _block(x: Bands, blocks) -> Bands:
 
 
 def resunet(x: Bands, nets) -> Dict[str, Bands]:
-    """``ResUNet.forward`` (resunet.py:237-254) on image bands [B, rows, W, 3]."""
+    """``ResUNet.forward`` (resunet.py:237-254) on image bands [B, rows, W, 3],
+    and ``ResUNetHR.forward`` (resunet.py:271-285) where the nets are HR:
+    its third decoder level (``upconv1`` ×2, the skip with the un-pooled
+    stem, ``iconv1``) puts ``local_map`` and ``local_map_small`` (the stem)
+    at H/2."""
+    hr = isinstance(nets[0], ResUNetHR)
     x = x.map(lambda p: p.to(nets[0].dtype))
-    x = _conv_bn(x, _per(nets, "firstconv"), _per(nets, "firstbn")).map(F.relu)
-    x_first = bo.max_pool2d(x, 3, 2, 1)
+    x_first1 = _conv_bn(x, _per(nets, "firstconv"), _per(nets, "firstbn")).map(F.relu)
+    x_first = bo.max_pool2d(x_first1, 3, 2, 1)
     feats = []
     y = x_first
     for layer in ("layer1", "layer2", "layer3"):
@@ -95,8 +100,10 @@ def resunet(x: Bands, nets) -> Dict[str, Bands]:
     x_coarse = _conv_bn_elu(x3, _per(nets, "conv_coarse"))
     y = _conv_bn_elu(_skip(_up_conv(x3, _per(nets, "upconv3")), x2), _per(nets, "iconv3"))
     y = _conv_bn_elu(_skip(_up_conv(y, _per(nets, "upconv2")), x1), _per(nets, "iconv2"))
+    if hr:
+        y = _conv_bn_elu(_skip(_up_conv(y, _per(nets, "upconv1")), x_first1), _per(nets, "iconv1"))
     x_fine = _conv_bn_elu(y, _per(nets, "conv_fine"))
-    return {"global_map": x_coarse, "local_map": x_fine, "local_map_small": x_first}
+    return {"global_map": x_coarse, "local_map": x_fine, "local_map_small": x_first1 if hr else x_first}
 
 
 # ------------------------------------------------------------------ head
@@ -208,6 +215,7 @@ def keypoint_det(fine_map: Bands, img: Bands, heads) -> Bands:
     h, w = trunk.total, trunk.parts[0].shape[2]
     cin = h0.in_channels
     size_ok = H == 4 * h and W == 4 * w
+    h0.warn_off_ratio(h, w, H, W)  # ResUNetHR's trunk at H/2: the reference dataflow
     hwio = lambda t: t.permute(2, 3, 1, 0)
     img_feat = bo.instance_norm(y_img.map(lambda p: p.float())).map(lambda p: p.to(dt))
     b2 = [hd.conv2.bias.to(dt) for hd in heads]

@@ -38,8 +38,6 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
-from ..models.resunet import ResUNet
-from .banded_detect import REFUSED_ITEM
 from .banded_models import posfeat_extract
 from .banded_ops import split_rows
 
@@ -91,11 +89,8 @@ def spatial_mesh(devices: Sequence = None) -> SpatialMesh:
 
 def check_model(model) -> None:
     """Raises, before any work, for a model the banded program does not
-    run: a backbone other than ``ResUNet`` (ResUNetHR) or the fused head."""
-    if type(model.backbone) is not ResUNet:
-        raise NotImplementedError(
-            f"spatial_shard with backbone {type(model.backbone).__name__}: the banded program runs "
-            f"ResUNet only; see ROADMAP.md: {REFUSED_ITEM}")
+    run: the fused head, a single-device kernel. Both backbones run
+    (ResUNetHR's H/2 trunk takes the head's reference dataflow)."""
     if model.localheader.fused_upsample == "pallas":
         raise ValueError("spatial_shard: the fused head (fused_upsample 'pallas') runs on one device; "
                          "give the banded program a model with the 'phase' dataflow")

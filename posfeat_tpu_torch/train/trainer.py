@@ -42,7 +42,9 @@ reference managers/trainer.py:41-544).
     existing run, writes ``config.yaml``, checkpoints, metrics,
     TensorBoard events and the visual dumps; rank i > 0 logs to
     ``logging_file.proc<i>.txt`` and dumps ``error_step<N>.proc<i>.npz``;
-    every rank waits at a barrier before the first step;
+    every rank waits at a barrier before the first step. On one machine
+    ``train/launch.py`` starts such ranks, one per device, and feeds each
+    its rows of one loader's global batches (``batches``);
   * ``profile_trace_dir``: a ``torch.profiler`` trace of the first steps
     (closed after step 3, or when training stops), for TensorBoard;
   * TensorBoard events of every logged value on rank 0 where
@@ -126,18 +128,24 @@ class Trainer:
     configs/train_kp.yaml). ``config``: a train config dict or the path of
     its YAML file. ``device``: None for the card (under ``multihost:``,
     the rank's card). ``dataset``: an indexable of training pair dicts
-    used instead of the configured dataset."""
+    used instead of the configured dataset. ``batches``: an iterable of
+    this process's batches used instead of its own loader (a launched
+    rank's rows of the launcher's global batches, ``train/launch.py``).
+    ``multihost``: a ``multihost:`` block used as the config's would be
+    and kept out of the ``config.yaml`` the run writes (the launcher's
+    localhost group)."""
 
     def __init__(self, config, ckpt_root: str = "./ckpts", overwrite: bool = False,
-                 device=None, dataset=None):
+                 device=None, dataset=None, batches=None, multihost=None):
         if isinstance(config, str):
             config = load_config(config)
         self.device = resolve_device(device)
         # the process group comes first, before anything touches the card
         # (trainer.py:59-64)
-        if config.get("multihost"):
-            self.device = distributed.rank_device(config["multihost"], self.device)
-            distributed.init_multihost(config["multihost"], self.device)
+        multihost = multihost or config.get("multihost")
+        if multihost:
+            self.device = distributed.rank_device(multihost, self.device)
+            distributed.init_multihost(multihost, self.device)
         self.process_id = distributed.rank()
         self.num_processes = distributed.world_size()
         self.config = copy.deepcopy(merge_from_checkpoint(config))
@@ -219,16 +227,21 @@ class Trainer:
 
         # ----------------------------------------------------------- data
         dcfg = cfg["data_config_train"]
-        if dataset is None:
-            dataset = make_dataset(cfg["data"], dcfg, True, seed)
-        self.train_dataset = dataset
         self.batch_size = bs
-        # each rank loads its shard's share of the global batch (trainer.py:194-206)
-        self.train_loader = PrefetchLoader(
-            dataset, batch_size=bs // self.num_processes, shuffle=True,
-            num_workers=dcfg.get("workers", 4), seed=seed, infinite=True,
-            num_shards=self.num_processes, shard_index=self.process_id,
-        )
+        if batches is not None:
+            # a launched rank: the launcher's one loader feeds it
+            self.train_dataset = dataset
+            self.train_loader = batches
+        else:
+            if dataset is None:
+                dataset = make_dataset(cfg["data"], dcfg, True, seed)
+            self.train_dataset = dataset
+            # each rank loads its shard's share of the global batch (trainer.py:194-206)
+            self.train_loader = PrefetchLoader(
+                dataset, batch_size=bs // self.num_processes, shuffle=True,
+                num_workers=dcfg.get("workers", 4), seed=seed, infinite=True,
+                num_shards=self.num_processes, shard_index=self.process_id,
+            )
         # the draws of the preprocess and the losses (the JAX trainer's
         # PRNGKey(seed + 1)), made at the global batch's shape on every rank
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -492,7 +505,8 @@ class Trainer:
             # an exception anywhere in the loop still closes an open trace
             if open_trace is not None:
                 open_trace.__exit__(None, None, None)
-            data_iter.close()  # stops the loader's threads
+            if hasattr(data_iter, "close"):
+                data_iter.close()  # stops the loader's threads
             if self._ckpt_thread is not None:
                 self._ckpt_thread.join()
                 self._ckpt_thread = None
@@ -524,10 +538,13 @@ class Trainer:
         vcfg = self.config.get("val_config") or {}
         n_vis = int(vcfg.get("n_vis", 2))
         dccfg = vcfg.get("data_config_val")
+        seed = int(self.config.get("seed", 0))
         if dccfg:
-            ds = make_dataset(self.config["data"], dccfg, False, int(self.config.get("seed", 0)))
-        else:
+            ds = make_dataset(self.config["data"], dccfg, False, seed)
+        elif self.train_dataset is not None:
             ds = self.train_dataset
+        else:  # a launched rank holds no dataset of its own
+            ds = make_dataset(self.config["data"], self.config["data_config_train"], True, seed)
         samples = []
         for i in range(len(ds)):
             s = ds[i]

@@ -79,6 +79,56 @@ def test_resize_both_modes(rng):
         _close(tr._upsample_axis_int(_t(x), 4, axis), jr._upsample_axis_int(jnp.asarray(x), 4, axis))
 
 
+@pytest.mark.parametrize("shape, f, block", [((2, 7, 5, 3), 4, 1), ((1, 9, 6, 4), 2, 200), ((1, 5, 3, 2), 8, 700),
+                                            ((2, 1, 4, 3), 4, 10)])
+def test_resize_row_blocks_match_one_call(rng, monkeypatch, shape, f, block):
+    """Above ``BLOCK_ELEMENTS`` output elements a power-of-two row factor
+    with align_corners=False resizes in row blocks (the card's
+    channels-last bilinear refuses 2^31): bit for bit F.interpolate's one
+    call, in f32 and bf16 (the limit lowered to force the blocks; blocks of
+    one source row at the smallest); align_corners=True is one call."""
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    size = (f * shape[1], f * shape[2] + 3)
+    calls = []
+    interpolate = tr.F.interpolate
+    monkeypatch.setattr(tr.F, "interpolate", lambda *a, **k: calls.append(a[0].shape[2]) or interpolate(*a, **k))
+    monkeypatch.setattr(tr, "BLOCK_ELEMENTS", block)
+    for t in (x, x.to(torch.bfloat16)):
+        want = interpolate(t.permute(0, 3, 1, 2), size=size, mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+        calls.clear()
+        got = tr.interpolate_bilinear(t, size)
+        assert torch.equal(got, want)
+        assert len(calls) > 1 or shape[1] == 1, calls
+    calls.clear()
+    tr.interpolate_bilinear(x, size, align_corners=True)
+    assert len(calls) == 1
+
+
+def test_reference_head_in_row_blocks(rng, monkeypatch):
+    """The reference head's x4 resize and conv2 past their limits (one
+    resize above ``BLOCK_ELEMENTS`` output elements, one conv past
+    ``CONV_MAX_ELEMENTS`` input elements: a 12 Mpx frame's, lowered here)
+    run in row blocks: the score map within f32 rounding (rtol 1e-5 /
+    atol 1e-6) of the one-call head's."""
+    from posfeat_tpu_torch.models import keypoint_det as kd
+
+    torch.manual_seed(1)
+    head = kd.KeypointDet(in_channels=8, prior="identity", act="Softplus", fused_upsample=False).eval()
+    fine = torch.from_numpy(rng.randn(1, 9, 6, 8).astype(np.float32))
+    img = torch.from_numpy(rng.randn(1, 36, 24, 3).astype(np.float32))
+    with torch.no_grad():
+        want = head(fine, img)
+        monkeypatch.setattr(tr, "BLOCK_ELEMENTS", 900)
+        monkeypatch.setattr(kd, "CONV_MAX_ELEMENTS", 2000)
+        convs = []
+        conv2d = kd.F.conv2d
+        monkeypatch.setattr(kd.F, "conv2d", lambda x, w, *a, **k: convs.append(tuple(x.shape)) or conv2d(x, w, *a, **k))
+        got = head(fine, img)
+    assert sum(shape[1] == 8 + 64 for shape in convs) > 1, convs  # conv2 on the concat, in blocks
+    # the blocks' convs round as the library's conv of their shape does
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("name", ["SSIM", "D2", "ASL_Peak", "identity"])
 def test_priors(rng, name):
     x = rng.randn(2, 10, 12, 4).astype(np.float32)

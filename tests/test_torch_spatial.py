@@ -244,32 +244,36 @@ def test_slice_matches_jax_spatial_extract(small_variables, jax_slate, k):
 
 
 def test_refusals_come_before_any_work(small_variables, monkeypatch, tmp_path):
-    """Gumbel selection, the other detectors, a stride, ResUNetHR and the
-    fused head are refused; an Extractor over two devices refuses them
-    before it writes anything; an image that is not a multiple of 16
-    (where _skipconnect would pad) raises before the forward runs."""
+    """What stays refused: an Extractor over two devices refuses random
+    selection (``stable: False``, no generator: Gumbel and the grid
+    detector's Categorical draw) before it writes anything, where the
+    detectors, strides and ResUNetHR that the banded program runs are
+    taken; the fused head; an image that is not a multiple of 16 (where
+    _skipconnect would pad) raises before the forward runs."""
     from posfeat_tpu_torch.extract import Extractor
     from posfeat_tpu_torch.extract import extractor as ex_mod
     from test_torch_extract import _config
 
     monkeypatch.setattr(ex_mod, "_visible_devices", lambda device: 2)
-    for key, value in (("detector_config", {"stable": False}), ("detector", "generate_kpts_regular_grid_single"),
-                       ("model_config", {"backbone": "ResUNetHR"})):
-        cfg = {**_config(tmp_path, "refused", tmp_path / "none"), "spatial_shard": 2}
-        cfg[key] = {**cfg[key], **value} if isinstance(value, dict) else value
-        with pytest.raises(NotImplementedError, match="ROADMAP.md: spatial_shard's refused"):
+    for detector in ("generate_kpts_single", "generate_kpts_regular_grid_single"):
+        cfg = {**_config(tmp_path, "refused", tmp_path / "none"), "spatial_shard": 2, "detector": detector}
+        cfg["detector_config"] = {**cfg["detector_config"], "stable": False, "grid_size": 8}
+        with pytest.raises(ValueError, match="stable: False selects at random and needs a generator"):
             Extractor(cfg, ckpt_root=str(tmp_path / "out"), device="cpu", dataset=[])
         assert not (tmp_path / "out").exists()
+    for key, value in (("detector", "generate_kpts_regular_grid_single"), ("detector", "generate_kpts_single_noavg"),
+                       ("detector_config", {"stride": 2}), ("model_config", {"backbone": "ResUNetHR"})):
+        cfg = {**_config(tmp_path, "taken", tmp_path / "none"), "spatial_shard": 2}
+        cfg[key] = {**cfg[key], **value} if isinstance(value, dict) else value
+        Extractor(cfg, ckpt_root=str(tmp_path / "taken"), device="cpu", dataset=[])
     for name, cfg in (("generate_kpts_single", {"stable": False}),
-                      ("generate_kpts_regular_grid_single", {"grid_size": 8}),
-                      ("generate_kpts_single_noavg", {}),
-                      ("generate_kpts_single", {"stride": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md: spatial_shard's refused detectors and backbones"):
+                      ("generate_kpts_regular_grid_single", {"grid_size": 8, "stable": False})):
+        with pytest.raises(ValueError, match="needs a generator"):
             banded_detect.check_detector(name, cfg)
+        banded_detect.check_detector(name, cfg, draws=True)
     hr = copy.deepcopy(SMALL_CONFIG)
     hr["backbone"] = "ResUNetHR"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md: spatial_shard's refused"):
-        spatial_extract(PoSFeat(hr, device="cpu"), spatial_mesh(["cpu"] * 2))
+    spatial_extract(PoSFeat(hr, device="cpu"), spatial_mesh(["cpu"] * 2))
     fused = copy.deepcopy(SMALL_CONFIG)
     fused["localheader_config"]["fused_upsample"] = "pallas"
     with pytest.raises(ValueError, match="'phase'"):

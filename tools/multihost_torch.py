@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -60,15 +59,11 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def launch(spec: dict, timeout: float):
     """Start every rank of ``spec`` (its "port" filled in when absent) and
     wait for them; returns (return codes, outputs, seconds)."""
+    from posfeat_tpu_torch.core.distributed import free_port
+
     spec = {"port": free_port(), **spec}
     os.makedirs(spec["out"], exist_ok=True)
     path = os.path.join(spec["out"], "spec.json")
@@ -226,13 +221,12 @@ def _file_barrier(spec, name, rank, timeout=120.0):
 def _launches(zero=False):
     from posfeat_tpu_torch.ops import fused_head as fh
     from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.train.launch import kernel_launches
 
-    counted = {"K1 conv_phase": fh.conv_phase, "K2 head_tail": fh.head_tail,
-               "K4+K5 lse_pass": rf.lse_pass, "K6 reward_pass": rf.reward_pass}
     if zero:
-        for fn in counted.values():
+        for fn in (fh.conv_phase, fh.head_tail, rf.lse_pass, rf.reward_pass):
             fn.launches = 0
-    return {k: fn.launches for k, fn in counted.items()}
+    return kernel_launches()
 
 
 JOBS = {"step": job_step, "train": job_train, "loss": job_loss, "extract": job_extract}

@@ -2,9 +2,10 @@
 """Where the banded extraction program's rounding departs from the
 unsharded program's, on one CUDA card.
 
-    python3 tools/spatial_rounding_torch.py [--dtype bfloat16|float32] [--bands 2]
+    python3 tools/spatial_rounding_torch.py [--dtype bfloat16|float32] [--bands 2] [--height 2048 --width 3072]
 
-At chip_smoke.py phase 18's point (a seeded 2048x3072 frame, the
+At chip_smoke.py phase 18's point (a seeded 2048x3072 frame, or another
+size such as phase 19's 3024x4032; the
 flagship model with random weights from seed 0, the Aachen detector:
 20480 points, NMS radius 3, thr 0.5 abs), bf16 with the "phase" head or
 f32 with the reference dataflow, bands on cuda:0:
@@ -38,6 +39,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--bands", type=int, default=2)
+    ap.add_argument("--height", type=int, default=None, help="the frame's rows (phase 18's by default)")
+    ap.add_argument("--width", type=int, default=None, help="the frame's columns (phase 18's by default)")
     args = ap.parse_args(argv)
 
     import torch
@@ -58,7 +61,8 @@ def main(argv=None) -> int:
     resolve_device("cuda")
     card = torch.device("cuda", 0)
     dtype = getattr(torch, args.dtype)
-    frame = c._frame(np.random.default_rng(c.SEED), c.SLICE_K_H, c.SLICE_K_W)
+    fh, fw = args.height or c.SLICE_K_H, args.width or c.SLICE_K_W
+    frame = c._frame(np.random.default_rng(c.SEED), fh, fw)
     mean = torch.as_tensor(IMAGENET_MEAN, device=card)
     std = torch.as_tensor(IMAGENET_STD, device=card)
     im = (torch.from_numpy(frame)[None].to(card).float() / 255.0 - mean) / std
@@ -71,7 +75,7 @@ def main(argv=None) -> int:
         coord, score, valid = generate_kpts_single(score_map[..., :1], **c.AACHEN_DET)
         v = int(valid[0])
         n = int(max(min(c.AACHEN_DET["num_pts"], v), 128))
-        px = denormalize_coords(coord, c.SLICE_K_H, c.SLICE_K_W)[0, :n].float().cpu().numpy()
+        px = denormalize_coords(coord, fh, fw)[0, :n].float().cpu().numpy()
         return px, score[0, :n, 0].float().cpu().numpy(), None, v
 
     def head_of(fm, image):
@@ -85,7 +89,7 @@ def main(argv=None) -> int:
         fm = model.backbone(im)
         head = head_of(fm, im)
         ref = slate(head)
-        starts = spatial_mesh([card] * args.bands).plan(c.SLICE_K_H)
+        starts = spatial_mesh([card] * args.bands).plan(fh)
         bands = bo.split_rows(im, [card] * args.bands, starts)
         bfm = resunet(bands, [model.backbone] * args.bands)
         for key in ("global_map", "local_map", "local_map_small"):
