@@ -204,6 +204,26 @@ Phases, one line each (more for the build):
      then Gumbel selection at 256x256, 512 points, on 2 bands against the
      unsharded detector with the same seeded noise, bit for bit. Budget:
      90 s;
+ 22. slice M, bf16 extraction as the JAX package ships it: (a) K1, K2
+     and K3 on the ring-skip dataflow's operands (a zero halo) at phase 3
+     and 8's shapes against their plain versions at their limits, timed,
+     and the whole ring-skip head (v3 with im2col, v1) with kernels
+     against plain versions, one conv and one K2 launch a call; (b) the
+     flagship extraction (128 images, 480x640, 8192 points) with
+     ``fast_mode: False``, the card's default (the lite gates) and ship
+     (lite plus ``desc_tail: split3``), each timed twice in turns: im/s,
+     peak memory, K1/K2 launches,
+     the full-resolution convimg's calls (none under the ring-skip head)
+     and the card's busy share over two profiled batches; (c) the lite and
+     ship arms on phase 13's trained weights at both of its points against
+     its f32 arm, held to its limits (a miss fails the script); (d) the
+     flagship backbone at bf16, B = 16: split3's local map against up2's,
+     and each tail variant's ms per batch beside the concat dataflow's.
+     Budget: 90 s;
+Phases 5, 10, 13, 15-21 pin ``fast_mode: False`` (the fused head's
+exact ring, the exact top-k, corner sampling), so that their numbers
+compare across PRs; the bf16 backbone's concat-free skip iconvs are JAX's
+bf16 extraction dataflow, not a gate, and run in them.
 then the script's seconds, a ``kernels`` JSON line (K1, K2, K3, T1, T2, T3, the two
 reduction kernels, and slice H's f32 K1, K3, K2 and D = 256 passes), nvidia-smi's line, and the final
 ``{"ok": true, "device": {...}}`` line. Any failed check raises and the
@@ -213,6 +233,7 @@ result.
 
 import contextlib
 import copy
+import gc
 import importlib.util
 import json
 import os
@@ -501,20 +522,22 @@ def _images(rng, n, tag):
     return out
 
 
-def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None, dtype="bfloat16", head_dataflow=None):
+def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None, dtype="bfloat16", head_dataflow=None,
+                       fast_mode=False, desc_tail=""):
     """An Extractor at the flagship model (batch 16, 8192 points; bf16 and
     the fused head unless ``dtype``, and ``head_dataflow`` where given, say
     otherwise; the fused head in its v3 dataflow unless ``head_mode`` says
-    "v1"), writing npz under ``tmp``, after one warm-up batch of seeded
-    images (cuDNN autotuning, allocator). Set ``.dataset`` and call
-    ``.extract()`` to drive the main path."""
+    "v1"; ``fast_mode: False`` unless ``fast_mode``; ``desc_tail`` in the
+    backbone's config), writing npz under ``tmp``, after one warm-up batch
+    of seeded images (cuDNN autotuning, allocator). Set ``.dataset`` and
+    call ``.extract()`` to drive the main path."""
     import torch
     from posfeat_tpu_torch.extract import Extractor
 
     cfg = {
         "output_root": output_root, "postfix": "npz", "load_path": None,
         "loss_distance": "cos", "output_desc": True, "output_img": False,
-        "compute_dtype": dtype, "model": "PoSFeat",
+        "compute_dtype": dtype, "model": "PoSFeat", "fast_mode": fast_mode,
         "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
         "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4},
         "use_sift": False, "detector": "generate_kpts_single",
@@ -525,6 +548,8 @@ def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None, dtype="bfl
         cfg["head_mode"] = head_mode
     if head_dataflow is not None:
         cfg["head_dataflow"] = head_dataflow
+    if desc_tail:
+        cfg["model_config"]["backbone_config"]["desc_tail"] = desc_tail
     ex = Extractor(cfg, ckpt_root=tmp, dataset=_images(rng, BATCH, "warm"))
     fused = dtype == "bfloat16" if head_dataflow is None else head_dataflow == "pallas"
     assert (ex.config["model_config"]["localheader_config"].get("fused_upsample") == "pallas") is fused
@@ -1363,7 +1388,7 @@ def phase_probe(torch, smi):
 
     probe = _load_tool("selection_stability_torch")
     t_phase = time.perf_counter()
-    mma3_fused = {}
+    mma3_fused, f32_arms = {}, {}
     with _kept_on_success() as work:
         # 1. train stage 1, then stage 2 (stage 1 runs no reduction kernel)
         rf.lse_pass.launches = rf.reward_pass.launches = rf._split_operands.launches = 0
@@ -1401,6 +1426,7 @@ def phase_probe(torch, smi):
             print(f"[13] probe at {h}x{w}, {n_seq} sequences x 6 images, {num_pts} points: {json.dumps(rec)}")
             print(f"[13]   {h}x{w}: MMA@3 f32, trained {rec['mma3_f32']:.6g}, random weights {mma3_random:.6g}")
             mma3_fused[(h, w)] = rec["mma3_bf16"]
+            f32_arms[(h, w)] = (point, num_pts, rec["mma3_f32"])
             assert rec["launches_bf16"]["K1"] > 0 and rec["launches_bf16"]["K2"] > 0, rec
             assert not any(rec[f"launches_{a}"][k] for a in ("f32", "bf16_plain") for k in ("K1", "K2")), rec
             checks = {
@@ -1433,8 +1459,9 @@ def phase_probe(torch, smi):
         shutil.rmtree(work, ignore_errors=True)
     assert not failed, f"the probe missed: {failed}"
     # phase 15 scores the refiners on the trained weights and the 480x640
-    # fixture, then removes the directory
-    return {"work": work, "ckpt": ckpt, "point": f"{work}/p{H}x{W}", "mma3_avg3": mma3_fused[(H, W)]}
+    # fixture, phase 22 the fast-path gates at both points; main removes it
+    return {"work": work, "ckpt": ckpt, "point": f"{work}/p{H}x{W}", "mma3_avg3": mma3_fused[(H, W)],
+            "f32_arms": f32_arms}
 
 
 def shipped_config(stage, fixture, dtype, load_path=None):
@@ -1706,7 +1733,7 @@ def slice_f_hr(torch, fh, data):
         cfg = {
             "output_root": f"hr_{dtype}", "postfix": "npz", "load_path": None, "loss_distance": "cos",
             "output_desc": True, "output_img": False, "compute_dtype": dtype, "model": "PoSFeat",
-            "model_config": mc, "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4},
+            "fast_mode": False, "model_config": mc, "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4},
             "use_sift": False, "detector": "generate_kpts_single",
             "detector_config": {"num_pts": NUM_PTS, "stable": True, "use_nms": True, "nms_radius": 1,
                                 "thr": 0.9, "thr_mod": "abs"},
@@ -1760,7 +1787,7 @@ def slice_f_writers(torch, rng):
         base = {
             "postfix": "npz", "load_path": None, "loss_distance": "cos", "output_desc": True,
             "output_img": True, "save_h5": h5py is not None, "compute_dtype": "bfloat16", "model": "PoSFeat",
-            "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
+            "fast_mode": False, "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
             "data_config_extract": {"data_path": f"{tmp}/hp", "batch_size": 2, "workers": 2},
             "detector": "generate_kpts_single", "local_thr": 0.99,
             "detector_config": {"num_pts": 512, "stable": True, "use_nms": True, "nms_radius": 1, "thr": False,
@@ -1798,16 +1825,12 @@ def phase_slice_f(torch, fh, rng, smi, probe_state):
     ResUNetHR extraction, the SIFT passthrough and the writers."""
     t_phase = time.perf_counter()
     data = _images(rng, max(N_REFINE_IMAGES, N_HR_IMAGES), "slice_f")
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            ex = flagship_extractor(tmp, rng, output_root="refine")
-            slice_f_refiners(torch, fh, ex, data[:N_REFINE_IMAGES])
-            del ex
-        if probe_state is not None:
-            slice_f_probe_mma(probe_state)
-    finally:
-        if probe_state is not None:
-            shutil.rmtree(probe_state["work"], ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = flagship_extractor(tmp, rng, output_root="refine")
+        slice_f_refiners(torch, fh, ex, data[:N_REFINE_IMAGES])
+        del ex
+    if probe_state is not None:
+        slice_f_probe_mma(probe_state)
     slice_f_levers(torch)
     slice_f_hr(torch, fh, data[:N_HR_IMAGES])
     slice_f_writers(torch, rng)
@@ -1954,7 +1977,7 @@ def slice_g_extraction(torch, tmp, mh, rng, ims_main):
         names.append(f"s{i // 8:02d}/{i % 8}.ppm")
     cfg = {
         "output_root": "g_shards", "postfix": "npz", "load_path": None, "loss_distance": "cos",
-        "output_desc": True, "output_img": False, "compute_dtype": "bfloat16", "model": "PoSFeat",
+        "output_desc": True, "output_img": False, "compute_dtype": "bfloat16", "model": "PoSFeat", "fast_mode": False,
         "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
         "data_config_extract": {"data_path": f"{tmp}/hp", "batch_size": BATCH, "workers": 4},
         "use_sift": False, "detector": "generate_kpts_single",
@@ -2026,7 +2049,8 @@ def slice_g_native_and_repairs(torch, tmp, rng):
     base = {
         "postfix": "npz", "load_path": None, "loss_distance": "cos", "output_desc": True, "output_img": False,
         "compute_dtype": "bfloat16", "model": "PoSFeat", "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
-        "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4}, "use_sift": False,
+        "fast_mode": False, "data": "HPatch_SIFT", "data_config_extract": {"batch_size": BATCH, "workers": 4},
+        "use_sift": False,
         "detector": "generate_kpts_single",
         "detector_config": {"num_pts": NUM_PTS, "stable": True, "use_nms": True, "nms_radius": 1, "thr": 0.9,
                             "thr_mod": "abs"},
@@ -2482,7 +2506,7 @@ def slice_k_extractor(torch, tmp, frame, slate):
         cfg = {
             "output_root": "slice_k", "postfix": "npz", "load_path": None, "loss_distance": "cos",
             "output_desc": True, "output_img": False, "compute_dtype": "bfloat16", "model": "PoSFeat",
-            "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
+            "fast_mode": False, "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
             "data_config_extract": {"batch_size": BATCH, "workers": 1}, "use_sift": False,
             "detector": "generate_kpts_single", "detector_config": dict(AACHEN_DET), "spatial_shard": 2,
         }
@@ -2701,7 +2725,12 @@ def slice_l_launcher(torch, smi, s_step_main):
         want = torch.load(f"{tmp}/one/smoke_launch/001/localheader.pth", weights_only=True)
         s_one = _per_rank_s_step(f"{tmp}/one/smoke_launch")[0]
         for i, (label, devices) in enumerate(runs):
-            torch.cuda.empty_cache()  # the ranks share the card with this process
+            # the ranks share the card with this process: free what the
+            # one-process Trainer's reference cycles still hold, then the cache
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[20] slice L (a) launcher, {label}: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+                  f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved at the launch")
             plan = launch(cfg, devices=devices, ckpt_root=f"{tmp}/run{i}")
             assert len(plan["ranks"]) == len(plan["devices"]) > 1, plan
             for rec in plan["ranks"]:
@@ -2792,6 +2821,256 @@ def phase_slice_l(torch, fh, rng, smi, s_step_main):
     slice_l_bands(torch, fh, rng, smi, _frame(rng, SLICE_K_H, SLICE_K_W))
 
 
+# slice M (phase 22): the JAX package's bf16 extraction as it ships it. Its
+# budget in seconds, the busy share's batches, the tail variants timed
+SLICE_M_BUDGET_S = 90.0
+SLICE_M_PROFILE_BATCHES = 2
+TAIL_TIMED = ("", "up2", "split3", "iconv2", "split2", "split3w")
+
+
+def slice_m_kernels(torch, fh, rng):
+    """(a) K1, K2 and K3 on the ring-skip dataflow's operands (a zero
+    halo in place of the edge clamp) at the flagship shapes, each against
+    its plain version at phases 3 / 8's limits and timed; then the whole
+    ring-skip head (v3 with im2col, and v1) with kernels against plain
+    versions, one K1 (or K3) and one K2 launch a call."""
+    import torch.nn.functional as F
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    B, h, w, C, cout, cy = BATCH, H // 4, W // 4, 192, 128, 64
+    N = 16 * cout
+
+    def g(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+
+    trunk, img_s = g(B, h, w, C).to(bf), g(B, H, W, 3).to(bf)
+    k1, b1 = g(3, 3, 3, cy, scale=0.2), g(cy, scale=0.1)
+    k2t, k2i, b2 = g(3, 3, C, cout, scale=0.03), g(3, 3, cy, cout, scale=0.05), g(cout, scale=0.1)
+    img_y = (F.conv2d(img_s.permute(0, 3, 1, 2).float(), k1.permute(3, 2, 0, 1), b1, padding=1)
+             .permute(0, 2, 3, 1).to(bf))
+    tp = F.pad(trunk, (0, 0, 1, 1, 1, 1)).contiguous()  # the zero halo
+    kph = fh._phase_kernel(k2t, 4).to(bf).reshape(9, C, N).contiguous()
+    pat, wm, b2b = fh._v3_image_operands(img_s, k1, b1, k2i, b2, h, w, 4, 1e-5, bf)[:3]
+    z_img = fh._v1_z_img(img_y, k2i, 1e-5, bf)
+    b2ph = b2.float().repeat(16).contiguous()
+    rows = {}
+    for name, run, plain in (
+        ("K1 conv_phase", lambda: fh.conv_phase(tp, kph, pat, wm, b2b),
+         lambda: fh.conv_phase_plain(tp, kph, pat, wm, b2b)),
+        ("K3 conv_phase_img", lambda: fh.conv_phase_img(tp, kph, z_img, b2ph, "full"),
+         lambda: fh.conv_phase_img_plain(tp, kph, z_img, b2ph, "full")),
+    ):
+        z, s_, q = run()
+        torch.cuda.synchronize()
+        zr, sr, qr = plain()
+        err = (z.float() - zr.float()).abs().max().item()
+        torch.testing.assert_close(z.float(), zr.float(), rtol=2 ** -7, atol=1e-2)
+        for got, ref in ((s_.sum(1), sr.sum(1)), (q.sum(1), qr.sum(1))):
+            torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3 * ref.abs().mean().item())
+        del zr, sr, qr
+        rows[name] = (err, _time_ms(run, n=10, warmup=2))
+        if name == "K1 conv_phase":
+            s1 = s_.sum(1).reshape(B, 16, cout).sum(1) / (h * w * 16)
+            s2 = q.sum(1).reshape(B, 16, cout).sum(1) / (h * w * 16)
+            mu, sc = s1, torch.rsqrt(torch.clamp(s2 - s1 * s1, min=0.0) + 1e-5)
+            a, w3, b3 = torch.tensor([0.25], device=dev), g(cout, 1, scale=0.1), g(1, scale=0.1)
+            u, _, _ = fh.head_tail(z, mu, sc, a, w3, b3)
+            torch.cuda.synchronize()
+            ur = fh.head_tail_plain(z, mu, sc, a, w3, b3)[0]
+            torch.testing.assert_close(u, ur, rtol=1e-4, atol=1e-4)
+            rows["K2 head_tail"] = ((u - ur).abs().max().item(),
+                                    _time_ms(lambda: fh.head_tail(z, mu, sc, a, w3, b3), n=10, warmup=2))
+        del z, s_, q
+    head = dict(k1_img=k1, b1_img=b1, k2_trunk=k2t, k2_img=k2i, b2=b2, w3=g(1, 1, cout, 1, scale=0.1),
+                b3=g(1, scale=0.1), prelu_a=torch.tensor([0.25], device=dev), act="Softplus", ring=False)
+    heads = []
+    for mode, y, conv, plain_conv in (("v3", None, fh.conv_phase, fh.conv_phase_plain),
+                                      ("v1", img_y, fh.conv_phase_img, fh.conv_phase_img_plain)):
+        _zero_counts(fh)
+        score = fh.fused_head_tail(trunk, img_s, y, mode=mode, im2col=mode == "v3", **head)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _read_counts(fh).items() if v}
+        ref = fh._fused_head_tail(plain_conv, fh.head_tail_plain, trunk, img_s, y, mode=mode, **head)
+        d = (score - ref).abs()
+        mean = ref.abs().mean().item()
+        assert torch.isfinite(score).all() and d.max().item() < 2e-2 * mean, (mode, d.max().item(), mean)
+        want = {"K1 conv_phase" if mode == "v3" else "K3 conv_phase_img": 1, "K2 head_tail": 1}
+        assert launches == want, (mode, launches)
+        heads.append(f"{mode}: max|d| {d.max().item():.3g}, mean {d.mean().item():.3g} (mean|score| {mean:.4g}), "
+                     f"launches {launches}")
+    print(f"[22] (a) ring-skip operands (zero halo) at B={B} h={h} w={w} Cin={C} Cout={cout}: "
+          + "; ".join(f"{k} max|err| {e:.4g}, {ms:.4f} ms per launch" for k, (e, ms) in rows.items())
+          + "; ring-skip head, kernels vs plain versions, " + "; ".join(heads))
+    return rows
+
+
+def _profiled_busy(torch, run):
+    """The card's busy share of ``run()``'s host-clock window: the union
+    of the kernel intervals of a torch.profiler trace over the window, as
+    tools/profile_torch_extract.py reads it; None where the trace holds
+    no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_tool = _load_tool("profile_torch_extract")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel" and "dur" in e]
+    return prof_tool._busy_us(spans) / wall_us if spans else None
+
+
+@contextlib.contextmanager
+def _convimg_calls(out):
+    """Counts the head's full-resolution convimg convs (3 -> 64 channels)
+    in ``out['n']`` while the block runs."""
+    from posfeat_tpu_torch.models import keypoint_det as kd
+
+    conv = kd._conv
+
+    def counting(x, weight, *a, **k):
+        out["n"] += tuple(weight.shape[:2]) == (64, 3)
+        return conv(x, weight, *a, **k)
+
+    out["n"] = 0
+    kd._conv = counting
+    try:
+        yield out
+    finally:
+        kd._conv = conv
+
+
+def slice_m_extraction(torch, fh, rng):
+    """(b) The flagship bf16 extraction through ``Extractor`` with
+    ``fast_mode: False``, the default (the lite set on the card) and ship
+    (lite plus ``desc_tail: split3``), one Extractor each, timed over 128
+    images in turns (F, L, S, S, L, F; the host moves a single run by a
+    fifth): im/s of each run, peak memory, K1/K2 launches, the
+    full-resolution convimg's calls, and the card's busy share over a
+    profiled run of a few batches."""
+    data = _images(rng, N_IMAGES, "slice_m")
+    arms = {"fast_mode False": (False, ""), "lite": (True, ""), "ship": (True, "split3")}
+    runs = {arm: [] for arm in arms}
+    peaks = dict.fromkeys(arms, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        exs = {}
+        for i, (arm, (fast, tail)) in enumerate(arms.items()):
+            ex = flagship_extractor(tmp, rng, output_root=f"m{i}", fast_mode=fast, desc_tail=tail)
+            assert ex.config["fast_gates"]["head_ring"] is (not fast), ex.config["fast_gates"]
+            assert ex.model.backbone.desc_tail == tail
+            ex.dataset = data
+            exs[arm] = ex
+        for arm in (*arms, *reversed(arms)):
+            ex = exs[arm]
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts(fh)
+            with _convimg_calls({}) as convimg:
+                t0 = time.perf_counter()
+                n, _ = ex.extract()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            launches = {k: v for k, v in _read_counts(fh).items() if v}
+            assert n == N_IMAGES and launches == {"K1 conv_phase": n // BATCH, "K2 head_tail": n // BATCH}, launches
+            assert (convimg["n"] == 0) is arms[arm][0], (arm, convimg)  # no y_img under the ring-skip v3 head
+            runs[arm].append(n / dt)
+            peaks[arm] = max(peaks[arm], torch.cuda.max_memory_allocated())
+        for arm, ex in exs.items():
+            for it in data[:BATCH]:
+                _check_npz(f"{ex.desc_root}/{it['name1']}.npz", NUM_PTS)
+            ex.dataset = data[:BATCH * SLICE_M_PROFILE_BATCHES]
+            busy = _profiled_busy(torch, ex.extract)
+            print(f"[22] (b) {arm}: {N_IMAGES} images {H}x{W} bf16, batch {BATCH}, {NUM_PTS} points: "
+                  f"{' / '.join(f'{r:.2f}' for r in runs[arm])} im/s (mean {np.mean(runs[arm]):.2f}), peak "
+                  f"{peaks[arm] / 2**30:.2f} GiB, launches {launches} a run, full-resolution convimg calls "
+                  f"{0 if arms[arm][0] else n // BATCH} a run, card busy "
+                  f"{'not measured' if busy is None else f'{busy:.1%}'} over {SLICE_M_PROFILE_BATCHES} profiled "
+                  f"batches; gates {ex.config['fast_gates']}")
+        del exs, ex
+    return {arm: float(np.mean(r)) for arm, r in runs.items()}
+
+
+def slice_m_probe(probe_state):
+    """(c) The lite and ship arms on phase 13's trained weights at both of
+    its points, against its f32 arm, held to its limits. Returns the
+    misses."""
+    probe = _load_tool("selection_stability_torch")
+    failed = []
+    for (h, w), (point, num_pts, mma3_f32) in probe_state["f32_arms"].items():
+        rec = probe.gate_arms(probe_state["ckpt"], point, f"{point}/ckpts/hp/f32/desc", mma3_f32, num_pts, "cuda")
+        print(f"[22] (c) probe at {h}x{w}, {num_pts} points: {json.dumps(rec)}")
+        for arm in probe.GATE_ARMS:
+            assert rec[f"launches_{arm}"]["K1"] > 0 and rec[f"launches_{arm}"]["K2"] > 0, rec
+            checks = {
+                f"|delta_mma3_{arm}| ({arm} - f32)": (abs(rec[f"delta_mma3_{arm}"]), "<=", MAX_DELTA_MMA3),
+                f"topk_overlap_mean_{arm}": (rec[f"topk_overlap_mean_{arm}"], ">=", MIN_TOPK_OVERLAP),
+                f"match_agreement_mean_{arm}": (rec[f"match_agreement_mean_{arm}"], ">=", MIN_MATCH_AGREEMENT),
+            }
+            for name, (value, op, limit) in checks.items():
+                ok = value <= limit if op == "<=" else value >= limit
+                print(f"[22]   {h}x{w}: {name} {value:.6g} {op} {limit}: {'ok' if ok else 'MISSED'}")
+                if not ok:
+                    failed.append(f"{h}x{w} {name} {value:.6g}")
+    return failed
+
+
+def slice_m_tails(torch, rng):
+    """(d) The flagship backbone at bf16, B = 16, 480x640: split3's local
+    map against up2's (the true-f32 tail JAX validates split3 against),
+    and each variant's ms per batch beside the concat dataflow's (the
+    training plan with BatchNorm in eval mode) to price the concat-free
+    iconvs."""
+    from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
+    from posfeat_tpu_torch.models import ResUNet, init_parameters
+
+    dev = torch.device("cuda")
+    ims = torch.from_numpy(np.stack([d["im1_ori"] for d in _images(rng, BATCH, "tails")])).to(dev)
+    mean, std = (torch.as_tensor(x, device=dev) for x in (IMAGENET_MEAN, IMAGENET_STD))
+    x = (ims.float() / 255.0 - mean) / std
+    net = ResUNet(**FLAGSHIP_MODEL_CONFIG["backbone_config"], dtype=torch.bfloat16)
+    init_parameters(net, torch.Generator().manual_seed(SEED))
+    net = net.to(dev).eval()
+    maps, ms = {}, {}
+    with torch.no_grad():
+        for tail in TAIL_TIMED:
+            net.desc_tail = tail
+            maps[tail] = net(x)["local_map"].float()
+            ms[tail] = _time_ms(lambda: net(x), n=5, warmup=2)
+        net.desc_tail = ""
+        plan = net.plan
+        net.plan = lambda training: plan(True)  # the concat dataflow, BatchNorm still in eval mode
+        concat = net(x)["local_map"].float()
+        ms["concat"] = _time_ms(lambda: net(x), n=5, warmup=2)
+        del net.plan
+    d = (maps["split3"] - maps["up2"]).abs()
+    scale = maps["up2"].abs().mean().item()
+    dc = (maps[""] - concat).abs()
+    assert torch.isfinite(maps["split3"]).all() and maps["split3"].dtype == torch.float32
+    print(f"[22] (d) backbone bf16 at B={BATCH} {H}x{W}: split3 vs up2 local_map max|d| {d.max().item():.4g}, "
+          f"mean {d.mean().item():.4g}, max over mean|up2| {d.max().item() / scale:.4g} (mean|up2| {scale:.4g}); "
+          f"concat-free vs concat iconvs max|d| {dc.max().item():.4g}; ms per batch of {BATCH}: "
+          + ", ".join(f"{t or 'default (concat-free)'} {v:.4f}" for t, v in ms.items())
+          + f"; the concat-free iconvs cost {(ms[''] - ms['concat']) / BATCH:.4f} ms/image")
+    return ms
+
+
+def phase_slice_m(torch, fh, rng, smi, probe_state, ims_main):
+    """Phase 22: slice M, bf16 extraction as the JAX package ships it."""
+    t_phase = time.perf_counter()
+    slice_m_kernels(torch, fh, rng)
+    rates = slice_m_extraction(torch, fh, rng)
+    failed = slice_m_probe(probe_state)
+    slice_m_tails(torch, rng)
+    seconds = time.perf_counter() - t_phase
+    print(f"[22] slice M: {seconds:.1f} s (budget {SLICE_M_BUDGET_S:g} s); im/s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()) + f" (phase 5: {ims_main:.2f}); {smi}")
+    assert not failed, f"the gate arms missed: {failed}"
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2872,12 +3151,16 @@ def main() -> int:
     phase_head_bench(torch, fh, v1)
     phase_stage1(torch, smi)
     probe_state = phase_probe(torch, smi)
-    phase_shipped(torch, fh, smi)
-    phase_slice_f(torch, fh, rng, smi, probe_state)
-    phase_slice_g(torch, rng, smi, ims_main, s_step_main)
-    slice_h = phase_slice_h(torch, fh, rng, smi)
-    phase_slice_k(torch, fh, rng, smi)
-    phase_slice_l(torch, fh, rng, smi, s_step_main)
+    try:
+        phase_shipped(torch, fh, smi)
+        phase_slice_f(torch, fh, rng, smi, probe_state)
+        phase_slice_g(torch, rng, smi, ims_main, s_step_main)
+        slice_h = phase_slice_h(torch, fh, rng, smi)
+        phase_slice_k(torch, fh, rng, smi)
+        phase_slice_l(torch, fh, rng, smi, s_step_main)
+        phase_slice_m(torch, fh, rng, smi, probe_state, ims_main)
+    finally:
+        shutil.rmtree(probe_state["work"], ignore_errors=True)
     records += v1 + reduction + slice_h
 
     print(f"[total] chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included")

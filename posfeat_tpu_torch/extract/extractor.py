@@ -46,6 +46,22 @@ unsharded. ``stable: False`` (Gumbel or Categorical selection) needs a
 generator, which the Extractor does not have (as JAX's extractor has no
 PRNG key): under ``spatial_shard`` it is refused before any work, and
 unsharded the detector raises at the first image.
+
+``fast_mode`` and ``fast_gates`` are the JAX package's fast-path gates
+(extractor.py:104-129, posfeat_tpu/__init__.py:19-31) as config keys:
+``fast_gates: {head_ring, head_im2col, topk, sample_impl}`` stand for
+POSFEAT_HEAD_RING, POSFEAT_HEAD_IM2COL, POSFEAT_TOPK and
+POSFEAT_SAMPLE_IMPL. bf16 extraction on the card takes the "lite" set
+(``FAST_GATES``) unless ``fast_mode: False``; f32 and the CPU never do; a
+key given in ``fast_gates`` wins either way, as an explicitly set knob
+does. The gates are this instance's state: the resolved set goes into
+the run's ``config.yaml`` (``fast_gates``, and ``fast_gates_banded`` for
+the banded program, which keeps its exact top-k and corner sampling and
+whose head is "phase") and into the logging file, and nothing else in
+the process sees it. ``model_config.backbone_config``'s ``desc_tail``,
+``decoder_accum`` and ``desc_f32`` change no parameter: where an
+extract config gives them, they win over the checkpoint's config, as
+the JAX package's environment knobs do.
 """
 
 from __future__ import annotations
@@ -69,11 +85,34 @@ from ..data.utils import IMAGENET_MEAN, IMAGENET_STD
 from ..models import MODELS
 from ..models.keypoint_det import check_head_dataflow
 from ..ops.coords import denormalize_coords, normalize_coords
-from ..ops.detect import DETECTORS
-from ..ops.grid_sample import sample_feat_by_coord
+from ..ops.detect import DETECTORS, TOPK
+from ..ops.grid_sample import SAMPLE_IMPLS, sample_feat_by_coord
 from ..parallel import banded_detect, spatial_extract, spatial_mesh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the reference dataflow, and the JAX package's certified "lite" set
+# (posfeat_tpu/__init__.py:24-30)
+EXACT_GATES = {"head_ring": True, "head_im2col": False, "topk": "exact", "sample_impl": "corner"}
+FAST_GATES = {"head_ring": False, "head_im2col": True, "topk": "approx", "sample_impl": "quad"}
+_GATE_VALUES = {"head_ring": (True, False), "head_im2col": (True, False), "topk": TOPK,
+                "sample_impl": SAMPLE_IMPLS}
+BACKBONE_NUMERICS = ("desc_tail", "decoder_accum", "desc_f32")
+
+
+def resolve_fast_gates(config: Dict, dtype: torch.dtype, device: torch.device) -> Dict:
+    """The gates an extraction runs with (extractor.py:104-129): the lite
+    set for bf16 on the card unless ``fast_mode`` is False, else the exact
+    set; the keys of ``fast_gates`` win over either. Unknown keys or
+    values raise ValueError."""
+    given = dict(config.get("fast_gates") or {})
+    for key, value in given.items():
+        if key not in _GATE_VALUES:
+            raise ValueError(f"unknown fast_gates key {key!r}; expected one of {tuple(_GATE_VALUES)}")
+        if value not in _GATE_VALUES[key]:
+            raise ValueError(f"fast_gates.{key} = {value!r}; expected one of {_GATE_VALUES[key]}")
+    lite = dtype == torch.bfloat16 and device.type == "cuda" and config.get("fast_mode", True)
+    return {**(FAST_GATES if lite else EXACT_GATES), **given}
 
 
 def _visible_devices(device: torch.device) -> int:
@@ -114,8 +153,15 @@ class Extractor:
     def __init__(self, config, ckpt_root: str = "./ckpts", device=None, dataset=None, seed: int = 0):
         if isinstance(config, str):
             config = load_config(config)
+        asked = (config.get("model_config") or {}).get("backbone_config")
+        numerics = {k: asked[k] for k in BACKBONE_NUMERICS if isinstance(asked, dict) and k in asked}
         # deep copy: the head selection below must not leak into the caller's dict
         self.config = copy.deepcopy(merge_from_checkpoint(config))
+        if numerics:
+            model_cfg = self.config.setdefault("model_config", {})
+            if not isinstance(model_cfg.get("backbone_config"), dict):
+                model_cfg["backbone_config"] = {}
+            model_cfg["backbone_config"].update(numerics)
         self.sift_kp = bool(self.config.get("use_sift", False))
         self.save_npz = bool(self.config.get("save_npz", True))
         self.save_h5 = bool(self.config.get("save_h5", False))
@@ -183,6 +229,14 @@ class Extractor:
             ):
                 lh_cfg["fused_upsample"] = False if hr else "pallas"
             check_head_dataflow(lh_cfg.get("fused_upsample", True), dtype, self.device.type)
+        self.gates = resolve_fast_gates(self.config, dtype, self.device)
+        self.config["fast_gates"] = dict(self.gates)
+        if isinstance(lh_cfg, dict):
+            lh_cfg["head_ring"] = self.gates["head_ring"]
+            lh_cfg["head_im2col"] = self.gates["head_im2col"]
+        if self._spatial_mesh is not None:
+            self.config["fast_gates_banded"] = {"head_ring": None, "head_im2col": None, "topk": "exact",
+                                                "sample_impl": "corner"}
 
         # fail fast on an existing run dir (reference extractor.py:133-140)
         # unless resume: True
@@ -201,11 +255,15 @@ class Extractor:
         os.makedirs(self.img_root, exist_ok=True)
         dump_config(self.config, os.path.join(self.save_root, "config.yaml"))
         self.logger = _make_logger("extractor", os.path.join(self.save_root, "logging_file.txt"))
+        self.logger.info(f"fast gates (fast_mode {self.config.get('fast_mode', True)!r}, "
+                         f"{self.config.get('compute_dtype', 'float32')} on {self.device.type}): {self.gates}")
         if n_spatial == 1:
             self.logger.info("spatial_shard: one device, so every image runs unsharded")
         elif self._spatial_mesh is not None:
             self.logger.info(f"spatial sharding enabled: {n_spatial}-device H-axis bands for images "
-                             f"> {self.spatial_threshold} px")
+                             f"> {self.spatial_threshold} px; the banded program takes the exact top-k and "
+                             f"corner sampling, not the fast gates' {self.gates['topk']!r} and "
+                             f"{self.gates['sample_impl']!r} (config.yaml: fast_gates_banded)")
         if hr and isinstance(lh_cfg, dict):
             self.logger.info(f"ResUNetHR: the head's trunk is at H/2, so it takes the reference dataflow "
                              f"(fused_upsample {lh_cfg.get('fused_upsample', True)!r}); K1/K2 are not launched")
@@ -244,7 +302,8 @@ class Extractor:
         if key not in self._programs:
             H, W = shape
             det_cfg = {k: v for k, v in self.config[det_cfg_key].items() if k != "scale"}
-            detector = partial(DETECTORS[self.detector_name], **det_cfg)
+            detector = partial(DETECTORS[self.detector_name], **{"topk": self.gates["topk"], **det_cfg})
+            impl = self.gates["sample_impl"]
             cos = self.config["loss_distance"] == "cos"
             mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
             std = torch.as_tensor(IMAGENET_STD, device=self.device)
@@ -259,7 +318,7 @@ class Extractor:
                 im = (im_u8.float() / 255.0 - mean) / std
                 outputs = self.model.extract(im)
                 coord_n, score, valid = detector(outputs["local_point"])
-                feat = sample_feat_by_coord(outputs["local_map"], coord_n, cos)
+                feat = sample_feat_by_coord(outputs["local_map"], coord_n, cos, impl)
                 out = (denormalize_coords(coord_n, H, W), score, feat, valid)
                 return out + (outputs["local_point"][..., 0].float(),) if want_map else out
 
@@ -324,7 +383,8 @@ class Extractor:
         coords = torch.from_numpy(kpt)[None].to(self.device)
         outputs = self.model.extract(im)
         cos = self.config["loss_distance"] == "cos"
-        feat = sample_feat_by_coord(outputs["local_map"], normalize_coords(coords, H, W), cos)
+        feat = sample_feat_by_coord(outputs["local_map"], normalize_coords(coords, H, W), cos,
+                                    self.gates["sample_impl"])
         return {"kpt": kpt, "desc": feat[0].float().cpu().numpy(),
                 "kp_score": np.ones((len(kpt), 1), np.float32)}
 

@@ -22,7 +22,12 @@ Dataflows, chosen by ``fused_upsample`` as in the JAX package
   ``fused_head_mode`` picks its dataflow, "v3"
   (K1) or "v1" (cuDNN's full-res image conv, then K3), as the JAX
   package's POSFEAT_HEAD_MODE does. The config string stays so that
-  existing configs mean the same thing.
+  existing configs mean the same thing. ``head_ring=False`` takes its
+  ring-skip dataflow (POSFEAT_HEAD_RING=0): then in v3 the full-resolution
+  convimg output is not computed at all, since only the patch statistics
+  of the prior-scaled image enter K1 (JAX gets this from XLA's dead-code
+  elimination). ``head_im2col`` (POSFEAT_HEAD_IM2COL=1) runs K1 as it is
+  (``fused_head_tail``).
 
 The fused dataflows are derived for a trunk at a quarter of the image's
 size (ResUNet's H/4 local map). At any other ratio (ResUNetHR's H/2) the
@@ -220,7 +225,7 @@ class KeypointDet(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int = 1, prior: str = "SSIM",
                  act: str = "Sigmoid", fused_upsample=True, fused_head_mode: str = "v3",
-                 dtype=torch.float32):
+                 head_ring: bool = True, head_im2col: bool = False, dtype=torch.float32):
         super().__init__()
         if fused_upsample not in (True, False, "always", "phase", "pallas"):
             raise ValueError(f"unknown fused_upsample {fused_upsample!r}")
@@ -234,6 +239,8 @@ class KeypointDet(nn.Module):
         self.act = act
         self.fused_upsample = fused_upsample
         self.fused_head_mode = fused_head_mode
+        self.head_ring = bool(head_ring)
+        self.head_im2col = bool(head_im2col)
         self.dtype = dtype
         self._warned_ratio = False
         self.conv1 = nn.Conv2d(in_channels, in_channels, 3, 1, 1)
@@ -281,22 +288,25 @@ class KeypointDet(nn.Module):
             x_pf * fine_map, self.conv1.weight.to(dt), self.conv1.bias.to(dt), 1
         )))
         s_img = (x_pi * img).to(dt)
-        y_img = _conv(s_img, self.convimg.weight.to(dt), None, 1) + self.convimg.bias.to(dt)
-
         B, H, W = img.shape[:3]
         h, w = trunk.shape[1:3]
+        fu = self.fused_upsample
+        size_ok = H == 4 * h and W == 4 * w
+        fused = fu == "pallas" and size_ok
+        y_img = None
+        if not (fused and self.fused_head_mode == "v3" and not self.head_ring):
+            y_img = _conv(s_img, self.convimg.weight.to(dt), None, 1) + self.convimg.bias.to(dt)
+
         cin = self.in_channels
         k2 = self.conv2.weight  # [128, C_in + 64, 3, 3]
         hwio = lambda t: t.permute(2, 3, 1, 0)
-        fu = self.fused_upsample
-        size_ok = H == 4 * h and W == 4 * w
         self.warn_off_ratio(h, w, H, W)
-        if fu == "pallas" and size_ok:
+        if fused:
             score = fused_head_tail(
                 trunk, s_img, y_img, hwio(self.convimg.weight), self.convimg.bias,
                 hwio(k2[:, :cin]), hwio(k2[:, cin:]), self.conv2.bias,
                 hwio(self.conv3.weight), self.conv3.bias, a, act=self.act,
-                mode=self.fused_head_mode,
+                mode=self.fused_head_mode, ring=self.head_ring, im2col=self.head_im2col,
             )
         else:
             img_feat = instance_norm(y_img.float()).to(dt)

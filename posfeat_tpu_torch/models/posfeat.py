@@ -54,7 +54,11 @@ class PoSFeat(nn.Module):
 
     config keys (reference PoSFeat_model.py:16-46): backbone,
     backbone_config, localheader, localheader_config, align_local_grad,
-    local_input_elements, local_with_img. ``dtype`` is the compute dtype:
+    local_input_elements, local_with_img. ``backbone_config`` carries the
+    bf16 decoder's ``desc_tail``, ``decoder_accum`` and ``desc_f32``, and
+    ``localheader_config`` the fused head's ``head_ring`` and
+    ``head_im2col`` (the Extractor's resolved ``fast_gates`` put them
+    there); none changes a parameter. ``dtype`` is the compute dtype:
     backbone and head keep f32 parameters and BatchNorm statistics and
     cast per op, as the JAX modules' ``param_dtype=float32``
     (posfeat_tpu/models/resunet.py:43,59), so an optimizer updates f32

@@ -6,8 +6,16 @@ plus a per-image ``valid_count``; the extractor trims on the host to the
 reference's dynamic count max(min(num_pts, valid_count), 128). Selection
 order is exact: top-k of the masked score map, ties to the lower flat
 index (a stable descending sort, which ``torch.topk`` does not promise).
-The approximate top-k of the JAX package (``topk_recall``,
-``POSFEAT_TOPK=approx``) is not taken.
+
+``topk="approx"`` is the JAX package's POSFEAT_TOPK=approx
+(detect.py:26-39, 285-296, 354-407). Its top-k (``approx_max_k`` at
+recall 0.99) stays exact here, recall 1.0, as approx_max_k is on the
+CPU. What it changes is kept exactly: before the top-k of the NMS
+detector's block maxima, each block's argmax is packed into the 4 low
+mantissa bits of its f32 maximum and decoded from the selected values
+(so maxima within 16 ulps rank by their argmax), and the reported score
+is that selected value with the 4 bits cleared (``score_from_topk``), in
+place of the 3×3 max-pooled map's value.
 
 Sub-pixel refiners of ``generate_kpts_single`` (``refine``): 'avg3', the
 reference's 3×3 score-weighted centre of mass; 'quad' and 'quad5', a
@@ -36,6 +44,12 @@ from .pooling import avg_pool2d, max_pool2d
 from .samplers import draw_categorical, gumbel_noise, gumbel_topk_select, unfold
 
 REFINERS = ("avg3", "quad", "quad5", "soft", "soft5")
+TOPK = ("exact", "approx")
+
+
+def _check_topk(topk: str) -> None:
+    if topk not in TOPK:
+        raise ValueError(f"unknown topk {topk!r}; expected one of {TOPK}")
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -297,6 +311,7 @@ def generate_kpts_single(
     stride: int = 1,
     refine: str = "avg3",
     refine_temperature: float = 20.0,
+    topk: str = "exact",
 ):
     """Full-image detector with sub-pixel refinement (detect.py:217-429).
     kp_map: [B, H, W, 1] full-res score map -> (kps_n [B, num_pts, 2]
@@ -304,7 +319,11 @@ def generate_kpts_single(
 
     ``stable=False`` selects by Gumbel soft top-k at ``temperature``:
     kps = select @ grids, scores = select @ interior, with the noise
-    [B, num_pts, (H-2)(W-2)] given or drawn from ``generator``."""
+    [B, num_pts, (H-2)(W-2)] given or drawn from ``generator``. ``topk``:
+    "exact", or "approx" (module docstring; the packing needs the stable
+    NMS path, where scores are nonnegative, so that the f32 words order
+    as integers as their values do)."""
+    _check_topk(topk)
     B, H, W, _ = kp_map.shape
     grids = refined_grids(kp_map, refine, stride, refine_temperature)
     interior = kp_map[:, 1:-1, 1:-1, :]  # [B, H-2, W-2, 1]
@@ -322,7 +341,10 @@ def generate_kpts_single(
         kp_score = select @ interior.reshape(B, h2 * w2, 1)
         return kps, kp_score, valid_count
 
-    kp_score_map = max_pool2d(kp_map, 3, stride)
+    # an NMS winner is the strict maximum of its 3x3 interior window, so
+    # the max-pooled score is its own except on the interior's edge ring
+    score_from_topk = use_nms is True and nms_radius >= 1 and topk == "approx"
+    kp_score_map = None if score_from_topk else max_pool2d(kp_map, 3, stride)
     masked = (nms_mask * interior).reshape(B, -1)
     fold = min(nms_radius + 1, 4) if (use_nms is True and nms_radius >= 1) else 0
     if fold > 1:
@@ -336,8 +358,14 @@ def generate_kpts_single(
         blocks = blocks.permute(0, 1, 3, 2, 4).reshape(B, (hp // fold) * (wp // fold), fold * fold)
         bmax, barg = blocks.max(dim=-1)  # first maximal element on ties
         k = min(num_pts, bmax.shape[1])
-        _, bidx = top_k(bmax, k)
-        inner = torch.gather(barg, 1, bidx)
+        if topk == "approx":
+            # the argmax (< 16) in the 4 low bits of the f32 word
+            packed = (bmax.float().view(torch.int32) & ~0xF) | barg.to(torch.int32)
+            scores_sel, bidx = top_k(packed.view(torch.float32), k)
+            inner = scores_sel.view(torch.int32) & 0xF
+        else:
+            _, bidx = top_k(bmax, k)
+            inner = torch.gather(barg, 1, bidx)
         yy = (bidx // (wp // fold)) * fold + inner // fold
         xx = (bidx % (wp // fold)) * fold + inner % fold
         # zero-score pad blocks may decode past the interior; their slots
@@ -347,7 +375,10 @@ def generate_kpts_single(
         k = min(num_pts, masked.shape[1])
         _, idx = top_k(masked, k)
     kps = _gather_rows(grids.reshape(B, -1, 2), idx)
-    kp_score = _gather_rows(kp_score_map.reshape(B, -1, 1), idx)
+    if score_from_topk:
+        kp_score = (scores_sel.view(torch.int32) & ~0xF).view(torch.float32).to(kp_map.dtype)[..., None]
+    else:
+        kp_score = _gather_rows(kp_score_map.reshape(B, -1, 1), idx)
     kps, kp_score = _pad_slate(num_pts, k, kps, kp_score)
     return kps, kp_score, valid_count
 
@@ -364,12 +395,15 @@ def generate_kpts_single_noavg(
     temperature: float = 1.0,
     generator: torch.Generator = None,
     stride: int = 1,
+    topk: str = "exact",
 ):
     """Detector without coordinate refinement (detect.py:432-482;
     putils:280-336): the full map, no interior crop, pixel-centre
     coordinates and raw scores of the exact top-k. Like the JAX version it
     always selects by top-k; ``stable``, ``temperature``, ``generator``
-    and ``stride`` are taken for the configs' sake and not read."""
+    and ``stride`` are taken for the configs' sake and not read, and
+    ``topk="approx"`` selects as "exact" (recall 1.0)."""
+    _check_topk(topk)
     B, H, W, _ = kp_map.shape
     nms_mask, count_src = _masks(kp_map, nms_radius, use_nms, thr, thr_mod)
     grids = gen_grid(-1, 1, -1, 1, H, W, dtype=kp_map.dtype, device=kp_map.device)
@@ -395,13 +429,16 @@ def generate_kpts_regular_grid_single(
     thr_mod: str = "mean",
     generator: torch.Generator = None,
     draw: torch.Tensor = None,
+    topk: str = "exact",
 ):
     """Grid-cell detector (detect.py:485-547; putils:375-429): per g×g
     cell the argmax of the cell softmax, or with ``stable=False`` a
     Categorical draw ([B, H/g, W/g] indices, given as ``draw`` or drawn
     from ``generator``). Returns (kps_n [B, num_pts, 2], scores
     [B, num_pts, 1], valid_count [B]); ``num_pts=0`` returns the whole
-    cell slate, row-major."""
+    cell slate, row-major. ``topk="approx"`` selects as "exact" (recall
+    1.0)."""
+    _check_topk(topk)
     B, H, W, _ = kp_map.shape
     if use_nms == "softnms":
         kp_map = soft_nms(kp_map, nms_radius) * kp_map

@@ -1,7 +1,7 @@
 """Fused KeypointDet tail: ×4 upsample + conv2 -> IN -> PReLU -> conv3 ->
 IN -> act, without a full-resolution 128-channel tensor
-(posfeat_tpu/ops/pallas/fused_head.py, modes v3 and v1 with the exact
-border ring).
+(posfeat_tpu/ops/pallas/fused_head.py, modes v3 and v1, with the exact
+border ring or in the ring-skip dataflow).
 
 The conv runs in PHASE layout: z [B, h, w, 16·Cout], channel
 (ry·4 + rx)·Cout + c holds full-res pixel (4y + ry, 4x + rx). Two
@@ -500,10 +500,10 @@ def _img_ring_deltas(s, y, mu, a, K5, k2i, b_z):
 def fused_head_tail(
     trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3, prelu_a,
     act: str = "Softplus", k: int = 4, eps: float = 1e-5,
-    debug_intermediates: bool = False, mode: str = "v3",
+    debug_intermediates: bool = False, mode: str = "v3", ring: bool = True, im2col: bool = False,
 ):
     """Reference-exact head tail -> full-res score [B, k·h, k·w, out]
-    (posfeat_tpu/ops/pallas/fused_head.py:413-1155, ring on).
+    (posfeat_tpu/ops/pallas/fused_head.py:413-1155).
 
     Equivalent to (DeteNet.py:108-113, identity prior):
         z = conv3x3_zeropad(upsample_x4(trunk))
@@ -519,13 +519,28 @@ def fused_head_tail(
     matrix) or "v1" (cuDNN's full-res conv of img_y normalised by its
     own f32 IN statistics, then K3). Under a bf16 trunk the score comes
     out f32.
+
+    ``ring=False`` is the ring-skip dataflow of POSFEAT_HEAD_RING=0
+    (fused_head.py:475-483, 698-712): a zero halo in place of the edge
+    clamp, no thin-strip ring correction, and IN statistics that carry the
+    2-px ring's composite values. In v3 it reads img_y nowhere, which may
+    then be None.
+
+    ``im2col`` is POSFEAT_HEAD_IM2COL=1 (fused_head.py:463-474, 720-737):
+    on the MXU it lays the trunk operand out as one matmul of depth 9·Cin,
+    so that all 9·Cin products of an output meet in one f32 accumulator.
+    K1's 9-tap wgmma K-loop already accumulates them into one f32
+    accumulator per output, and Cin = 192 needs no padding here, so the
+    option runs K1 as it is (and is accepted in v1, where JAX ignores it).
     """
     if mode not in ("v3", "v1"):
         raise ValueError(f"mode must be 'v3' or 'v1', got {mode!r}")
+    if img_y is None and (ring or mode == "v1"):
+        raise ValueError("img_y is read on the border ring and in v1; only v3 without the ring goes without it")
     return _fused_head_tail(
         conv_phase if mode == "v3" else conv_phase_img, head_tail, trunk, img_s, img_y,
         k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3, prelu_a, act, k, eps,
-        debug_intermediates, mode,
+        debug_intermediates, mode, ring,
     )
 
 
@@ -601,7 +616,7 @@ def _v1_z_img(img_y, k2_img, eps, dt):
 def _fused_head_tail(
     conv_fn, tail_fn, trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3,
     prelu_a, act: str = "Softplus", k: int = 4, eps: float = 1e-5,
-    debug_intermediates: bool = False, mode: str = "v3",
+    debug_intermediates: bool = False, mode: str = "v3", ring: bool = True,
 ):
     """``fused_head_tail`` with its kernels given as ``conv_fn`` and
     ``tail_fn``: the wrappers, or their plain versions to hold a card's
@@ -616,42 +631,51 @@ def _fused_head_tail(
     Hf, Wf = k * h, k * w
 
     # the trunk operands of K1/K3: channels padded to a multiple of 32
-    # (zeros add nothing), edge pad = the upsample's clamp
+    # (zeros add nothing); the halo is the upsample's clamp (edge pad), or
+    # zeros in the ring-skip dataflow (fused_head.py:698-712)
     cin_p = -(-cin // 32) * 32
     kph = F.pad(_phase_kernel(k2_trunk, k), (0, 0, 0, cin_p - cin)).to(dt)
     kph = kph.reshape(9, cin_p, kk * cout).contiguous()
-    tp = F.pad(_edge_pad1(trunk), (0, cin_p - cin)).contiguous()
+    if ring:
+        tp = F.pad(_edge_pad1(trunk), (0, cin_p - cin)).contiguous()
+    else:
+        tp = F.pad(trunk, (0, cin_p - cin, 1, 1, 1, 1)).contiguous()
+
+    if mode == "v3":
+        P, Wm, b2b, mu32, a32, K5, b_z = _v3_image_operands(
+            img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt
+        )
+        z, ssum, ssq = conv_fn(tp, kph, P, Wm, b2b)
+    elif mode == "v1":
+        z_img = _v1_z_img(img_y, k2_img, eps, dt)
+        b2ph = b2.float().repeat(kk).contiguous()  # [kk·Cout]
+        z, ssum, ssq = conv_fn(tp, kph, z_img, b2ph, "full")
+    else:
+        raise ValueError(f"mode must be 'v3' or 'v1', got {mode!r}")
 
     # ---- thin-strip border corrections (O(perimeter) work) ----
     # z carries the clamped-composite trunk values (ring width 1: strips
     # T/Bo/L/R) and, in v3, the composite image-branch values (ring width
     # 2: strips G_*); v1's z_img is exact. Compute the exact ring values,
     # correct the IN1 statistics, and later rewrite u's ring: conv3 is
-    # 1×1, so interior pixels never see ring errors.
+    # 1×1, so interior pixels never see ring errors. The ring-skip
+    # dataflow keeps z's values there, and the IN statistics with them.
+    ids = []
+    if ring:
+        T, Bo, L, R = ring_correction_strips(trunk, k2_trunk, k)
+        if mode == "v3":
+            G_top, G_bot, G_left, G_right = _img_ring_deltas(img_s, img_y, mu32, a32, K5, k2_img, b_z)
+            ids, margin = [0, 1, k - 2, k - 1], 2
 
-    T, Bo, L, R = ring_correction_strips(trunk, k2_trunk, k)
-    if mode == "v3":
-        P, Wm, b2b, mu32, a32, K5, b_z = _v3_image_operands(
-            img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt
-        )
-        z, ssum, ssq = conv_fn(tp, kph, P, Wm, b2b)
-        G_top, G_bot, G_left, G_right = _img_ring_deltas(img_s, img_y, mu32, a32, K5, k2_img, b_z)
-        ids, margin = [0, 1, k - 2, k - 1], 2
+            def G_row(ry):
+                return G_top[:, ry] if ry < k // 2 else G_bot[:, ry - (k - 2)]
 
-        def G_row(ry):
-            return G_top[:, ry] if ry < k // 2 else G_bot[:, ry - (k - 2)]
+            def G_col(rx):
+                return G_left[:, :, rx] if rx < k // 2 else G_right[:, :, rx - (k - 2)]
 
-        def G_col(rx):
-            return G_left[:, :, rx] if rx < k // 2 else G_right[:, :, rx - (k - 2)]
-
-    elif mode == "v1":
-        z_img = _v1_z_img(img_y, k2_img, eps, dt)
-        b2ph = b2.float().repeat(kk).contiguous()  # [kk·Cout]
-        z, ssum, ssq = conv_fn(tp, kph, z_img, b2ph, "full")
-        ids, margin = [0, k - 1], 1
-        G_row = G_col = lambda r: 0.0
-    else:
-        raise ValueError(f"mode must be 'v3' or 'v1', got {mode!r}")
+        else:
+            ids, margin = [0, k - 1], 1
+            G_row = G_col = lambda r: 0.0
     lo_ids = [i for i in ids if i < k // 2]  # ring phases at trunk row/column 0
     hi_ids = [i for i in ids if i >= k // 2]  # ... and at row h-1 / column w-1
 
@@ -683,8 +707,10 @@ def _fused_head_tail(
 
     def ring_delta(e_rows, raw_rows, e_cols, raw_cols):
         # disjoint accounting: full rows + interior of the columns
-        d1 = sum((e_rows[i] - raw_rows[i]).sum(dim=1) for i in ids)
-        d2 = sum((e_rows[i] ** 2 - raw_rows[i] ** 2).sum(dim=1) for i in ids)
+        d1 = d2 = 0.0
+        for i in ids:
+            d1 = d1 + (e_rows[i] - raw_rows[i]).sum(dim=1)
+            d2 = d2 + (e_rows[i] ** 2 - raw_rows[i] ** 2).sum(dim=1)
         for i in ids:
             e, r = e_cols[i][:, margin:-margin], raw_cols[i][:, margin:-margin]
             d1 = d1 + (e - r).sum(dim=1)
@@ -696,7 +722,9 @@ def _fused_head_tail(
     n_px = h * w * kk
     s1 = ssum.sum(dim=1).reshape(B, kk, cout).sum(dim=1)
     s2 = ssq.sum(dim=1).reshape(B, kk, cout).sum(dim=1)
-    d1, d2 = ring_delta(row_e, row_raw, col_e, col_raw)
+    d1 = d2 = torch.zeros_like(s1)
+    if ring:
+        d1, d2 = ring_delta(row_e, row_raw, col_e, col_raw)
     mu = (s1 + d1) / n_px
     sc = torch.rsqrt(torch.clamp((s2 + d2) / n_px - mu * mu, min=0.0) + eps)
 
@@ -728,24 +756,26 @@ def _fused_head_tail(
     # IN2 statistics with ring deltas (same disjoint accounting)
     us = usum.sum(dim=1)
     uq = usq.sum(dim=1)
-    du1, du2 = ring_delta(
-        u_row_e, {i: u_row_raw(i) for i in ids}, u_col_e, {i: u_col_raw(i) for i in ids}
-    )
-    us = us + du1
-    uq = uq + du2
+    if ring:
+        du1, du2 = ring_delta(
+            u_row_e, {i: u_row_raw(i) for i in ids}, u_col_e, {i: u_col_raw(i) for i in ids}
+        )
+        us = us + du1
+        uq = uq + du2
     mu2 = us / n_px
     sc2 = torch.rsqrt(torch.clamp(uq / n_px - mu2 * mu2, min=0.0) + eps)
 
     # overwrite the ring in place in K2's output (columns first; rows
     # then own the corners)
-    for wcol, cols in ((0, lo_ids), (w - 1, hi_ids)):
-        uw = u[:, :, wcol, :].reshape(B, h, kk, out_ch).clone()
-        for rx in cols:
-            uw[:, :, rx::k, :] = u_col_e[rx].reshape(B, h, k, out_ch)
-        u[:, :, wcol, :] = uw.reshape(B, h, kk * out_ch)
-    for ry in ids:
-        hrow = 0 if ry < k // 2 else h - 1
-        u[:, hrow, :, ry * ko : (ry + 1) * ko] = u_row_e[ry].reshape(B, w, ko)
+    if ring:
+        for wcol, cols in ((0, lo_ids), (w - 1, hi_ids)):
+            uw = u[:, :, wcol, :].reshape(B, h, kk, out_ch).clone()
+            for rx in cols:
+                uw[:, :, rx::k, :] = u_col_e[rx].reshape(B, h, k, out_ch)
+            u[:, :, wcol, :] = uw.reshape(B, h, kk * out_ch)
+        for ry in ids:
+            hrow = 0 if ry < k // 2 else h - 1
+            u[:, hrow, :, ry * ko : (ry + 1) * ko] = u_row_e[ry].reshape(B, w, ko)
 
     u = u.reshape(B, h, w, kk, out_ch)
     xn = (u - mu2[:, None, None, None, :]) * sc2[:, None, None, None, :]
@@ -762,8 +792,8 @@ def _fused_head_tail(
     out_dt = torch.float32 if dt == torch.bfloat16 else dt
     s = s.to(out_dt)
     if debug_intermediates:
-        return s, {
-            "z": z, "s1": s1, "mu": mu, "sc": sc, "d1": d1, "u": u,
-            "mu2": mu2, "sc2": sc2, "us": us, "e_top": row_e[0], "u_top_e": u_row_e[0],
-        }
+        dbg = {"z": z, "s1": s1, "mu": mu, "sc": sc, "d1": d1, "u": u, "mu2": mu2, "sc2": sc2, "us": us}
+        if ring:
+            dbg.update(e_top=row_e[0], u_top_e=u_row_e[0])
+        return s, dbg
     return s

@@ -2,11 +2,13 @@
 bands (posfeat_tpu/parallel/spatial.py; what XLA's SPMD partitioner
 makes of ``model.extract`` with an H-sharded image).
 
-Each function walks the port's modules (models/resunet.py:237-254,
-models/keypoint_det.py:228-308) and calls the banded primitives of
-``banded_ops`` with the parameters of each band's replica
-(``nets[i]`` lives on band i's device). The arithmetic of every op is
-the unsharded op's; only the rows it reads come from the neighbours.
+Each function walks the port's modules (models/resunet.py ``ResUNet``,
+models/keypoint_det.py ``KeypointDet.forward``) and calls the banded
+primitives of ``banded_ops`` with the parameters of each band's replica
+(``nets[i]`` lives on band i's device). The decoder is the unsharded
+one, ``run_decoder`` on the backbone's own plan, given ``BandOps``. The
+arithmetic of every op is the unsharded op's; only the rows it reads
+come from the neighbours.
 The head runs the dataflows the JAX spatial program can take: the
 reference dataflow (``False``, and ``True`` at f32), ``"phase"`` and
 the dilated composite (``"always"``, ``True`` at bf16/f16).
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.keypoint_det import _act, _conv
-from ..models.resunet import BasicBlock, ResUNetHR
+from ..models.resunet import BasicBlock, run_decoder
 from ..ops.phase import (
     _bilinear_taps_1d,
     _phase_kernel,
@@ -49,18 +51,51 @@ def _conv_bn_elu(x: Bands, blocks) -> Bands:
     return _conv_bn(x, [b.conv for b in blocks], [b.bn for b in blocks]).map(F.elu)
 
 
-def _up_conv(x: Bands, ups) -> Bands:
-    """``UpConv``: bilinear ×scale (align_corners=True) in global rows, then ConvBNElu."""
-    s = ups[0].scale
-    y = bo.resize(x, (x.total * s, x.parts[0].shape[2] * s), align_corners=True)
-    return _conv_bn_elu(y, [u.conv for u in ups])
+class BandOps:
+    """``models.resunet.DenseOps``'s primitives on NHWC bands, so that the
+    decoder runs the unsharded plan (``decoder_plan``) op for op."""
 
+    @staticmethod
+    def map(fn, x: Bands, *others: Bands) -> Bands:
+        return x.map(fn, *others)
 
-def _skip(x1: Bands, x2: Bands) -> Bands:
-    """``_skipconnect`` without its pad: on a %16 image the maps agree."""
-    for a, b in zip(x1.parts, x2.parts):
-        assert a.shape[:3] == b.shape[:3], "_skipconnect would pad: the image is not a multiple of 16"
-    return x2.map(lambda a, b: torch.cat([a, b], dim=-1), x1)
+    @staticmethod
+    def conv(x: Bands, convs, weight=lambda w: w, bias=None) -> Bands:
+        c = convs[0]
+        biases = None if bias is None else [bias(m.bias) for m in convs]
+        return bo.conv2d(x, [weight(m.weight) for m in convs], biases, c.stride, c.padding, c.dilation)
+
+    @staticmethod
+    def add_bias(x: Bands, convs) -> Bands:
+        return x.with_parts([p + m.bias.float() for p, m in zip(x.parts, convs)])
+
+    @staticmethod
+    def bn(x: Bands, bns) -> Bands:
+        return bo.module_nchw(x, bns)
+
+    @staticmethod
+    def upsample(x: Bands, scale: int) -> Bands:
+        """bilinear ×scale (align_corners=True) in global rows."""
+        return bo.resize(x, (x.total * scale, x.parts[0].shape[2] * scale), align_corners=True)
+
+    @staticmethod
+    def cat(a: Bands, b: Bands) -> Bands:
+        return a.map(lambda p, q: torch.cat([p, q], dim=-1), b)
+
+    @staticmethod
+    def pad_to(x1: Bands, x2: Bands) -> Bands:
+        """``_skip_pad``, a no-op on a %16 image, where the maps agree."""
+        for a, b in zip(x1.parts, x2.parts):
+            assert a.shape[:3] == b.shape[:3], "_skipconnect would pad: the image is not a multiple of 16"
+        return x1
+
+    @staticmethod
+    def channels(x: Bands) -> int:
+        return x.parts[0].shape[-1]
+
+    @staticmethod
+    def dtype(x: Bands) -> torch.dtype:
+        return x.parts[0].dtype
 
 
 def _block(x: Bands, blocks) -> Bands:
@@ -81,13 +116,14 @@ def _block(x: Bands, blocks) -> Bands:
 
 
 def resunet(x: Bands, nets) -> Dict[str, Bands]:
-    """``ResUNet.forward`` (resunet.py:237-254) on image bands [B, rows, W, 3],
-    and ``ResUNetHR.forward`` (resunet.py:271-285) where the nets are HR:
-    its third decoder level (``upconv1`` ×2, the skip with the un-pooled
-    stem, ``iconv1``) puts ``local_map`` and ``local_map_small`` (the stem)
-    at H/2."""
-    hr = isinstance(nets[0], ResUNetHR)
-    x = x.map(lambda p: p.to(nets[0].dtype))
+    """``ResUNet.forward`` (resunet.py) on image bands [B, rows, W, 3], and
+    ``ResUNetHR.forward`` where the nets are HR: its third decoder level
+    (``upconv1`` ×2, the skip with the un-pooled stem, ``iconv1``) puts
+    ``local_map`` and ``local_map_small`` (the stem) at H/2. The decoder is
+    ``run_decoder`` on the nets' own plan, concat-free skip iconvs and
+    ``desc_tail`` included."""
+    net = nets[0]
+    x = x.map(lambda p: p.to(net.dtype))
     x_first1 = _conv_bn(x, _per(nets, "firstconv"), _per(nets, "firstbn")).map(F.relu)
     x_first = bo.max_pool2d(x_first1, 3, 2, 1)
     feats = []
@@ -98,12 +134,9 @@ def resunet(x: Bands, nets) -> Dict[str, Bands]:
         feats.append(y)
     x1, x2, x3 = feats
     x_coarse = _conv_bn_elu(x3, _per(nets, "conv_coarse"))
-    y = _conv_bn_elu(_skip(_up_conv(x3, _per(nets, "upconv3")), x2), _per(nets, "iconv3"))
-    y = _conv_bn_elu(_skip(_up_conv(y, _per(nets, "upconv2")), x1), _per(nets, "iconv2"))
-    if hr:
-        y = _conv_bn_elu(_skip(_up_conv(y, _per(nets, "upconv1")), x_first1), _per(nets, "iconv1"))
-    x_fine = _conv_bn_elu(y, _per(nets, "conv_fine"))
-    return {"global_map": x_coarse, "local_map": x_fine, "local_map_small": x_first1 if hr else x_first}
+    maps = {"x1": x1, "x2": x2, "x3": x3, "x_first1": x_first1}
+    x_fine = run_decoder(BandOps, nets, maps, net.plan(net.training))
+    return {"global_map": x_coarse, "local_map": x_fine, "local_map_small": x_first1 if net.hr else x_first}
 
 
 # ------------------------------------------------------------------ head

@@ -17,6 +17,17 @@ arms through the port's Extractor:
               which runs K1 and K2 on the card (their plain versions on
               the CPU).
 
+These three pin ``fast_mode: False``. Two more arms take the JAX
+package's fast-path gates (tools/selection_stability.py:118-160 strips
+them from its f32 arm; the port's f32 extraction never takes them):
+
+  lite        the fused bf16 arm with the "lite" gate set (the ring-skip
+              head, im2col, the packed top-k, quad sampling), given
+              explicitly in ``fast_gates`` so that it runs on the CPU too;
+  ship        lite plus ``backbone_config.desc_tail: split3``.
+
+``gate_arms`` scores them against an f32 arm already extracted.
+
 Each arm is scored with ``evals.hpatches`` (mutual-NN matching on the
 device) and compared keypoint by keypoint: top-k overlap per image and
 mutual-NN match agreement between neighbouring images of a sequence.
@@ -28,11 +39,12 @@ resnet18 encoder with ``fine_out_ch`` 128, so the head's input has the
 flagship's 192 channels (128 + 64) and K1 runs its C = 192 path.
 
     python3 tools/selection_stability_torch.py --work DIR [--ckpt DIR] [--num-pts 512]
-        [--n-seq 4] [--height 96 --width 128] [--device cpu]
+        [--n-seq 4] [--height 96 --width 128] [--device cpu] [--gates]
 
 Without ``--ckpt`` it trains the checkpoint first (``--steps1``,
-``--steps2``). It prints one JSON record. chip_smoke.py phase 13 runs it
-on the card at 480x640 (8192 points) and at 96x128 (512 points).
+``--steps2``). It prints one JSON record (with ``--gates``, the lite and
+ship arms' too). chip_smoke.py phase 13 runs it on the card at 480x640
+(8192 points) and at 96x128 (512 points), and phase 22 the gate arms.
 """
 
 import copy
@@ -77,6 +89,10 @@ W_G = 1.0
 W_W = 1.0
 # (tag, compute_dtype, head_dataflow) of each arm
 ARMS = (("f32", "float32", False), ("bf16_plain", "bfloat16", False), ("bf16", "bfloat16", "pallas"))
+# the lite gate set (posfeat_tpu/__init__.py:24-30), and each gate arm's
+# fast_gates and backbone_config numerics; both run the fused bf16 head
+LITE_GATES = {"head_ring": False, "head_im2col": True, "topk": "approx", "sample_impl": "quad"}
+GATE_ARMS = {"lite": (LITE_GATES, {}), "ship": (LITE_GATES, {"desc_tail": "split3"})}
 POSTFIX = "c"
 
 
@@ -235,11 +251,13 @@ def _sequence_counts(data_root):
     return sum(s.startswith("i_") for s in seqs), sum(s.startswith("v_") for s in seqs)
 
 
-def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, device=None, refine="avg3"):
+def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, device=None, refine="avg3",
+            gates=None):
     """Extract the fixture under ``work/ckpts/hp/<tag>`` with the given
     dtype, head dataflow (checked in the model and the run's
     config.yaml) and sub-pixel refiner, score it; returns (desc_dir,
-    MMA@3, launches of K1 and K2 during the extraction)."""
+    MMA@3, launches of K1 and K2 during the extraction). ``gates``: a key
+    of ``GATE_ARMS``, or None for ``fast_mode: False``."""
     import torch
 
     from posfeat_tpu_torch.core.config import load_config
@@ -262,6 +280,7 @@ def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, d
         "use_sift": False,
         "compute_dtype": compute_dtype,
         "head_dataflow": head_dataflow,
+        "fast_mode": False,
         "detector": "generate_kpts_single",
         "detector_config": {
             "num_pts": num_pts,
@@ -272,6 +291,10 @@ def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, d
             "refine": refine,
         },
     }
+    fast_gates, numerics = GATE_ARMS[gates] if gates else ({}, {})
+    if gates:
+        cfg.update(fast_mode=True, fast_gates=dict(fast_gates))
+        cfg["model_config"]["backbone_config"].update(numerics)
     ckpt_root = os.path.join(work, "ckpts")
     ex = Extractor(cfg, ckpt_root=ckpt_root, device=device)
     saved = load_config(os.path.join(ex.save_root, "config.yaml"))
@@ -280,6 +303,10 @@ def run_arm(tag, ckpt, work, data_root, compute_dtype, head_dataflow, num_pts, d
     if dataflows != (head_dataflow, head_dataflow) or ex.model.dtype != getattr(torch, compute_dtype):
         raise RuntimeError(f"arm {tag}: asked for {compute_dtype} {head_dataflow!r}, got "
                            f"{ex.model.dtype} {dataflows}")
+    want = {**(LITE_GATES if gates else {}), "desc_tail": numerics.get("desc_tail", "")}
+    got = {**{k: saved["fast_gates"][k] for k in fast_gates}, "desc_tail": ex.model.backbone.desc_tail}
+    if got != want or (not gates and saved["fast_gates"]["topk"] != "exact"):
+        raise RuntimeError(f"arm {tag}: asked for gates {want}, got {got} ({saved['fast_gates']})")
     fh.conv_phase.launches = fh.head_tail.launches = 0
     ex.extract()
     if ex.device.type == "cuda":
@@ -357,6 +384,28 @@ def trained_probe(ckpt, work, num_pts=512, n_seq=4, h=None, w=None, device=None)
     return rec
 
 
+def gate_arms(ckpt, work, f32_dir, mma3_f32, num_pts=512, device=None, arms=tuple(GATE_ARMS)):
+    """The gate arms on the fixture under ``work/hpatches``, each scored
+    and compared with the f32 arm's features in ``f32_dir`` (MMA@3
+    ``mma3_f32``): ``delta_mma3_<arm>``, ``topk_overlap_mean_<arm>``,
+    ``match_agreement_mean_<arm>``, ``mma3_<arm>`` and the K1/K2
+    launches of each."""
+    data_root = os.path.join(work, "hpatches")
+    rec = {}
+    for arm in arms:
+        desc_dir, mma3, launches = run_arm(arm, ckpt, work, data_root, "bfloat16", "pallas", num_pts, device,
+                                           gates=arm)
+        overlaps, agreements = compare_arms(f32_dir, desc_dir, device)
+        rec.update({
+            f"mma3_{arm}": mma3,
+            f"delta_mma3_{arm}": mma3 - mma3_f32,
+            f"topk_overlap_mean_{arm}": float(np.mean(overlaps)),
+            f"match_agreement_mean_{arm}": float(np.mean(agreements)),
+            f"launches_{arm}": launches,
+        })
+    return rec
+
+
 def main(argv=None):
     import argparse
 
@@ -370,10 +419,14 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--device", default=None, help="default: the card")
+    p.add_argument("--gates", action="store_true", help="also the lite and ship arms")
     args = p.parse_args(argv)
     ckpt = args.ckpt or train_probe_ckpt(args.work, args.steps1, args.steps2, args.device)
-    print(json.dumps(trained_probe(ckpt, args.work, args.num_pts, args.n_seq, args.height, args.width,
-                                   args.device)))
+    rec = trained_probe(ckpt, args.work, args.num_pts, args.n_seq, args.height, args.width, args.device)
+    if args.gates:
+        f32_dir = os.path.join(args.work, "ckpts", "hp", "f32", "desc")
+        rec.update(gate_arms(ckpt, args.work, f32_dir, rec["mma3_f32"], args.num_pts, args.device))
+    print(json.dumps(rec))
 
 
 if __name__ == "__main__":
