@@ -220,6 +220,22 @@ Phases, one line each (more for the build):
      flagship backbone at bf16, B = 16: split3's local map against up2's,
      and each tail variant's ms per batch beside the concat dataflow's.
      Budget: 90 s;
+ 23. slice N: (a) K1 and K2 through ``fused_head_tail(img_stats="xla")``
+     and the default ("gram") at phase 3's shapes against their plain
+     versions (z within one bf16 ulp, the score map within 2e-2 x
+     mean|score|, one K1 and one K2 launch a call), gram against xla
+     within 2e-2 x mean|score|, ms of K1 and of the head; (b) phase 18's
+     frame in bf16 through the Extractor's programs (the 'phase' head)
+     with the card's default gates (packed top-k, quad) unsharded and
+     over 2 and 4 bands, and with ``sample_impl: pair`` over 2 bands: the
+     banded detector and samplers on the unsharded maps bit for bit
+     (valid_count equal; quad within 1e-4), each banded program's slate
+     within phase 18's limits of its unsharded one (1e-3 unmatched, valid
+     within 1e-3) with its Δvalid printed, ms/image and peak memory, the
+     lite 2-band slate's valid equal to the exact gates' and its share
+     that differs printed (no limit), and the lite 2-band Extractor's npz
+     equal to its program's slate.
+     Budget: 60 s;
 Phases 5, 10, 13, 15-21 pin ``fast_mode: False`` (the fused head's
 exact ring, the exact top-k, corner sampling), so that their numbers
 compare across PRs; the bf16 backbone's concat-free skip iconvs are JAX's
@@ -2495,34 +2511,51 @@ def slice_k_extractor(torch, tmp, frame, slate):
     card the mesh lists cuda:0 twice): its fused head swapped for "phase"
     in the banded program only, and its npz equal to ``slate``, the banded
     bf16 "phase" program's slate on the same weights and image."""
-    from posfeat_tpu_torch.extract import Extractor
-    from posfeat_tpu_torch.extract import extractor as ex_mod
-
-    saved = ex_mod._visible_devices, ex_mod.spatial_mesh
-    ex_mod._visible_devices = lambda device: 2
-    if torch.cuda.device_count() < 2:
-        ex_mod.spatial_mesh = lambda devices: saved[1]([torch.device("cuda", 0)] * len(devices))
-    try:
-        cfg = {
-            "output_root": "slice_k", "postfix": "npz", "load_path": None, "loss_distance": "cos",
-            "output_desc": True, "output_img": False, "compute_dtype": "bfloat16", "model": "PoSFeat",
-            "fast_mode": False, "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG), "data": "HPatch_SIFT",
-            "data_config_extract": {"batch_size": BATCH, "workers": 1}, "use_sift": False,
-            "detector": "generate_kpts_single", "detector_config": dict(AACHEN_DET), "spatial_shard": 2,
-        }
-        item = {"im1": None, "im1_ori": frame, "coord1": np.zeros((0, 2), np.float32), "name1": "k/frame.png",
-                "pad1": (0, 0, 0, 0)}
-        ex = Extractor(cfg, ckpt_root=tmp, dataset=[item], seed=SEED)
-        assert ex._use_spatial(frame.shape[:2]) and len(ex._spatial_mesh.devices) == 2
-        ex.extract()
-        assert ex.model.localheader.fused_upsample == "pallas"
-    finally:
-        ex_mod._visible_devices, ex_mod.spatial_mesh = saved
+    ex = _banded_extractor(torch, tmp, "slice_k", 2, {"fast_mode": False, "head_dataflow": None})
+    ex.dataset = [_frame_item(frame, "k/frame.png")]
+    assert ex._use_spatial(frame.shape[:2])
+    ex.extract()
+    assert ex.model.localheader.fused_upsample == "pallas"
     f = np.load(f"{ex.desc_root}/k/frame.png.npz")
     assert ("spatial", frame.shape[:2], "detector_config") in ex._programs
     assert np.array_equal(f["keypoints"], slate[0]) and np.array_equal(f["scores"][:, 0], slate[1])
     assert np.array_equal(f["descriptors"], slate[2])
     return len(f["keypoints"])
+
+
+def _frame_item(frame, name):
+    """One frame as an extraction dataset's sample."""
+    return {"im1": None, "im1_ori": frame, "coord1": np.zeros((0, 2), np.float32), "name1": name,
+            "pad1": (0, 0, 0, 0)}
+
+
+def _banded_extractor(torch, tmp, tag, bands, extra):
+    """A bf16 flagship Extractor on cuda:0 with ``spatial_shard: bands``
+    (the visible devices seen as ``bands``, the mesh listing cuda:0 that
+    many times where the machine has fewer cards), the Aachen detector and
+    the 'phase' head, the banded program's; ``extra`` overrides config
+    keys (``head_dataflow: None`` keeps the card's default head)."""
+    from posfeat_tpu_torch.extract import Extractor
+    from posfeat_tpu_torch.extract import extractor as ex_mod
+
+    saved = ex_mod._visible_devices, ex_mod.spatial_mesh
+    ex_mod._visible_devices = lambda device: bands
+    if torch.cuda.device_count() < bands:
+        ex_mod.spatial_mesh = lambda devices: saved[1]([torch.device("cuda", 0)] * len(devices))
+    try:
+        cfg = {
+            "output_root": tag, "postfix": "npz", "load_path": None, "loss_distance": "cos",
+            "output_desc": True, "output_img": False, "compute_dtype": "bfloat16", "model": "PoSFeat",
+            "head_dataflow": "phase", "model_config": copy.deepcopy(FLAGSHIP_MODEL_CONFIG),
+            "data": "HPatch_SIFT", "data_config_extract": {"batch_size": 1, "workers": 1}, "use_sift": False,
+            "detector": "generate_kpts_single", "detector_config": dict(AACHEN_DET), "spatial_shard": bands,
+            **extra,
+        }
+        ex = Extractor(cfg, ckpt_root=tmp, dataset=[], seed=SEED)
+    finally:
+        ex_mod._visible_devices, ex_mod.spatial_mesh = saved
+    assert len(ex._spatial_mesh.devices) == bands
+    return ex
 
 
 def phase_slice_k(torch, fh, rng, smi):
@@ -3071,6 +3104,191 @@ def phase_slice_m(torch, fh, rng, smi, probe_state, ims_main):
     assert not failed, f"the gate arms missed: {failed}"
 
 
+# slice N (phase 23): the fused head's img_stats="xla", and the
+# fast gates on the banded program. Its budget in seconds
+SLICE_N_BUDGET_S = 60.0
+
+
+def slice_n_kernels(torch, fh, rng):
+    """(a) K1 and K2 through ``fused_head_tail(img_stats="xla")`` and the
+    default ("gram") at phase 3's shapes (B=16, 120x160, Cin 192,
+    Cout 128, bf16, the exact ring): K1 on each option's operands against
+    its plain version (z within one bf16 ulp, moments at rtol 1e-3), the
+    whole head with kernels against plain versions (2e-2 x mean|score|,
+    one K1 and one K2 launch a call), gram against xla within 2e-2 x
+    mean|score| (tests/test_pallas_fused_head.py:211-227's bf16 limit);
+    ms of K1 a launch and of the head a call."""
+    import torch.nn.functional as F
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    B, h, w, C, cout, cy = BATCH, H // 4, W // 4, 192, 128, 64
+    N = 16 * cout
+
+    def g(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+
+    trunk, img_s = g(B, h, w, C).to(bf), g(B, H, W, 3).to(bf)
+    k1, b1 = g(3, 3, 3, cy, scale=0.2), g(cy, scale=0.1)
+    k2t, k2i, b2 = g(3, 3, C, cout, scale=0.03), g(3, 3, cy, cout, scale=0.05), g(cout, scale=0.1)
+    img_y = (F.conv2d(img_s.permute(0, 3, 1, 2).float(), k1.permute(3, 2, 0, 1), b1, padding=1)
+             .permute(0, 2, 3, 1).to(bf))
+    tp = fh._edge_pad1(trunk).contiguous()  # the exact ring's halo (Cin = 192 needs no channel pad)
+    kph = fh._phase_kernel(k2t, 4).to(bf).reshape(9, C, N).contiguous()
+    head = dict(k1_img=k1, b1_img=b1, k2_trunk=k2t, k2_img=k2i, b2=b2, w3=g(1, 1, cout, 1, scale=0.1),
+                b3=g(1, scale=0.1), prelu_a=torch.tensor([0.25], device=dev), act="Softplus")
+    rows, scores = [], {}
+    for label, kw in (("img_stats='xla'", {"img_stats": "xla"}), ("gram", {})):
+        xla = kw.get("img_stats") == "xla"
+        pat, wm, b2b = fh._v3_image_operands(img_s, k1, b1, k2i, b2, h, w, 4, 1e-5, bf, img_y if xla else None)[:3]
+        z, s_, q = fh.conv_phase(tp, kph, pat, wm, b2b)
+        torch.cuda.synchronize()
+        zr, sr, qr = fh.conv_phase_plain(tp, kph, pat, wm, b2b)
+        err = (z.float() - zr.float()).abs().max().item()
+        torch.testing.assert_close(z.float(), zr.float(), rtol=2 ** -7, atol=1e-2)
+        for got, ref in ((s_.sum(1), sr.sum(1)), (q.sum(1), qr.sum(1))):
+            torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3 * ref.abs().mean().item())
+        k1_ms = _time_ms(lambda: fh.conv_phase(tp, kph, pat, wm, b2b), n=10, warmup=2)
+        del z, s_, q, zr, sr, qr
+        _zero_counts(fh)
+        score = fh.fused_head_tail(trunk, img_s, img_y, **head, **kw)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _read_counts(fh).items() if v}
+        assert launches == {"K1 conv_phase": 1, "K2 head_tail": 1}, (label, launches)
+        ref = fh._fused_head_tail(fh.conv_phase_plain, fh.head_tail_plain, trunk, img_s, img_y,
+                                  img_stats=kw.get("img_stats", "gram"), **head)
+        d = (score - ref).abs()
+        mean = ref.abs().mean().item()
+        assert torch.isfinite(score).all() and d.max().item() < 2e-2 * mean, (label, d.max().item(), mean)
+        head_ms = _time_ms(lambda: fh.fused_head_tail(trunk, img_s, img_y, **head, **kw), n=5, warmup=1)
+        scores[label] = score
+        rows.append(f"{label}: K1 z max|err| {err:.4g}, {k1_ms:.4f} ms a launch; head with kernels vs plain "
+                    f"versions max|d| {d.max().item():.3g} (mean|score| {mean:.4g}), launches {launches} a call, "
+                    f"{head_ms:.4f} ms a call")
+        del ref, d
+    d = (scores["gram"] - scores["img_stats='xla'"]).abs().max().item()
+    scale = scores["img_stats='xla'"].abs().mean().item()
+    assert d < 2e-2 * scale, (d, scale)
+    print(f"[23] (a) fused_head_tail options at B={B} h={h} w={w} Cin={C} Cout={cout}, bf16, exact ring: "
+          + "; ".join(rows) + f"; gram against xla max|d| {d:.3g} (limit 2e-2 x mean|score| {scale:.4g})")
+
+
+def slice_n_maps(torch, ex, im_u8):
+    """The banded detector (packed top-k) and the banded quad and pair
+    samplers on the unsharded program's own maps of the frame, split into
+    2 and 4 bands on cuda:0, against the unsharded detector and samplers:
+    the slate and valid_count bit for bit, pair bit for bit, quad (the
+    corner formula against F.grid_sample's arithmetic) within phase 18's
+    descriptor limit, 1e-4."""
+    from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
+    from posfeat_tpu_torch.ops.detect import generate_kpts_single
+    from posfeat_tpu_torch.ops.grid_sample import sample_feat_by_coord
+    from posfeat_tpu_torch.parallel import detect, sample_feat_by_coord as banded_sample, spatial_mesh
+    from posfeat_tpu_torch.parallel.banded_ops import split_rows
+
+    dev = im_u8.device
+    mean, std = torch.as_tensor(IMAGENET_MEAN, device=dev), torch.as_tensor(IMAGENET_STD, device=dev)
+    with torch.inference_mode():
+        o = ex.model.extract((im_u8.float() / 255.0 - mean) / std)
+        kp, fmap = o["local_point"], o["local_map"]
+        want = generate_kpts_single(kp, topk="approx", **AACHEN_DET)
+        feats = {impl: sample_feat_by_coord(fmap, want[0], True, impl) for impl in ("quad", "pair")}
+        out = []
+        for bands in (2, 4):
+            starts = spatial_mesh([dev] * bands).plan(kp.shape[1])
+            got = detect(split_rows(kp, [dev] * bands, starts), topk="approx", **AACHEN_DET)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), bands
+            fb = split_rows(fmap, [dev] * bands, [a // 4 for a in starts])
+            d = {}
+            for impl, ref in feats.items():
+                f = banded_sample(fb, want[0], True, impl)
+                d[impl] = (f - ref).abs().max().item()
+                if impl == "pair":
+                    assert torch.equal(f, ref), bands
+                else:  # the corner formula against F.grid_sample's arithmetic: phase 18's descriptor limit
+                    assert d[impl] <= 1e-4, (bands, d[impl])
+            out.append(f"{bands} bands: slate and valid {int(want[2][0])} bit for bit, descriptors max|d| quad "
+                       f"{d['quad']:.3g}, pair {d['pair']:.3g}")
+    return "; ".join(out)
+
+
+def slice_n_bands(torch, rng):
+    """(b) Phase 18's 2048x3072 frame, flagship model, Aachen detector,
+    bf16, through the Extractor's programs with the card's default gates
+    (lite: approx top-k, quad sampling; the 'phase' head in both
+    programs): unsharded and over 2 and 4 bands on cuda:0, then
+    ``fast_gates: {sample_impl: pair}`` over 2 bands against its unsharded
+    run. The banded detector and the pair sampler on the unsharded maps
+    are the unsharded ones bit for bit, valid_count equal
+    (``slice_n_maps``). The whole banded program's maps round differently
+    (the head's instance-norm sums add in another order, and cuDNN's TF32
+    algorithm for the decoder's iconv2 depends on the map's height), so
+    each banded slate is held to its unsharded one with phase 18's limits
+    (unmatched within 1e-3, valid within 1e-3 of it) and its Δvalid is
+    printed; the lite and exact
+    2-band slates hold the same valid_count, and the share of the lite
+    one that differs from the exact gates' (phase 18's program) is
+    printed with no limit; ms/image and peak memory of each run; the lite
+    2-band Extractor run end to end writes its program's slate and
+    records its gates."""
+    frame = _frame(rng, SLICE_K_H, SLICE_K_W)
+    im_u8 = torch.from_numpy(frame)[None].cuda()
+    card = torch.device("cuda", 0)
+    shape = frame.shape[:2]
+    arms = {"lite": {}, "pair": {"fast_gates": {"sample_impl": "pair"}}, "exact": {"fast_mode": False}}
+    slates, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm, bands_list in (("lite", (2, 4)), ("pair", (2,)), ("exact", (2,))):
+            ref = None
+            for bands in bands_list:
+                ex = _banded_extractor(torch, tmp, f"n_{arm}_{bands}", bands, arms[arm])
+                gates = ex.config["fast_gates_banded"]
+                if ref is None and arm != "exact":
+                    ref, ms_ref, peak_ref = _timed_slate(torch, ex._learned_fn(shape, "detector_config"), im_u8,
+                                                         [card])
+                    lines.append(f"{arm} unsharded: {ms_ref:.4f} ms/image, peak {peak_ref[0] / 2**30:.2f} GiB, "
+                                 f"valid {ref[3]}, slate {len(ref[0])}; gates {ex.gates}")
+                if arm == "lite" and bands == 2:
+                    lines.append(f"lite detector and samplers on the unsharded maps: {slice_n_maps(torch, ex, im_u8)}")
+                assert ex._use_spatial(shape)
+                got, ms, peaks = _timed_slate(torch, ex._spatial_fn(shape, "detector_config"), im_u8, [card])
+                slates[(arm, bands)] = got
+                cmp = (f"{slice_k_compare(got, ref, False)}, Δvalid {got[3] - ref[3]}; " if ref is not None
+                       else f"valid {got[3]}; ")
+                lines.append(f"{arm} {bands} bands on cuda:0: {ms:.4f} ms/image"
+                             + (f" ({ms / ms_ref:.3f}x unsharded)" if ref is not None else "")
+                             + f", peak {peaks[0] / 2**30:.2f} GiB; {cmp}fast_gates_banded {gates}")
+                if arm == "lite" and bands == 2:
+                    assert gates == {"head_ring": None, "head_im2col": None, "topk": "approx", "sample_impl": "quad"}
+                    ex.dataset = [_frame_item(frame, "n/frame.png")]
+                    ex.extract()
+                    f = np.load(f"{ex.desc_root}/n/frame.png.npz")
+                    assert np.array_equal(f["keypoints"], got[0]) and np.array_equal(f["scores"][:, 0], got[1])
+                    assert np.array_equal(f["descriptors"], got[2])
+                    lines.append(f"lite Extractor run over 2 bands: its npz ({len(f['keypoints'])} keypoints) "
+                                 f"equal to its program's slate")
+                del ex
+                torch.cuda.empty_cache()
+    lite, exact = slates[("lite", 2)], slates[("exact", 2)]
+    differs = _pair_slates(lite, exact)[0]
+    for line in lines:
+        print(f"[23] (b) {line}")
+    print(f"[23] (b) the lite 2-band slate against the exact gates' 2-band slate (phase 18's program): valid "
+          f"{lite[3]} / {exact[3]}, {differs:.6f} of it unpaired (no limit)")
+    assert lite[3] == exact[3], (lite[3], exact[3])
+
+
+def phase_slice_n(torch, fh, rng, smi):
+    """Phase 23: slice N, the fused head's options and the fast gates on
+    the banded program."""
+    t_phase = time.perf_counter()
+    slice_n_kernels(torch, fh, rng)
+    slice_n_bands(torch, rng)
+    seconds = time.perf_counter() - t_phase
+    print(f"[23] slice N: {seconds:.1f} s (budget {SLICE_N_BUDGET_S:g} s); {smi}")
+    assert seconds <= SLICE_N_BUDGET_S, seconds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3159,6 +3377,7 @@ def main() -> int:
         phase_slice_k(torch, fh, rng, smi)
         phase_slice_l(torch, fh, rng, smi, s_step_main)
         phase_slice_m(torch, fh, rng, smi, probe_state, ims_main)
+        phase_slice_n(torch, fh, rng, smi)
     finally:
         shutil.rmtree(probe_state["work"], ignore_errors=True)
     records += v1 + reduction + slice_h

@@ -15,7 +15,8 @@ scores [n,1], descriptors [n,C])``, float32 (extractor.py:267-271);
 ``save_h5`` adds the per-sequence ``keypoints.h5``, ``descriptors.h5``,
 ``scores.h5``, ``scales.h5`` and an hloc-style ``feat.h5`` with
 ``image_size`` under ``desc_root + "h5"`` (needs ``h5py``; without it
-the extractor raises ImportError before any work), and ``output_img``
+the extractor raises ImportError before any work; shards append to them
+under one lock, below), and ``output_img``
 dumps each image's score map and keypoints as JPEGs under ``image/``.
 ``use_sift`` is the SIFT passthrough: OpenCV SIFT keypoints found on the
 host, descriptors sampled at them on the device, unit scores, one image
@@ -33,7 +34,12 @@ image list between processes that share one ``output_root``: each writes
 its own images' files and ``image/name_list.shard<i>.txt``, every shard
 writes ``config.yaml`` and appends to ``logging_file.txt`` as the JAX
 extractor does, and the ``FileExistsError`` check applies to
-single-shard runs only. ``spatial_shard`` (``auto``, ``True`` or a device
+single-shard runs only. With ``save_h5`` each process holds an exclusive
+``fcntl.flock`` on ``<h5 root>/.lock`` for one image's appends (its four
+per-sequence files and its ``feat.h5`` group), so the shards' appends
+take turns where the JAX extractor's collide in HDF5's own file lock;
+the files end up holding every shard's images under the names one
+process writes. ``spatial_shard`` (``auto``, ``True`` or a device
 count) resolves its device count as JAX does (the visible cards; 1 on the
 CPU). On one device every image runs unsharded, as in JAX. Over more,
 images above ``spatial_threshold_px`` run one at a time through the
@@ -56,9 +62,10 @@ POSFEAT_SAMPLE_IMPL. bf16 extraction on the card takes the "lite" set
 key given in ``fast_gates`` wins either way, as an explicitly set knob
 does. The gates are this instance's state: the resolved set goes into
 the run's ``config.yaml`` (``fast_gates``, and ``fast_gates_banded`` for
-the banded program, which keeps its exact top-k and corner sampling and
-whose head is "phase") and into the logging file, and nothing else in
-the process sees it. ``model_config.backbone_config``'s ``desc_tail``,
+the banded program, which takes the same ``topk`` and ``sample_impl``
+and whose head is "phase", so that the head gates do not apply there)
+and into the logging file, and nothing else in the process sees it.
+``model_config.backbone_config``'s ``desc_tail``,
 ``decoder_accum`` and ``desc_f32`` change no parameter: where an
 extract config gives them, they win over the checkpoint's config, as
 the JAX package's environment knobs do.
@@ -66,7 +73,9 @@ the JAX package's environment knobs do.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import fcntl
 import logging
 import os
 import time
@@ -130,6 +139,18 @@ def spatial_devices(sp, device: torch.device) -> int:
     return n_dev if sp in (True, "auto") else min(int(sp), n_dev)
 
 
+H5_LOCK = ".lock"  # the h5 root's lock file, held for one image's appends
+
+
+@contextlib.contextmanager
+def _locked(path: str):
+    """An exclusive ``fcntl.flock`` on ``path`` (made where missing) for
+    the block; another process's lock on it waits for this one."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def _make_logger(name: str, logfile: str) -> logging.Logger:
     logger = logging.getLogger(f"{name}:{logfile}")
     logger.setLevel(logging.INFO)
@@ -180,9 +201,6 @@ class Extractor:
         self.shard_index = int(dcfg.get("shard_index", 0))
         if not 0 <= self.shard_index < self.num_shards:
             raise ValueError(f"shard_index {self.shard_index} is not in [0, num_shards = {self.num_shards})")
-        if self.save_h5 and self.num_shards > 1:
-            raise ValueError("save_h5 with num_shards > 1: the shards' processes would append to one "
-                             "feat.h5 at once; extract the h5 files in one process")
         # spatial_threshold_px: the pixel count above which the JAX extractor
         # shards an image over its spatial mesh (default 4M, about 2048x2048)
         self.spatial_threshold = int(self.config.get("spatial_threshold_px", 4 * 1024 * 1024))
@@ -235,8 +253,9 @@ class Extractor:
             lh_cfg["head_ring"] = self.gates["head_ring"]
             lh_cfg["head_im2col"] = self.gates["head_im2col"]
         if self._spatial_mesh is not None:
-            self.config["fast_gates_banded"] = {"head_ring": None, "head_im2col": None, "topk": "exact",
-                                                "sample_impl": "corner"}
+            # the banded head is "phase" (posfeat_tpu/parallel/spatial.py:18-21): no head gate applies
+            self.config["fast_gates_banded"] = {"head_ring": None, "head_im2col": None, "topk": self.gates["topk"],
+                                                "sample_impl": self.gates["sample_impl"]}
 
         # fail fast on an existing run dir (reference extractor.py:133-140)
         # unless resume: True
@@ -261,9 +280,9 @@ class Extractor:
             self.logger.info("spatial_shard: one device, so every image runs unsharded")
         elif self._spatial_mesh is not None:
             self.logger.info(f"spatial sharding enabled: {n_spatial}-device H-axis bands for images "
-                             f"> {self.spatial_threshold} px; the banded program takes the exact top-k and "
-                             f"corner sampling, not the fast gates' {self.gates['topk']!r} and "
-                             f"{self.gates['sample_impl']!r} (config.yaml: fast_gates_banded)")
+                             f"> {self.spatial_threshold} px; the banded program takes the {self.gates['topk']!r} "
+                             f"top-k and {self.gates['sample_impl']!r} sampling, and its 'phase' head no head "
+                             f"gate (config.yaml: fast_gates_banded)")
         if hr and isinstance(lh_cfg, dict):
             self.logger.info(f"ResUNetHR: the head's trunk is at H/2, so it takes the reference dataflow "
                              f"(fused_upsample {lh_cfg.get('fused_upsample', True)!r}); K1/K2 are not launched")
@@ -353,6 +372,8 @@ class Extractor:
             forward = self._spatial_forward
             H, W = shape
             det_cfg = {k: v for k, v in self.config[det_cfg_key].items() if k != "scale"}
+            det_cfg = {"topk": self.gates["topk"], **det_cfg}
+            impl = self.gates["sample_impl"]
             cos = self.config["loss_distance"] == "cos"
             dev0 = self._spatial_mesh.devices[0]
             mean = torch.as_tensor(IMAGENET_MEAN, device=dev0)
@@ -365,7 +386,7 @@ class Extractor:
                 outputs = forward(im)
                 coord_n, score, valid = banded_detect.detect(outputs["local_point"], self.detector_name,
                                                              **det_cfg)
-                feat = banded_detect.sample_feat_by_coord(outputs["local_map"], coord_n, cos)
+                feat = banded_detect.sample_feat_by_coord(outputs["local_map"], coord_n, cos, impl)
                 out = (denormalize_coords(coord_n, H, W), score, feat, valid)
                 return out + (outputs["local_point"].concat()[..., 0].float(),) if want_map else out
 
@@ -419,17 +440,19 @@ class Extractor:
             seq_dir = os.path.join(h5_root, "/".join(h5_name.split("/")[:-1]))
             base = h5_name.split("/")[-1]
             os.makedirs(seq_dir, exist_ok=True)
-            for fname, data in (("keypoints", kpt), ("descriptors", desc), ("scores", scores),
-                                ("scales", np.ones_like(scores))):
-                with h5py.File(os.path.join(seq_dir, f"{fname}.h5"), "a") as f:
-                    f[base] = data
             h, w = inputs["im1_ori"].shape[:2]
-            with h5py.File(os.path.join(h5_root, "feat.h5"), "a") as f:
-                grp = f.create_group(name)
-                grp.create_dataset("keypoints", data=kpt)
-                grp.create_dataset("scores", data=scores)
-                grp.create_dataset("descriptors", data=desc)
-                grp.create_dataset("image_size", data=np.array([w, h]))
+            # the shards' processes append to the same files: one at a time
+            with _locked(os.path.join(h5_root, H5_LOCK)):
+                for fname, data in (("keypoints", kpt), ("descriptors", desc), ("scores", scores),
+                                    ("scales", np.ones_like(scores))):
+                    with h5py.File(os.path.join(seq_dir, f"{fname}.h5"), "a") as f:
+                        f[base] = data
+                with h5py.File(os.path.join(h5_root, "feat.h5"), "a") as f:
+                    grp = f.create_group(name)
+                    grp.create_dataset("keypoints", data=kpt)
+                    grp.create_dataset("scores", data=scores)
+                    grp.create_dataset("descriptors", data=desc)
+                    grp.create_dataset("image_size", data=np.array([w, h]))
 
     def save_imgs(self, inputs: Dict, processed: Dict) -> None:
         """``<base>_score_map.jpg`` (the score map over its ``local_thr``

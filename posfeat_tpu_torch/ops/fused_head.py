@@ -37,8 +37,8 @@ raises; on a CPU tensor it runs the plain PyTorch version beside it.
 ``launches`` counts the bf16 instance's launches, ``launches_f32`` the
 f32 one's.
 Everything else here is plain PyTorch: the composite fold, the convimg
-IN statistics (patch gram form), v1's full-res conv, the border-ring
-corrections, IN statistics and the final activation.
+IN statistics (patch gram form, or img_y's own), v1's full-res conv, the
+border-ring corrections, IN statistics and the final activation.
 """
 
 from __future__ import annotations
@@ -497,10 +497,24 @@ def _img_ring_deltas(s, y, mu, a, K5, k2i, b_z):
     return G_top, G_bot, G_left, G_right
 
 
+IMG_STATS = ("gram", "xla")  # fused_head_tail's convimg IN statistics
+
+
+def _in_stats(y: torch.Tensor, eps: float):
+    """f32 instance-norm statistics of y [B, H, W, C]: (mean, rsqrt(var +
+    eps)), var = E[y²] − mean² clamped at 0, sums over y widened to f32."""
+    y = y.float()
+    n = y.shape[1] * y.shape[2]
+    mu = y.sum(dim=(1, 2)) / n
+    var = torch.clamp((y * y).sum(dim=(1, 2)) / n - mu * mu, min=0.0)
+    return mu, torch.rsqrt(var + eps)
+
+
 def fused_head_tail(
     trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3, prelu_a,
     act: str = "Softplus", k: int = 4, eps: float = 1e-5,
     debug_intermediates: bool = False, mode: str = "v3", ring: bool = True, im2col: bool = False,
+    img_stats: str = "gram",
 ):
     """Reference-exact head tail -> full-res score [B, k·h, k·w, out]
     (posfeat_tpu/ops/pallas/fused_head.py:413-1155).
@@ -532,23 +546,38 @@ def fused_head_tail(
     K1's 9-tap wgmma K-loop already accumulates them into one f32
     accumulator per output, and Cin = 192 needs no padding here, so the
     option runs K1 as it is (and is accepted in v1, where JAX ignores it).
+
+    The JAX head's ``triple`` (fused_head.py:432, :460-474), a row-tripled
+    trunk layout for the MXU, has no counterpart here: K1's 9-tap K-loop
+    already sums all 9·Cin products of an output in one f32 accumulator,
+    which is what JAX's ``triple=True`` head computes.
+
+    ``img_stats`` is where v3 takes the convimg IN statistics from
+    (fused_head.py:433, :588-631): "gram", the patch gram matrix, or
+    "xla", img_y itself (f32 sums over img_y as given, as JAX's
+    ``_img_branch`` reduces y_img), which then must be given. v1 always
+    normalises img_y by its own statistics.
     """
     if mode not in ("v3", "v1"):
         raise ValueError(f"mode must be 'v3' or 'v1', got {mode!r}")
-    if img_y is None and (ring or mode == "v1"):
-        raise ValueError("img_y is read on the border ring and in v1; only v3 without the ring goes without it")
+    if img_stats not in IMG_STATS:
+        raise ValueError(f"img_stats must be one of {IMG_STATS}, got {img_stats!r}")
+    if img_y is None and (ring or mode == "v1" or img_stats == "xla"):
+        raise ValueError("img_y is read on the border ring, in v1 and for img_stats='xla'; only v3 without the "
+                         "ring and with the gram statistics goes without it")
     return _fused_head_tail(
         conv_phase if mode == "v3" else conv_phase_img, head_tail, trunk, img_s, img_y,
         k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3, prelu_a, act, k, eps,
-        debug_intermediates, mode, ring,
+        debug_intermediates, mode, ring, img_stats,
     )
 
 
-def _v3_image_operands(img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt):
+def _v3_image_operands(img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt, img_y=None):
     """v3's composite image branch (fused_head.py:571-659): the stride-4
     patches P [B, h, w, 192], the per-image weights Wm [B, 192, kk·Cout]
     and bias b2b [B, kk·Cout] of K1, and (mu32, a32, K5, b_z) for the
-    ring deltas."""
+    ring deltas. The convimg IN statistics come from the patch gram
+    matrix, or from ``img_y`` where it is given (``img_stats="xla"``)."""
     B = img_s.shape[0]
     cy, cout = k2_img.shape[2], k2_img.shape[3]
     kk = k * k
@@ -558,28 +587,31 @@ def _v3_image_operands(img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt):
 
     # stride-4 overlapping 8×8×3 patches of the 2-px zero pad of s, (c, oy, ox)
     P = _patches(img_s.to(dt), 2 * k, stride=k, pad=2)  # [B, h, w, 192]
-    # convimg IN statistics from the patch gram matrix (fused_head.py
-    # :588-631): with Wy embedding the 3×3 convimg kernel per phase, y in
-    # phase layout = P @ Wy + b, so
-    #   s1 = (1ᵀP)Wy + N·b,  s2 = diag(WyᵀGWy) + 2b⊙(1ᵀP)Wy + N·b²
-    Wy = torch.zeros((3, 8, 8, kk, cy), dtype=torch.float32, device=dev)
-    for py in range(k):
-        for px in range(k):
-            for dy in range(3):
-                for dx in range(3):
-                    Wy[:, py + dy + 1, px + dx + 1, py * k + px, :] = C1[dy, dx]
-    Wy = Wy.reshape(192, kk * cy)
-    # bf16 products are exact in f32; sums in f32, as the JAX MXU does
-    Pf = P.reshape(B, h * w, 192).float()
-    G = Pf.transpose(1, 2) @ Pf  # [B, 192, 192]
-    lin = Pf.sum(dim=1) @ Wy
-    quad = ((G @ Wy) * Wy).sum(dim=1)
-    n_full = kk * h * w
-    b1f = b1_img.float().repeat(kk)[None, :]
-    s1 = (lin + (n_full / kk) * b1f).reshape(B, kk, cy).sum(dim=1)
-    s2 = (quad + 2.0 * b1f * lin + (n_full / kk) * b1f * b1f).reshape(B, kk, cy).sum(dim=1)
-    mu32 = s1 / n_full
-    a32 = torch.rsqrt(torch.clamp(s2 / n_full - mu32 * mu32, min=0.0) + eps)
+    if img_y is not None:
+        mu32, a32 = _in_stats(img_y, eps)
+    else:
+        # convimg IN statistics from the patch gram matrix (fused_head.py
+        # :588-631): with Wy embedding the 3×3 convimg kernel per phase, y in
+        # phase layout = P @ Wy + b, so
+        #   s1 = (1ᵀP)Wy + N·b,  s2 = diag(WyᵀGWy) + 2b⊙(1ᵀP)Wy + N·b²
+        Wy = torch.zeros((3, 8, 8, kk, cy), dtype=torch.float32, device=dev)
+        for py in range(k):
+            for px in range(k):
+                for dy in range(3):
+                    for dx in range(3):
+                        Wy[:, py + dy + 1, px + dx + 1, py * k + px, :] = C1[dy, dx]
+        Wy = Wy.reshape(192, kk * cy)
+        # bf16 products are exact in f32; sums in f32, as the JAX MXU does
+        Pf = P.reshape(B, h * w, 192).float()
+        G = Pf.transpose(1, 2) @ Pf  # [B, 192, 192]
+        lin = Pf.sum(dim=1) @ Wy
+        quad = ((G @ Wy) * Wy).sum(dim=1)
+        n_full = kk * h * w
+        b1f = b1_img.float().repeat(kk)[None, :]
+        s1 = (lin + (n_full / kk) * b1f).reshape(B, kk, cy).sum(dim=1)
+        s2 = (quad + 2.0 * b1f * lin + (n_full / kk) * b1f * b1f).reshape(B, kk, cy).sum(dim=1)
+        mu32 = s1 / n_full
+        a32 = torch.rsqrt(torch.clamp(s2 / n_full - mu32 * mu32, min=0.0) + eps)
 
     # composite 5×5 image-branch kernel: C2 ∘ IN ∘ C1 = K5 * s + b_z
     A1 = C1[None] * a32[:, None, None, None, :]  # [B, 3, 3, 3, Cy]
@@ -604,10 +636,7 @@ def _v1_z_img(img_y, k2_img, eps, dt):
     with μ and a = rsqrt(var + eps) img_y's f32 IN statistics, through
     cuDNN on the card. Returns z_img [B, 4h, 4w, Cout], contiguous."""
     y = img_y.float()
-    n = y.shape[1] * y.shape[2]
-    mu = y.sum(dim=(1, 2)) / n
-    var = torch.clamp((y * y).sum(dim=(1, 2)) / n - mu * mu, min=0.0)
-    a = torch.rsqrt(var + eps)
+    mu, a = _in_stats(y, eps)
     img_feat = ((y - mu[:, None, None, :]) * a[:, None, None, :]).to(dt)
     z_img = F.conv2d(img_feat.permute(0, 3, 1, 2), k2_img.to(dt).permute(3, 2, 0, 1), padding=1)
     return z_img.permute(0, 2, 3, 1).to(dt).contiguous()
@@ -616,7 +645,7 @@ def _v1_z_img(img_y, k2_img, eps, dt):
 def _fused_head_tail(
     conv_fn, tail_fn, trunk, img_s, img_y, k1_img, b1_img, k2_trunk, k2_img, b2, w3, b3,
     prelu_a, act: str = "Softplus", k: int = 4, eps: float = 1e-5,
-    debug_intermediates: bool = False, mode: str = "v3", ring: bool = True,
+    debug_intermediates: bool = False, mode: str = "v3", ring: bool = True, img_stats: str = "gram",
 ):
     """``fused_head_tail`` with its kernels given as ``conv_fn`` and
     ``tail_fn``: the wrappers, or their plain versions to hold a card's
@@ -643,7 +672,7 @@ def _fused_head_tail(
 
     if mode == "v3":
         P, Wm, b2b, mu32, a32, K5, b_z = _v3_image_operands(
-            img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt
+            img_s, k1_img, b1_img, k2_img, b2, h, w, k, eps, dt, img_y if img_stats == "xla" else None
         )
         z, ssum, ssq = conv_fn(tp, kph, P, Wm, b2b)
     elif mode == "v1":

@@ -16,11 +16,25 @@ scores in band order, which breaks ties by the global block index as the
 unsharded sort does. The slate's coordinates and scores are read on the
 band that owns each point's row.
 
+``topk="approx"`` (the JAX package's POSFEAT_TOPK=approx) with NMS at a
+radius of 1 or more takes the unsharded packed top-k: each band packs
+its blocks' argmax into the 4 low bits of their f32 maxima and ranks the
+packed words; the merge sorts the words; the selected words give the
+inner offset and, with those bits cleared, the score. The owning band
+then gathers the refined grids only. Elsewhere "approx" selects as
+"exact", as the unsharded detector does.
+
 The other configurations (``generate_kpts_single_noavg``,
 ``generate_kpts_regular_grid_single``, a stride above 1, Gumbel
 selection) run the unsharded port detector on the score map gathered on
 the first device: one channel, 1/128 of the 128-channel local map that
-banding spreads, so their slate is the unsharded one by construction.
+banding spreads, so their slate is the unsharded one by construction;
+they take ``topk`` as their unsharded forms do.
+
+``sample_feat_by_coord`` takes the unsharded ``impl``: "corner" and
+"quad" (which sums the same four weighted corners in the same order)
+the corner formula, "pair" ``_pair_lerp``'s arithmetic, each point on
+the band that owns its upper tap row.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch.nn.functional as F
 from ..ops.detect import (
     DETECTORS,
     REFINERS,
+    _check_topk,
     _offset_grids,
     _pad_slate,
     _quad5_offsets,
@@ -40,7 +55,7 @@ from ..ops.detect import (
     softargmax3_offsets,
     top_k,
 )
-from ..ops.grid_sample import l2_normalize
+from ..ops.grid_sample import SAMPLE_IMPLS, l2_normalize
 from ..ops.nms import nms_window
 from ..ops.pooling import avg_pool2d, max_pool2d
 from .banded_ops import Bands, global_max, global_sum
@@ -103,24 +118,26 @@ def _grids(kp: Bands, i: int, q0: int, q1: int, refine: str, temperature: float)
 
 
 def detect(kp_map: Bands, detector: str = "generate_kpts_single", *, generator: torch.Generator = None,
-           noise: torch.Tensor = None, **cfg):
+           noise: torch.Tensor = None, topk: str = "exact", **cfg):
     """``DETECTORS[detector]`` on bands of the score map [B, rows, W, 1]
     -> (kps_n [B, num_pts, 2], scores [B, num_pts, 1], valid_count [B]
     int32) on the first band's device. ``generator`` (or, for
     ``generate_kpts_single``, ``noise``) feeds ``stable: False`` as the
-    unsharded detector takes them."""
+    unsharded detector takes them; ``topk`` is "exact" or "approx", as
+    the unsharded detectors take it."""
+    _check_topk(topk)
     check_detector(detector, cfg, generator is not None or noise is not None)
     if detector == "generate_kpts_single" and cfg.get("stable", True) and cfg.get("stride", 1) == 1:
-        return _single(kp_map, **cfg)
+        return _single(kp_map, topk=topk, **cfg)
     extra = {"generator": generator} if generator is not None else {}
     if noise is not None:
         extra["noise"] = noise
-    return DETECTORS[detector](kp_map.concat(), **cfg, **extra)
+    return DETECTORS[detector](kp_map.concat(), topk=topk, **cfg, **extra)
 
 
 def _single(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=False, thr_mod: str = "mean",
             stable: bool = True, temperature: float = 1.0, stride: int = 1, refine: str = "avg3",
-            refine_temperature: float = 20.0):
+            refine_temperature: float = 20.0, topk: str = "exact"):
     """``generate_kpts_single`` with stable top-k at stride 1 on the bands
     (``temperature`` belongs to the Gumbel selection and is not read)."""
     H, W = kp_map.total, kp_map.parts[0].shape[2]
@@ -144,6 +161,9 @@ def _single(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=F
 
     fold = min(r + 1, 4) if (use_nms is True and r >= 1) else 0
     wb = -(-w2 // fold) if fold > 1 else 0  # blocks per block row
+    # the packed top-k: the block's argmax (< 16) in the 4 low bits of its
+    # f32 maximum, so the selected words carry the offset and the score
+    packed = fold > 1 and topk == "approx"
     cand, counts = [], []
     for i, (q0, q1) in enumerate(own):
         if fold > 1:
@@ -181,23 +201,33 @@ def _single(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=F
             nbr = (be - bs0) // fold
             blocks = mm.reshape(B, nbr, fold, wb, fold).permute(0, 1, 3, 2, 4).reshape(B, nbr * wb, fold * fold)
             bmax, barg = blocks.max(dim=-1)
-            vals, li = top_k(bmax, min(num_pts, bmax.shape[1]))
-            cand.append((vals, li + (bs0 // fold) * wb, torch.gather(barg, 1, li)))
+            if packed:
+                words = ((bmax.float().view(torch.int32) & ~0xF) | barg.to(torch.int32)).view(torch.float32)
+                vals, li = top_k(words, min(num_pts, words.shape[1]))
+                cand.append((vals, li + (bs0 // fold) * wb, None))
+            else:
+                vals, li = top_k(bmax, min(num_pts, bmax.shape[1]))
+                cand.append((vals, li + (bs0 // fold) * wb, torch.gather(barg, 1, li)))
         else:
             flat = masked[:, : q1 - q0].reshape(B, -1)
             vals, li = top_k(flat, min(num_pts, flat.shape[1]))
             cand.append((vals, li + q0 * w2, None))
     valid_count = global_sum(counts)
 
-    # merge: a stable sort of the scores in band order puts ties in global index order
+    # merge: a stable sort of the scores (or packed words) in band order
+    # puts ties in global index order
     vals = torch.cat([c[0].to(dev0) for c in cand], dim=1)
     gidx = torch.cat([c[1].to(dev0) for c in cand], dim=1)
-    order = torch.sort(vals, dim=1, descending=True, stable=True)[1]
+    vals, order = torch.sort(vals, dim=1, descending=True, stable=True)
     if fold > 1:
         k = min(num_pts, (-(-h2 // fold)) * wb)
         order = order[:, :k]
         bidx = torch.gather(gidx, 1, order)
-        inner = torch.gather(torch.cat([c[2].to(dev0) for c in cand], dim=1), 1, order)
+        if packed:
+            words = vals[:, :k].view(torch.int32)
+            inner = words & 0xF
+        else:
+            inner = torch.gather(torch.cat([c[2].to(dev0) for c in cand], dim=1), 1, order)
         yy = (bidx // wb) * fold + inner // fold
         xx = (bidx % wb) * fold + inner % fold
         # zero-score pad blocks may decode past the interior; their slots
@@ -208,38 +238,51 @@ def _single(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=F
         idx = torch.gather(gidx, 1, order[:, :k])
 
     kps = torch.zeros((B, k, 2), dtype=dt, device=dev0)
-    kp_score = torch.zeros((B, k, 1), dtype=dt, device=dev0)
+    # the packed words' scores: their 4 low bits cleared (an NMS winner is
+    # the strict maximum of its 3x3 window, so this is its max-pooled score
+    # except on the interior's edge ring), else the max-pooled map's
+    kp_score = ((words & ~0xF).view(torch.float32).to(dt)[..., None] if packed
+                else torch.zeros((B, k, 1), dtype=dt, device=dev0))
     for i, (q0, q1) in enumerate(own):
         dev = kp_map.parts[i].device
         grids = _grids(kp_map, i, q0, q1, refine, refine_temperature).reshape(B, -1, 2)
-        score_map = max_pool2d(kp_map.gather(i, range(q0, q1 + 2)), 3, 1).reshape(B, -1, 1)
         li = idx.to(dev) - q0 * w2
         sel = ((li >= 0) & (li < (q1 - q0) * w2))[..., None]
         li = li.clamp(0, (q1 - q0) * w2 - 1)[..., None]
         g = torch.gather(grids, 1, li.expand(-1, -1, 2))
-        s = torch.gather(score_map, 1, li)
         kps = torch.where(sel.to(dev0), g.to(dev0), kps)
-        kp_score = torch.where(sel.to(dev0), s.to(dev0), kp_score)
+        if not packed:
+            score_map = max_pool2d(kp_map.gather(i, range(q0, q1 + 2)), 3, 1).reshape(B, -1, 1)
+            s = torch.gather(score_map, 1, li)
+            kp_score = torch.where(sel.to(dev0), s.to(dev0), kp_score)
     kps, kp_score = _pad_slate(num_pts, k, kps, kp_score)
     return kps, kp_score, valid_count
 
 
-def sample_feat_by_coord(x: Bands, coord_n: torch.Tensor, norm: bool = False) -> torch.Tensor:
+def sample_feat_by_coord(x: Bands, coord_n: torch.Tensor, norm: bool = False, impl: str = "corner") -> torch.Tensor:
     """``sample_feat_by_coord`` on bands of the map [B, h, w, C]: each
     point's bilinear taps (align_corners=False, zeros outside the map) at
     global coordinates, read on the band that owns its upper tap row with
     one row below (and above, for the first band's row −1). In f32, then
-    the L2 norm where ``norm``; [B, N, C] on coord_n's device."""
+    the L2 norm where ``norm``; [B, N, C] on coord_n's device. ``impl``:
+    "corner" or "quad" sum the four weighted corners; "pair" lerps each
+    footprint row in x, then in y, as the unsharded "pair" does."""
+    if impl not in SAMPLE_IMPLS:
+        raise ValueError(f"unknown sample_impl {impl!r}; expected one of {SAMPLE_IMPLS}")
     h, w = x.total, x.parts[0].shape[2]
     dev0 = coord_n.device
     c = coord_n.float()
     ix = ((c[..., 0] + 1) * w - 1) / 2
     iy = ((c[..., 1] + 1) * h - 1) / 2
     x0, y0 = torch.floor(ix), torch.floor(iy)
-    nw = (x0 + 1 - ix) * (y0 + 1 - iy)
-    ne = (ix - x0) * (y0 + 1 - iy)
-    sw = (x0 + 1 - ix) * (iy - y0)
-    se = (ix - x0) * (iy - y0)
+    if impl == "pair":
+        wx1, wy1 = ix - x0, iy - y0
+        wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    else:
+        nw = (x0 + 1 - ix) * (y0 + 1 - iy)
+        ne = (ix - x0) * (y0 + 1 - iy)
+        sw = (x0 + 1 - ix) * (iy - y0)
+        se = (ix - x0) * (iy - y0)
     x0l, y0l = x0.long(), y0.long()
     ext = x.halo(1, 1)
     out = None
@@ -250,14 +293,29 @@ def sample_feat_by_coord(x: Bands, coord_n: torch.Tensor, norm: bool = False) ->
         flat = e.float().reshape(B, -1, C)
         yb, xb = y0l.to(dev), x0l.to(dev)
         sel = ((yb >= a) | (i == 0)) & ((yb < b) | (i == n_bands - 1))
-        acc = None
-        for dy, dx, wt in ((0, 0, nw), (0, 1, ne), (1, 0, sw), (1, 1, se)):
-            yy, xx = yb + dy, xb + dx
-            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-            li = (yy - (a - 1)).clamp(0, rows - 1) * w + xx.clamp(0, w - 1)
-            v = torch.gather(flat, 1, li[..., None].expand(-1, -1, C))
-            v = torch.where(ok[..., None], v, torch.zeros_like(v)) * wt.to(dev)[..., None]
-            acc = v if acc is None else acc + v
+
+        def tap(yy, xx):
+            # the unsharded gather's clamped pixel, on this band's rows
+            li = (yy.clamp(0, h - 1) - (a - 1)).clamp(0, rows - 1) * w + xx.clamp(0, w - 1)
+            return torch.gather(flat, 1, li[..., None].expand(-1, -1, C))
+
+        if impl == "pair":
+            # ops/grid_sample.py _pair_lerp: a corner outside the map weighs 0
+            def row(yy):
+                vy = (yy >= 0) & (yy < h)
+                w0 = torch.where(vy & (xb >= 0) & (xb < w), wx0.to(dev), 0.0)[..., None]
+                w1 = torch.where(vy & (xb + 1 >= 0) & (xb + 1 < w), wx1.to(dev), 0.0)[..., None]
+                return tap(yy, xb) * w0 + tap(yy, xb + 1) * w1
+
+            acc = row(yb) * wy0.to(dev)[..., None] + row(yb + 1) * wy1.to(dev)[..., None]
+        else:
+            acc = None
+            for dy, dx, wt in ((0, 0, nw), (0, 1, ne), (1, 0, sw), (1, 1, se)):
+                yy, xx = yb + dy, xb + dx
+                ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                v = tap(yy, xx)
+                v = torch.where(ok[..., None], v, torch.zeros_like(v)) * wt.to(dev)[..., None]
+                acc = v if acc is None else acc + v
         acc = acc.to(dev0)
         out = acc if out is None else torch.where(sel.to(dev0)[..., None], acc, out)
     # the first band's result stands where no later band owns the point

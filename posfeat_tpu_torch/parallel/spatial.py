@@ -23,7 +23,9 @@ Extraction runs the model in eval mode, so the banded program computes
 the unsharded function, and differs from the unsharded run by rounding
 only: the instance-norm sums add in another order, and so do the convs
 where the library picks its algorithm by the map's height (oneDNN on the
-CPU; cuDNN's give the unsharded elements on the card). The fused head
+CPU; on the card cuDNN's TF32 convs, which the bf16 decoder's
+f32-accumulated convs take, while its other convs give the unsharded
+elements; tools/spatial_rounding_torch.py shows each). The fused head
 (``fused_upsample: "pallas"``) is a single-device kernel and is refused
 here: the Extractor swaps it for the ``"phase"`` dataflow, as JAX does.
 A configuration the banded program does not run raises before any work;

@@ -32,7 +32,6 @@ the wait for the queue).
 
 from __future__ import annotations
 
-import os
 import queue
 import time
 from typing import Dict, List, Sequence
@@ -100,12 +99,13 @@ def kernel_launches() -> Dict[str, int]:
 
 
 def _rank(rank: int, world: int, device: str, backend: str, port: int, config: Dict, ckpt_root: str,
-          overwrite: bool, q, records) -> None:
+          overwrite: bool, q, records, threads: int) -> None:
     """One spawned rank: a ``multihost:`` Trainer fed from ``q``; its
-    record (seconds, kernel launches) goes to ``records``."""
+    record (seconds, kernel launches) goes to ``records``. On the CPU it
+    takes its share of ``threads``, the launcher's torch thread count."""
     t0 = time.perf_counter()
-    if torch.device(device).type == "cpu":  # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(max(1, threads // world))
     mh = distributed.local_multihost(rank, world, device, port, backend)
     try:
         Trainer(config, ckpt_root=ckpt_root, overwrite=overwrite, device=device, batches=_queued_batches(q),
@@ -155,7 +155,7 @@ def launch(config, devices: Sequence = None, ckpt_root: str = "./ckpts", overwri
     records = ctx.Queue()
     port = distributed.free_port()
     procs = [ctx.Process(target=_rank, args=(r, n, plan["devices"][r], plan["backend"], port, config, ckpt_root,
-                                             overwrite, queues[r], records))
+                                             overwrite, queues[r], records, torch.get_num_threads()))
              for r in range(n)]
     batches = iter(loader)
     try:

@@ -110,26 +110,63 @@ DET_CASES = [
 ]
 
 
-@pytest.mark.parametrize("layout", ["3", "4", "2u"])
-@pytest.mark.parametrize("case", range(len(DET_CASES)))
-def test_banded_detector_and_sampling_match_unsharded(case, layout):
-    """The slate bit for bit and in order, valid_count equal; the
-    descriptors at rtol 1e-5. The map has plateaus (ties) inside a band
-    and across a band edge."""
-    rs = np.random.RandomState(case)
-    H = 16 * sum(LAYOUTS[layout])
+def _tied_map(rs, H, dtype=torch.float32):
+    """A random score map with plateaus (ties) inside a band and across a
+    band edge."""
     kp = torch.from_numpy(rs.rand(2, H, 40, 1).astype(np.float32))
     kp[:, 20:30, 5:9] = 0.5
     kp[:, 14:19] = 0.25
-    cfg = dict(num_pts=300, **DET_CASES[case])
-    want = generate_kpts_single(kp, **cfg)
-    got = banded_detect.detect(_bands(kp, LAYOUTS[layout]), **cfg)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    return kp.to(dtype)
+
+
+def _slates_equal(kp, layout, cfg):
+    """The banded slate against the unsharded one under both top-k modes,
+    bit for bit and in order, valid_count equal; returns the unsharded
+    slates by mode."""
+    want = {}
+    for topk in ("exact", "approx"):
+        want[topk] = generate_kpts_single(kp, topk=topk, **cfg)
+        got = banded_detect.detect(_bands(kp, LAYOUTS[layout]), topk=topk, **cfg)
+        for g, w in zip(got, want[topk]):
+            assert g.dtype == w.dtype and torch.equal(g, w), topk
+    return want
+
+
+@pytest.mark.parametrize("layout", ["3", "4", "2u"])
+@pytest.mark.parametrize("case", range(len(DET_CASES)))
+def test_banded_detector_and_sampling_match_unsharded(case, layout):
+    """The slate bit for bit and in order, valid_count equal, with the
+    exact and the packed ("approx") top-k; the descriptors of the
+    "corner" and "quad" samplers at rtol 1e-5 and the "pair" sampler's
+    bit for bit. The map has plateaus (ties) inside a band and across a
+    band edge."""
+    rs = np.random.RandomState(case)
+    H = 16 * sum(LAYOUTS[layout])
+    want = _slates_equal(_tied_map(rs, H), layout, dict(num_pts=300, **DET_CASES[case]))
     fmap = torch.from_numpy(rs.randn(2, H // 4, 10, 8).astype(np.float32))
-    coords = torch.cat([want[0], torch.from_numpy(rs.uniform(-1.1, 1.1, (2, 50, 2)).astype(np.float32))], 1)
-    np.testing.assert_allclose(banded_detect.sample_feat_by_coord(_bands(fmap, LAYOUTS[layout], 4), coords, True),
-                               sample_feat_by_coord(fmap, coords, True), rtol=1e-5, atol=1e-6)
+    coords = torch.cat([want["approx"][0], want["exact"][0],
+                        torch.from_numpy(rs.uniform(-1.1, 1.1, (2, 50, 2)).astype(np.float32))], 1)
+    bands = _bands(fmap, LAYOUTS[layout], 4)
+    for impl in ("corner", "quad", "pair"):
+        got = banded_detect.sample_feat_by_coord(bands, coords, True, impl)
+        ref = sample_feat_by_coord(fmap, coords, True, impl)
+        if impl == "pair":
+            assert torch.equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6, err_msg=impl)
+
+
+@pytest.mark.parametrize("layout", ["3", "4", "2u"])
+def test_banded_packed_topk_on_a_bf16_map(layout):
+    """A bf16 score map (the packing starts from its f32 value): the
+    banded slate under both top-k modes bit for bit, bf16 scores, at a
+    radius whose blocks straddle the band edges (fold 3 on 16-row
+    bands) and with the last band's zero pad blocks."""
+    rs = np.random.RandomState(7)
+    H = 16 * sum(LAYOUTS[layout])
+    kp = _tied_map(rs, H, torch.bfloat16)
+    want = _slates_equal(kp, layout, dict(num_pts=400, nms_radius=2, use_nms=True, thr=0.3, thr_mod="abs"))
+    assert want["approx"][1].dtype == torch.bfloat16
 
 
 def _variables(config, seed):

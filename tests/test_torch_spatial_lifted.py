@@ -49,7 +49,8 @@ GATHERED = {
 @pytest.mark.parametrize("case", sorted(GATHERED))
 def test_gathered_detectors_match_unsharded(case, layout):
     """The slate bit for bit and in order (NaN where the unsharded stride-2
-    slate pads), valid_count equal; random selection from generators of
+    slate pads), valid_count equal, with the exact and the packed
+    ("approx") top-k passed through; random selection from generators of
     one seed."""
     from posfeat_tpu_torch.ops.detect import DETECTORS
 
@@ -59,13 +60,14 @@ def test_gathered_detectors_match_unsharded(case, layout):
     kp = torch.from_numpy(rs.rand(2, H, 40, 1).astype(np.float32))
     kp[:, 20:30, 5:9] = 0.5
     draws = lambda: {"generator": torch.Generator().manual_seed(5)} if not cfg.get("stable", True) else {}
-    want = DETECTORS[name](kp, **cfg, **draws())
-    got = banded_detect.detect(_bands(kp, LAYOUTS[layout]), name, **cfg, **draws())
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        np.testing.assert_array_equal(g.numpy(), w.numpy())
-    if case == "stride2":
-        assert torch.isnan(want[0]).any()  # the strided grids' NaN gather, kept
+    for topk in ("exact", "approx"):
+        want = DETECTORS[name](kp, topk=topk, **cfg, **draws())
+        got = banded_detect.detect(_bands(kp, LAYOUTS[layout]), name, topk=topk, **cfg, **draws())
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        if case == "stride2":
+            assert torch.isnan(want[0]).any()  # the strided grids' NaN gather, kept
 
 
 def test_d2_zero_depth_cells_match_jax():

@@ -3,8 +3,22 @@ configuration, JAX variables with every parameter and BatchNorm
 statistic drawn from a seed, and the port model carrying them."""
 
 import copy
+import os
 
 import numpy as np
+import torch
+
+# Under pytest-xdist every worker runs its tests beside the others. torch's
+# default of one OpenMP thread per core then puts workers x cores threads on
+# the cores, and their spin-waits stall each other: a port test ran 18x
+# slower beside five copies of itself than alone. Each worker (and each
+# process it spawns, through OMP_NUM_THREADS) takes its share of the cores.
+# Every worker collects every test file, so this runs in each of them.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS > 1:
+    _SHARE = max(1, (os.cpu_count() or 1) // _WORKERS)
+    os.environ["OMP_NUM_THREADS"] = str(_SHARE)
+    torch.set_num_threads(_SHARE)
 
 SMALL_CONFIG = {
     "backbone": "ResUNet",

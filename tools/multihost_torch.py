@@ -5,9 +5,11 @@ launcher that starts every rank of a run.
     python3 tools/multihost_torch.py SPEC.json RANK
 
 ``SPEC.json``: {"world": n, "port": p, "device": "cpu" | "cuda",
-"backend": "gloo" | "nccl" | null, "timeout_s": s, "out": DIR, "jobs":
-[...]}. Each rank runs the jobs in order; those that train join one
-process group (``multihost:`` with ``coordinator_address`` localhost:p,
+"backend": "gloo" | "nccl" | null, "timeout_s": s, "threads": t,
+"out": DIR, "jobs": [...]}; on the CPU each rank takes t // n torch
+threads (t: the launcher's torch thread count, else the host's cores).
+Each rank runs the jobs in order; those that train join one process
+group (``multihost:`` with ``coordinator_address`` localhost:p,
 ``process_id`` RANK). Job kinds:
 
   * ``step``: a Trainer on ``config`` takes one ``train_step`` on the
@@ -62,9 +64,10 @@ import numpy as np  # noqa: E402
 def launch(spec: dict, timeout: float):
     """Start every rank of ``spec`` (its "port" filled in when absent) and
     wait for them; returns (return codes, outputs, seconds)."""
+    import torch
     from posfeat_tpu_torch.core.distributed import free_port
 
-    spec = {"port": free_port(), **spec}
+    spec = {"port": free_port(), "threads": torch.get_num_threads(), **spec}
     os.makedirs(spec["out"], exist_ok=True)
     path = os.path.join(spec["out"], "spec.json")
     with open(path, "w") as f:
@@ -236,10 +239,10 @@ def main(argv) -> int:
     with open(argv[0]) as f:
         spec = json.load(f)
     rank = int(argv[1])
-    if spec["device"] == "cpu":  # the ranks share the host's cores
+    if spec["device"] == "cpu":  # the ranks share the launcher's torch threads (or the host's cores)
         import torch
 
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec["world"]))
+        torch.set_num_threads(max(1, (spec.get("threads") or os.cpu_count() or 1) // spec["world"]))
     for job in spec["jobs"]:
         t0 = time.perf_counter()
         _launches(zero=True)

@@ -19,12 +19,29 @@ f32 with the reference dataflow, bands on cuda:0:
 - the same figures for two runs of the unsharded program that differ from
   it by rounding alone: the frame in a batch of two (bf16 only; at f32 the
   reference dataflow's x4 resize of two frames passes INT_MAX elements),
-  and the normalized input times (1 + 1e-6 · N(0, 1)).
+  and the normalized input times (1 + 1e-6 · N(0, 1));
+- the decoder's blocks, banded against unsharded: the elements of each
+  block's output that differ; with ``--decoder-tf32 off`` the decoder's
+  f32-accumulated convs of bf16 values (the concat-free skip iconvs, the
+  ``desc_tail`` ladder) keep TF32 off, which shows whether cuDNN's choice
+  of a TF32 algorithm by map height is where the banded maps part;
+- the head's instance norms, banded on the unsharded maps against the
+  unsharded head, with their moments summed in each of these orders
+  (``--in-orders``): "bands" (each band's f32 sums added on the first
+  device, as the banded program does), "gathered" (one f32 sum over the
+  bands concatenated there: the unsharded order), "rows" (both programs
+  sum each row in f32, then the rows' sums in one f32 sum) and "f64"
+  (both programs sum in f64). For each norm: whether its input is the
+  unsharded one (an exact integer fingerprint of its bits) and how many
+  channels' mean and rsqrt(var + eps) differ; then the score elements
+  that differ and each slate's |Δvalid|, under the exact and the packed
+  top-k (``--topk``).
 
 Prints one line per measurement, then the card's name and power limit.
 """
 
 import argparse
+import contextlib
 import copy
 import os
 import subprocess
@@ -35,12 +52,123 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+@contextlib.contextmanager
+def _recording_decoder(torch, steps):
+    """``run_decoder`` for the unsharded and the banded backbone, keeping
+    each block's output in ``steps`` (until it is cleared)."""
+    from posfeat_tpu_torch.models import resunet as rn
+    from posfeat_tpu_torch.parallel import banded_models as bm
+
+    def run(ops, nets, maps, plan):
+        y = maps["x3"]
+        for step in plan:
+            blocks = [getattr(n, step.name) for n in nets]
+            if isinstance(step, rn.Up):
+                y = rn.up_conv(ops, y, blocks, step)
+            elif isinstance(step, rn.Skip):
+                y = rn.skip_conv(ops, y, maps[step.skip], blocks, step)
+            else:
+                y = rn.conv_bn_elu(ops, y, blocks, step.conv)
+            if steps:
+                steps["unsharded" if ops is rn.DenseOps else "banded"].append((step.name, y))
+        return y
+
+    shipped = rn.run_decoder, bm.run_decoder
+    rn.run_decoder = bm.run_decoder = run
+    try:
+        yield
+    finally:
+        rn.run_decoder, bm.run_decoder = shipped
+
+
+def _fingerprint(torch, x):
+    """The exact sum of x's f32 bit patterns as integers: equal inputs give
+    equal fingerprints, in any summation order."""
+    return int(x.float().contiguous().view(torch.int32).sum(dtype=torch.int64))
+
+
+def _moments(torch, parts, dims, order):
+    """Σx and Σx² over ``dims`` of the row-split ``parts`` (one part: the
+    unsharded map), summed in ``order``, and the count n; f32 sums, f64 for
+    "f64", on the first part's device."""
+    dev = parts[0].device
+    n = sum(int(np.prod([p.shape[d] for d in dims])) for p in parts)
+    xf = [p.float() for p in parts]
+    if order == "gathered":
+        x = torch.cat([p.to(dev) for p in xf], dim=1)
+        return x.sum(dim=dims, keepdim=True), (x * x).sum(dim=dims, keepdim=True), n
+    if order == "rows":
+        inner = tuple(d for d in dims if d != 1)
+        rows = lambda f: torch.cat([f(p).sum(dim=inner, keepdim=True).to(dev) for p in xf], dim=1)  # noqa: E731
+        return rows(lambda p: p).sum(dim=1, keepdim=True), rows(lambda p: p * p).sum(dim=1, keepdim=True), n
+    acc = torch.float64 if order == "f64" else torch.float32
+    s1 = sum(p.to(acc).sum(dim=dims, keepdim=True).to(dev) for p in xf)
+    s2 = sum((p * p).to(acc).sum(dim=dims, keepdim=True).to(dev) for p in xf)
+    return s1, s2, n
+
+
+def _in_orders(torch, order, run_head, run_bhead, slate, topks, label):
+    """The unsharded head (``run_head``) and the banded head on the same
+    maps (``run_bhead``) with both programs' instance norms summing their
+    moments in ``order`` ("bands": the unsharded norm as shipped, the
+    banded one its bands' sums added); prints, for each norm in call
+    order, whether its input is the unsharded one and how many channels'
+    mean and rstd differ, then the score map's differing elements and the
+    slates' |Δvalid| under each top-k."""
+    from posfeat_tpu_torch.models import keypoint_det as kd
+    from posfeat_tpu_torch.parallel import banded_ops as bo
+
+    seen = {"unsharded": [], "banded": []}
+
+    def stats(parts, dims, eps, key):
+        s1, s2, n = _moments(torch, parts, dims, order)  # one part: "bands" and "gathered" are the shipped sum
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        mean, rstd = mean.float(), torch.rsqrt(var.float() + eps)
+        seen[key].append((sum(_fingerprint(torch, p) for p in parts), mean, rstd))
+        return mean, rstd
+
+    def unsharded_in(x, eps=1e-5, dims=(1, 2)):
+        mean, rstd = stats([x], dims, eps, "unsharded")
+        return ((x.float() - mean) * rstd).to(x.dtype)
+
+    def banded_in(x, eps=1e-5, dims=(1, 2)):
+        mean, rstd = stats(x.parts, dims, eps, "banded")
+        return bo.Bands([((p.float() - mean.to(p.device)) * rstd.to(p.device)).to(p.dtype) for p in x.parts],
+                        list(x.starts), x.total)
+
+    shipped = kd.instance_norm, bo.instance_norm
+    kd.instance_norm, bo.instance_norm = unsharded_in, banded_in
+    try:
+        head, bhead = run_head(), run_bhead()
+    finally:
+        kd.instance_norm, bo.instance_norm = shipped
+    norms = []
+    for i, ((fu, mu, ru), (fb, mb, rb)) in enumerate(zip(seen["unsharded"], seen["banded"])):
+        rel = ((mb - mu).abs() / mu.abs().clamp_min(1e-30)).max().item()
+        norms.append(f"IN {i}: input {'equal' if fu == fb else 'DIFFERS'}, mean differs in "
+                     f"{int((mu != mb).sum())} of {mu.numel()} channels (max rel {rel:.3g}), rstd in "
+                     f"{int((ru != rb).sum())}")
+    assert len(seen["unsharded"]) == len(seen["banded"]), {k: len(v) for k, v in seen.items()}
+    dv = []
+    for topk in topks:
+        got, ref = slate(bhead, topk), slate(head, topk)
+        dv.append(f"{topk} |Δvalid| {abs(got[3] - ref[3])} (valid {ref[3]})")
+    print(f"{label}, IN sums '{order}', banded head on the unsharded maps: " + "; ".join(norms)
+          + f"; score elements differ {int((bhead != head).sum())} of {head.numel()}; " + ", ".join(dv))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--bands", type=int, default=2)
     ap.add_argument("--height", type=int, default=None, help="the frame's rows (phase 18's by default)")
     ap.add_argument("--width", type=int, default=None, help="the frame's columns (phase 18's by default)")
+    ap.add_argument("--decoder-tf32", choices=("on", "off"), default="on",
+                    help="off: the decoder's f32-accumulated convs of bf16 values without TF32")
+    ap.add_argument("--topk", default="exact,approx", help="the detector's top-k forms, comma-separated")
+    ap.add_argument("--in-orders", default="bands,gathered,rows,f64",
+                    help="the instance norms' summation orders to compare, comma-separated (none: '')")
     args = ap.parse_args(argv)
 
     import torch
@@ -71,8 +199,10 @@ def main(argv=None) -> int:
     model = PoSFeat(cfg, dtype=dtype, device=card, seed=c.SEED)
     label = f"{args.dtype} {'phase' if dtype == torch.bfloat16 else 'reference'}"
 
-    def slate(score_map):
-        coord, score, valid = generate_kpts_single(score_map[..., :1], **c.AACHEN_DET)
+    topks = args.topk.split(",")
+
+    def slate(score_map, topk="exact"):
+        coord, score, valid = generate_kpts_single(score_map[..., :1], topk=topk, **c.AACHEN_DET)
         v = int(valid[0])
         n = int(max(min(c.AACHEN_DET["num_pts"], v), 128))
         px = denormalize_coords(coord, fh, fw)[0, :n].float().cpu().numpy()
@@ -85,13 +215,25 @@ def main(argv=None) -> int:
         unmatched = c._pair_slates(got, ref)[0]
         print(f"{label}, {name}: unmatched {unmatched:.6f}, valid {got[3]} (|d| {abs(got[3] - ref[3])})")
 
-    with torch.inference_mode():
+    if args.decoder_tf32 == "off":
+        import contextlib
+
+        from posfeat_tpu_torch.models import resunet as rn
+
+        rn._bf16_operands = contextlib.nullcontext
+        label += ", decoder TF32 off"
+    steps = {"unsharded": [], "banded": []}
+    with torch.inference_mode(), _recording_decoder(torch, steps):
         fm = model.backbone(im)
         head = head_of(fm, im)
         ref = slate(head)
         starts = spatial_mesh([card] * args.bands).plan(fh)
         bands = bo.split_rows(im, [card] * args.bands, starts)
         bfm = resunet(bands, [model.backbone] * args.bands)
+        for (name, dense), (_, banded) in zip(steps["unsharded"], steps["banded"]):
+            diff = int((banded.concat().to(card) != dense.permute(0, 2, 3, 1)).sum())
+            print(f"{label}, {args.bands} bands: decoder {name}: {diff} of {dense.numel()} elements differ")
+        steps.clear()
         for key in ("global_map", "local_map", "local_map_small"):
             diff = int((bfm[key].concat() != fm[key]).sum())
             print(f"{label}, {args.bands} bands: backbone {key}: {diff} of {fm[key].numel()} elements differ")
@@ -109,6 +251,13 @@ def main(argv=None) -> int:
         g = torch.Generator(device=card).manual_seed(1)
         noisy = im * (1 + 1e-6 * torch.randn(im.shape, generator=g, device=card))
         against("unsharded, input x (1 + 1e-6 noise)", slate(head_of(model.backbone(noisy), noisy)), ref)
+        del bfm, banded_fm, bhead, noisy
+        run_head = lambda: head_of(fm, im)  # noqa: E731
+        run_bhead = lambda: keypoint_det(  # noqa: E731
+            bo.split_rows(local_input, [card] * args.bands, [a // 4 for a in starts]), bands,
+            [model.localheader] * args.bands).concat()
+        for order in filter(None, args.in_orders.split(",")):
+            _in_orders(torch, order, run_head, run_bhead, slate, topks, f"{label}, {args.bands} bands")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
