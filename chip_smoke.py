@@ -329,6 +329,10 @@ CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_i
 F32_CONV_KERNELS = ("conv_phase_f32_kernel<K1>", "conv_phase_f32_kernel<K3>", "conv_phase_f32_kernel<T1>",
                     "conv_phase_f32_kernel<T2>")
 F32_SPLIT_KERNELS = ("split_tiles_kernel", "split_b_kernel")
+# csrc/moments.cu's row_moments_kernel<type, vec> instances, by mangled type
+MOMENTS_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+MOMENTS_KERNELS = tuple(f"row_moments_kernel<{t},{v}>" for t, vs in (("f32", (4, 1)), ("bf16", (8, 1)), ("f16", (8, 1)))
+                        for v in vs)
 # the reduction passes' instances: f1 resident (D <= 128), f1 streamed (D > 128, warp specialised)
 REDUCTION_KERNELS = ("lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", "lse_pass_streamed_kernel",
                      "reward_pass_streamed_kernel")
@@ -345,6 +349,9 @@ def _kernel_key(mangled):
     m = re.search(r"conv_phase_f32_kernelILi(\d)E", mangled)
     if m:
         return F32_CONV_KERNELS[int(m.group(1))]
+    m = re.search(r"row_moments_kernelI(f|13__nv_bfloat16|6__half)Li(\d)E", mangled)
+    if m:
+        return f"row_moments_kernel<{MOMENTS_TYPES[m.group(1)]},{m.group(2)}>"
     return next(k for k in (*CONV_KERNELS, *F32_SPLIT_KERNELS, *REDUCTION_KERNELS, mangled) if k in mangled)
 
 
@@ -474,6 +481,8 @@ def phase_kernels(torch, fh, rng):
          "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": k2_lib},
     ]
+    # the row moments of the head's trunk norm at the main path's shape
+    records.append(moments_record(torch, g(B, h, w, C).to(bf), "[3]"))
     for r in records:
         print(f"[3] {r['name']}: {r['ms']:.4f} ms per B={B} launch (bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)")
@@ -481,6 +490,61 @@ def phase_kernels(torch, fh, rng):
     print(f"[3] K2 head_tail: {k2_bytes / (k2_ms * 1e-3) * 1e-12:.3f} TB/s achieved "
           f"({k2_bytes * 1e-9:.4g} GB per launch), {k2_bound[0] / k2_ms:.1%} of the bound")
     return records
+
+
+MOMENTS_RECORD = "row_moments"
+# the kernel's per-row sums against the plain version's pairwise tree, the
+# same f32 values added in two orders: within 1e-5 of the row-channel's
+# sum of |x| (Σx) or of Σx² (an order's rounding grows as √n·2^-24 of it,
+# n ≤ 12288 terms a row-channel at these shapes)
+MOMENTS_RTOL = 1e-5
+
+
+def moments_check(torch, x, bands=()):
+    """The row-moments kernel on x [B, R, ..., C] against its plain
+    version (``MOMENTS_RTOL``), the partials of the rows split evenly in
+    each of ``bands`` counts bit for bit the whole map's; returns (max
+    |kernel − plain|, ms, plain ms, ms of torch's per-row sum pair, bound
+    ms)."""
+    from posfeat_tpu_torch.ops import moments as mo
+
+    s1, s2 = mo.row_moments(x)
+    torch.cuda.synchronize()
+    p1, p2 = mo.row_moments_plain(x)
+    a1 = mo.row_moments_plain(x.abs())[0]
+    err = max((s1 - p1).abs().max().item(), (s2 - p2).abs().max().item())
+    assert ((s1 - p1).abs() <= MOMENTS_RTOL * a1 + 1e-6).all(), ((s1 - p1).abs() / a1).max().item()
+    assert ((s2 - p2).abs() <= MOMENTS_RTOL * p2 + 1e-6).all(), ((s2 - p2).abs() / p2).max().item()
+    del p1, p2, a1
+    R = x.shape[1]
+    for k in bands:
+        cuts = [R * i // k for i in range(k)] + [R]
+        parts = [mo.row_moments(x[:, a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+        assert torch.equal(torch.cat([p[0] for p in parts], 1), s1), k
+        assert torch.equal(torch.cat([p[1] for p in parts], 1), s2), k
+    inner = tuple(range(2, x.ndim - 1))
+
+    def sum_pair():
+        xf = x.float()
+        return xf.sum(dim=inner), (xf * xf).sum(dim=inner)
+
+    ms = _time_ms(lambda: mo.row_moments(x), n=10, warmup=2)
+    plain = _time_ms(lambda: mo.row_moments_plain(x), n=2, warmup=1)
+    lib = _time_ms(sum_pair, n=10, warmup=2)
+    nbytes = x.numel() * x.element_size() + 2 * s1.numel() * 4
+    return err, ms, plain, lib, _bound(0.0, PEAK_F32, nbytes)[0]
+
+
+def moments_record(torch, x, tag):
+    """The row-moments kernel's record for the kernels line, at x (the
+    main path's trunk norm); launches filled in by the main path."""
+    err, ms, plain, lib, bound = moments_check(torch, x, bands=(2, 3))
+    print(f"{tag} row moments on {tuple(x.shape)} {str(x.dtype)[6:]}: max |kernel - plain| {err:.3g} (limit "
+          f"{MOMENTS_RTOL:g} of each row-channel's sum of |x| or x^2), partials of 2 and 3 row splits bit for bit "
+          f"the whole map's")
+    return {"name": MOMENTS_RECORD, "route": "cuda", "source": "posfeat_tpu_torch/csrc/moments.cu",
+            "replaces": "posfeat_tpu/models/keypoint_det.py:38", "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
 
 
 def phase_head_vs_reference(torch, rng, mode="v3", tag="[4]"):
@@ -577,7 +641,10 @@ def flagship_extractor(tmp, rng, output_root="smoke", head_mode=None, dtype="bfl
 
 def _zero_counts(fh):
     """Every fused-head kernel's launch count to 0, bf16 and f32 instances
-    and the f32 instances' split."""
+    and the f32 instances' split, and the row-moments kernel's."""
+    from posfeat_tpu_torch.ops.moments import row_moments
+
+    row_moments.launches = 0
     fh.conv_phase.launches = fh.conv_phase.launches_f32 = fh.split_conv_operands.launches = 0
     fh.head_tail.launches = fh.head_tail.launches_f32 = 0
     fh.conv_phase_img.launches = dict.fromkeys(fh.IMG_LAYOUTS, 0)
@@ -628,7 +695,10 @@ def drive_extraction(torch, fh, rng, n_images, head_mode=None, dtype="bfloat16",
 
 
 def phase_main_path(torch, fh, rng, records):
+    from posfeat_tpu_torch.ops.moments import row_moments
+
     n, dt, peak, launches, counts = drive_extraction(torch, fh, rng, N_IMAGES)
+    launches[MOMENTS_RECORD] = row_moments.launches  # the head's trunk norm, counted from the same 0
     for r in records:
         r["launches"] = launches[r["name"]]
         assert r["launches"] > 0, f"{r['name']} was not launched on the main path"
@@ -2486,16 +2556,22 @@ def _pair_slates(got, ref):
     return 1.0 - len(gi) / max(len(kg), 1), np.array(gi, np.int64), np.array(ri, np.int64)
 
 
-def slice_k_compare(got, ref, f32, unmatched_limit=SLICE_K_UNMATCHED):
+def slice_k_compare(got, ref, f32, exact=False):
     """Banded slate against the unsharded one of the same dataflow; returns
-    the printed figures. Raises past the limits above (the unmatched share
-    past ``unmatched_limit``)."""
+    the printed figures. Raises past the limits above, or, ``exact``,
+    unless valid_count and the keypoints, scores and descriptors are the
+    unsharded ones bit for bit."""
+    if exact:
+        assert got[3] == ref[3], ("valid", got[3], ref[3])
+        for name, g, r in zip(("keypoints", "scores", "descriptors"), got, ref):
+            assert g.shape == r.shape and np.array_equal(g, r), name
+        return f"valid {got[3]} (Δvalid 0), unmatched 0, keypoints, scores and descriptors bit for bit"
     unmatched, gi, ri = _pair_slates(got, ref)
     dv = abs(got[3] - ref[3])
     ds = np.abs(got[1][gi] - ref[1][ri])
     dd = np.abs(got[2][gi] - ref[2][ri]).max() if len(gi) else 0.0
     assert dv <= SLICE_K_VALID_RTOL * ref[3], (got[3], ref[3])
-    assert unmatched <= unmatched_limit, (unmatched, unmatched_limit)
+    assert unmatched <= SLICE_K_UNMATCHED, unmatched
     if f32:
         assert (ds <= 1e-3 * np.abs(ref[1][ri]) + 1e-5).all(), ds.max()
         assert dd <= 1e-4, dd
@@ -2562,6 +2638,7 @@ def phase_slice_k(torch, fh, rng, smi):
     """Phase 18: slice K, extraction of one Aachen-class frame banded over
     the spatial mesh."""
     from posfeat_tpu_torch.models import PoSFeat
+    from posfeat_tpu_torch.ops.moments import row_moments
     from posfeat_tpu_torch.parallel import spatial_mesh
 
     t_phase = time.perf_counter()
@@ -2585,10 +2662,13 @@ def phase_slice_k(torch, fh, rng, smi):
             _zero_counts(fh)
             got, ms, peaks = _timed_slate(torch, slice_k_program(torch, model, mesh), im_u8, devs)
             launches = {**_read_counts(fh), **_read_counts(fh, " f32")}
-            assert not any(launches.values()), launches  # no kernel lies on the banded path
+            assert not any(launches.values()), launches  # no fused-head kernel lies on the banded path
+            assert row_moments.launches > 0  # the head's norms' row moments do
             per = ", ".join(f"{d}: {p / 2**30:.2f}" for d, p in zip(devs, peaks))
+            # the banded program computes the unsharded one's function bit for bit
             print(f"[18] {label}, {name}: {ms:.4f} ms/image ({ms / ms_ref:.3f}x unsharded), peak GiB {per} "
-                  f"(total {sum(peaks) / 2**30:.2f}); {slice_k_compare(got, ref, dtype == torch.float32)}")
+                  f"(total {sum(peaks) / 2**30:.2f}); row moments {row_moments.launches} launches; "
+                  f"{slice_k_compare(got, ref, dtype == torch.float32, exact=True)}")
             slates[(label, name)] = got
         if dtype == torch.bfloat16:
             model.localheader.fused_upsample = "pallas"
@@ -2632,14 +2712,11 @@ def slice_l_12mp(torch, fh, rng, smi):
     detector: f32 with the reference dataflow (its x4 resize of the
     192-channel trunk writes 2.34e9 elements, in row blocks below
     ``resize.BLOCK_ELEMENTS``) and bf16 with the "phase" dataflow, each
-    against the frame banded over 4 bands on cuda:0 with phase 18's limits;
+    against the frame banded over 4 bands on cuda:0, bit for bit;
     then the bf16 fused head ("pallas": K1 and K2 on the 756x1008 trunk),
     its score map against the "phase" head's within phase 4's limits
     (mean |d| 2e-2, max |d| 1e-1 x mean|score|) and its slate's overlap
-    with the banded one printed. The bf16 banded slate is held to the
-    unsharded one's unmatched share under 1e-6 of input noise where that
-    is above phase 18's 1e-3 (cuDNN's algorithms for the whole map differ
-    from a band's at this size)."""
+    with the banded one printed."""
     from posfeat_tpu_torch.models import PoSFeat
     from posfeat_tpu_torch.ops import resize
     from posfeat_tpu_torch.parallel import spatial_mesh
@@ -2676,25 +2753,14 @@ def slice_l_12mp(torch, fh, rng, smi):
         assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all() and np.isfinite(got[2]).all()
         norms = np.linalg.norm(got[2], axis=1)
         assert np.abs(norms - 1).max() < 1e-3, norms
-        limit, floor_note = SLICE_K_UNMATCHED, ""
-        if ref is not None and dtype == torch.bfloat16:
-            # the bf16 slate moves under rounding alone (phase 18: 2% under 1e-6
-            # of input noise); at this size cuDNN picks other algorithms for the
-            # whole map's convs than for a band's, so the banded backbone maps
-            # are no longer the unsharded ones bit for bit, and the banded slate
-            # is held to the unsharded program's own rounding floor where that
-            # is above phase 18's 1e-3
-            g = torch.Generator(device=card).manual_seed(SEED)
-            noise = 1 + 1e-6 * torch.randn((1, SLICE_L_H, SLICE_L_W, 3), generator=g, device=card)
-            floor = _pair_slates(_trim(slice_k_program(torch, model, None)(im_u8, noise)), ref)[0]
-            limit = max(SLICE_K_UNMATCHED, floor)
-            floor_note = (f"; unmatched limit {limit:.6f}: the unsharded program's own slate under x (1 + 1e-6 "
-                          f"N(0, 1)) of input leaves {floor:.6f} of it unmatched")
-            del noise
-        cmp = (slice_k_compare(got, ref, dtype == torch.float32, limit) if ref is not None
+        # the convs whose algorithm cuDNN picks by the map's height at this
+        # size (bf16: the encoder's at H/8, the decoder's) run in the same row
+        # tiles in both programs, so the banded slate is the unsharded one
+        # bit for bit
+        cmp = (slice_k_compare(got, ref, dtype == torch.float32, exact=True) if ref is not None
                else "no unsharded run to hold it to")
-        print(f"[19] {label}, 4 bands on cuda:0: {ms:.4f} ms/image ({ms / ms_ref:.3f}x unsharded), peak "
-              f"{peaks[0] / 2**30:.2f} GiB; {cmp}{floor_note}" if ref is not None else
+        print(f"[19] {label}, 4 bands on cuda:0 (first rows {mesh.plan(SLICE_L_H)}): {ms:.4f} ms/image "
+              f"({ms / ms_ref:.3f}x unsharded), peak {peaks[0] / 2**30:.2f} GiB; {cmp}" if ref is not None else
               f"[19] {label}, 4 bands on cuda:0: {ms:.4f} ms/image, peak {peaks[0] / 2**30:.2f} GiB; {cmp}")
         slates[label] = got
         if dtype == torch.bfloat16:
@@ -3176,9 +3242,7 @@ def slice_n_maps(torch, ex, im_u8):
     """The banded detector (packed top-k) and the banded quad and pair
     samplers on the unsharded program's own maps of the frame, split into
     2 and 4 bands on cuda:0, against the unsharded detector and samplers:
-    the slate and valid_count bit for bit, pair bit for bit, quad (the
-    corner formula against F.grid_sample's arithmetic) within phase 18's
-    descriptor limit, 1e-4."""
+    the slate, valid_count and both samplers' descriptors bit for bit."""
     from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
     from posfeat_tpu_torch.ops.detect import generate_kpts_single
     from posfeat_tpu_torch.ops.grid_sample import sample_feat_by_coord
@@ -3199,16 +3263,10 @@ def slice_n_maps(torch, ex, im_u8):
             for g, w in zip(got, want):
                 assert torch.equal(g, w), bands
             fb = split_rows(fmap, [dev] * bands, [a // 4 for a in starts])
-            d = {}
             for impl, ref in feats.items():
-                f = banded_sample(fb, want[0], True, impl)
-                d[impl] = (f - ref).abs().max().item()
-                if impl == "pair":
-                    assert torch.equal(f, ref), bands
-                else:  # the corner formula against F.grid_sample's arithmetic: phase 18's descriptor limit
-                    assert d[impl] <= 1e-4, (bands, d[impl])
-            out.append(f"{bands} bands: slate and valid {int(want[2][0])} bit for bit, descriptors max|d| quad "
-                       f"{d['quad']:.3g}, pair {d['pair']:.3g}")
+                assert torch.equal(banded_sample(fb, want[0], True, impl), ref), (bands, impl)
+            out.append(f"{bands} bands: slate and valid {int(want[2][0])} bit for bit, quad and pair descriptors "
+                       f"bit for bit")
     return "; ".join(out)
 
 
@@ -3220,12 +3278,11 @@ def slice_n_bands(torch, rng):
     ``fast_gates: {sample_impl: pair}`` over 2 bands against its unsharded
     run. The banded detector and the pair sampler on the unsharded maps
     are the unsharded ones bit for bit, valid_count equal
-    (``slice_n_maps``). The whole banded program's maps round differently
-    (the head's instance-norm sums add in another order, and cuDNN's TF32
-    algorithm for the decoder's iconv2 depends on the map's height), so
-    each banded slate is held to its unsharded one with phase 18's limits
-    (unmatched within 1e-3, valid within 1e-3 of it) and its Δvalid is
-    printed; the lite and exact
+    (``slice_n_maps``). The whole banded program is the unsharded one bit
+    for bit (the head's norms sum their moments row by row, the convs that
+    round by the map's height run in shared row tiles), so each banded
+    slate is its unsharded one: Δvalid 0, no point unmatched, keypoints,
+    scores and descriptors equal; the lite and exact
     2-band slates hold the same valid_count, and the share of the lite
     one that differs from the exact gates' (phase 18's program) is
     printed with no limit; ms/image and peak memory of each run; the lite
@@ -3253,8 +3310,7 @@ def slice_n_bands(torch, rng):
                 assert ex._use_spatial(shape)
                 got, ms, peaks = _timed_slate(torch, ex._spatial_fn(shape, "detector_config"), im_u8, [card])
                 slates[(arm, bands)] = got
-                cmp = (f"{slice_k_compare(got, ref, False)}, Δvalid {got[3] - ref[3]}; " if ref is not None
-                       else f"valid {got[3]}; ")
+                cmp = f"{slice_k_compare(got, ref, False, exact=True)}; " if ref is not None else f"valid {got[3]}; "
                 lines.append(f"{arm} {bands} bands on cuda:0: {ms:.4f} ms/image"
                              + (f" ({ms / ms_ref:.3f}x unsharded)" if ref is not None else "")
                              + f", peak {peaks[0] / 2**30:.2f} GiB; {cmp}fast_gates_banded {gates}")
@@ -3287,6 +3343,83 @@ def phase_slice_n(torch, fh, rng, smi):
     seconds = time.perf_counter() - t_phase
     print(f"[23] slice N: {seconds:.1f} s (budget {SLICE_N_BUDGET_S:g} s); {smi}")
     assert seconds <= SLICE_N_BUDGET_S, seconds
+
+
+SLICE_O_BUDGET_S = 60.0
+
+
+def slice_o_norms(torch, rng):
+    """(a) The row-moments kernel at the shapes of the head's instance
+    norms on phase 18's 2048x3072 frame (the bf16 "phase" head's trunk,
+    convimg, phase-layout and score norms, and the f32 reference head's
+    full-resolution one), on maps drawn on the card from a seed: against
+    its plain version (``MOMENTS_RTOL``), each row split over 2 and 4
+    bands bit for bit the whole map's partials; ms a call beside torch's
+    per-row sum pair and the bound by bytes."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    H, W = SLICE_K_H, SLICE_K_W
+    h, w = H // 4, W // 4
+    norms = (("trunk", (1, h, w, 192), bf), ("convimg", (1, H, W, 64), torch.float32),
+             ("phase", (1, h, w, 4, 4, 128), bf), ("score", (1, h, 16 * w, 1), torch.float32),
+             ("reference conv2", (1, H, W, 128), torch.float32))
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))  # 1.4e9 draws: on the card
+    for name, shape, dt in norms:
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dt)
+        err, ms, plain, lib, bound = moments_check(torch, x, bands=(2, 4))
+        print(f"[24] (a) row moments, {name} norm {shape} {str(dt)[6:]}: max |kernel - plain| {err:.3g} (limit "
+              f"{MOMENTS_RTOL:g} of each row-channel's sum of |x| or x^2: the plain version adds in a pairwise "
+              f"tree, the kernel in its own order), partials over 2 and 4 bands bit for bit; {ms:.4f} ms a call "
+              f"(bound {bound:.4f} ms by bytes, {bound / ms:.1%}), plain {plain:.4f} ms, torch's per-row sum pair "
+              f"{lib:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
+
+
+def slice_o_maps(torch, rng):
+    """(b) Phase 18's frame through the flagship bf16 "phase" model,
+    unsharded and banded over 2 and 4 bands on cuda:0 (``spatial_extract``
+    without a postprocess): local_map, the score map and global_map
+    torch.equal the unsharded ones; the row-moments kernel launched on the
+    banded path."""
+    from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
+    from posfeat_tpu_torch.models import PoSFeat
+    from posfeat_tpu_torch.ops.moments import row_moments
+    from posfeat_tpu_torch.parallel import spatial_extract, spatial_mesh
+
+    card = torch.device("cuda", 0)
+    frame = _frame(rng, SLICE_K_H, SLICE_K_W)
+    mean, std = torch.as_tensor(IMAGENET_MEAN, device=card), torch.as_tensor(IMAGENET_STD, device=card)
+    im = (torch.from_numpy(frame)[None].to(card).float() / 255.0 - mean) / std
+    cfg = copy.deepcopy(FLAGSHIP_MODEL_CONFIG)
+    cfg["localheader_config"]["fused_upsample"] = "phase"
+    model = PoSFeat(cfg, dtype=torch.bfloat16, device=card, seed=SEED)
+    with torch.inference_mode():
+        want = model.extract(im)
+        lines = []
+        for k in (2, 4):
+            mesh = spatial_mesh([card] * k)
+            row_moments.launches = 0
+            got = spatial_extract(model, mesh)(im)
+            launches = row_moments.launches
+            assert launches == 4 * k, launches  # four norms a band
+            for key in ("local_map", "local_point", "global_map"):
+                assert torch.equal(got[key].concat(), want[key]), (k, key)
+            lines.append(f"{k} bands (first rows {mesh.plan(SLICE_K_H)}): local_map, score map and global_map "
+                         f"equal, row moments {launches} launches")
+    print(f"[24] (b) {SLICE_K_H}x{SLICE_K_W} bf16 'phase' maps, banded against unsharded: " + "; ".join(lines))
+    del model, want, got
+    torch.cuda.empty_cache()
+
+
+def phase_slice_o(torch, rng, smi):
+    """Phase 24: slice O, the banded program bit for bit the unsharded
+    one (phases 18, 19 and 23 (b) hold its slates)."""
+    t_phase = time.perf_counter()
+    slice_o_norms(torch, rng)
+    slice_o_maps(torch, rng)
+    seconds = time.perf_counter() - t_phase
+    print(f"[24] slice O: {seconds:.1f} s (budget {SLICE_O_BUDGET_S:g} s); {smi}")
+    assert seconds <= SLICE_O_BUDGET_S, seconds
 
 
 def main() -> int:
@@ -3327,7 +3460,7 @@ def main() -> int:
         print(f"[2]   head_tail_kernel, all {len(group)} {dt} instances: registers "
               f"{min(v['regs'] for v in group)}-{max(v['regs'] for v in group)}, stack "
               f"{max(v['stack'] for v in group)} B, spills {sum(v['spill_stores'] + v['spill_loads'] for v in group)} B")
-    for kname in (*CONV_KERNELS, *F32_CONV_KERNELS, *F32_SPLIT_KERNELS, *k2, *REDUCTION_KERNELS):
+    for kname in (*CONV_KERNELS, *F32_CONV_KERNELS, *F32_SPLIT_KERNELS, *k2, *REDUCTION_KERNELS, *MOMENTS_KERNELS):
         props = summary[kname]
         assert props["spill_stores"] == props["spill_loads"] == 0, (kname, props)
         if kname not in CONV_KERNELS:
@@ -3378,6 +3511,7 @@ def main() -> int:
         phase_slice_l(torch, fh, rng, smi, s_step_main)
         phase_slice_m(torch, fh, rng, smi, probe_state, ims_main)
         phase_slice_n(torch, fh, rng, smi)
+        phase_slice_o(torch, rng, smi)
     finally:
         shutil.rmtree(probe_state["work"], ignore_errors=True)
     records += v1 + reduction + slice_h

@@ -38,6 +38,7 @@ so in a warning.
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -46,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_head import KERNEL_DTYPES, fused_head_tail
+from ..ops.moments import check_dims, moments, normalize, row_moments
 from ..ops.phase import (
     _bilinear_taps_1d,
     _edge_pad1,
@@ -58,17 +60,16 @@ from ..ops.resize import _upsample_axis_int, interpolate_bilinear
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, dims=(1, 2)) -> torch.Tensor:
-    """Non-affine InstanceNorm over the spatial dims of NHWC, biased
-    variance; statistics in f32 whatever the compute dtype."""
-    xf = x.float()
-    n = 1
-    for d in dims:
-        n *= x.shape[d]
-    s1 = xf.sum(dim=dims, keepdim=True)
-    s2 = (xf * xf).sum(dim=dims, keepdim=True)
-    mean = s1 / n
-    var = torch.clamp(s2 / n - mean * mean, min=0.0)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    """Non-affine InstanceNorm over the spatial dims of NHWC (every axis
+    between the batch and the channels: (1, 2), or (1, 2, 3, 4) in the
+    phase layout), biased variance; statistics in f32 whatever the compute
+    dtype, summed row by row (``ops/moments.py``: the row-moments kernel on
+    the card), so that the banded program's norms are this one's bit for
+    bit."""
+    check_dims(x, dims)
+    s1, s2 = row_moments(x)
+    mean, rstd = moments(s1, s2, math.prod(x.shape[1:-1]), eps)
+    return normalize(x, mean, rstd)
 
 
 def fused_upsample_conv3x3_phase(trunk: torch.Tensor, kernel: torch.Tensor, k: int = 4):

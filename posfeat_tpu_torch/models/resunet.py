@@ -62,6 +62,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.distributed import all_reduce_autograd
+from ..ops import conv_tiles
 
 # torchvision families (only layers 1-3 are used): block, counts, width mult
 _ENCODERS = {
@@ -76,11 +77,17 @@ _ENCODERS = {
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs at its input's dtype: the f32 weight and
-    bias are cast to it for the call."""
+    bias are cast to it for the call; in row tiles of ``row_tile`` output
+    rows where that is set (``row_tiled_conv``)."""
+
+    row_tile = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        if self.row_tile is None:
+            return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return conv_tiles.row_tiled_conv(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                                         self.dilation, self.row_tile)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -350,10 +357,10 @@ class DenseOps:
         return fn(x, *others)
 
     @staticmethod
-    def conv(x, convs, weight=lambda w: w, bias=None):
+    def conv(x, convs, weight=lambda w: w, bias=None, tile=None):
         m = convs[0]
         b = None if bias is None else bias(m.bias)
-        return F.conv2d(x, weight(m.weight), b, m.stride, m.padding, m.dilation)
+        return conv_tiles.row_tiled_conv(x, weight(m.weight), b, m.stride, m.padding, m.dilation, tile)
 
     @staticmethod
     def add_bias(x, convs):
@@ -467,19 +474,41 @@ def skip_conv(ops, y, skip, blocks, step: Skip):
     return conv_bn_elu(ops, x, blocks, step.conv)
 
 
-def run_decoder(ops, nets, maps, plan):
+@dataclass(frozen=True)
+class RowTiles:
+    """``ops`` whose convs run in row tiles of ``rows`` output rows."""
+
+    ops: object
+    rows: int
+
+    def __getattr__(self, name):
+        return getattr(self.ops, name)
+
+    def conv(self, x, convs, weight=lambda w: w, bias=None):
+        return self.ops.conv(x, convs, weight, bias, tile=self.rows)
+
+
+def run_decoder(ops, nets, maps, plan, after_step=None):
     """The decoder of ``plan`` from the encoder's ``maps`` ('x1', 'x2',
     'x3', 'x_first1') through ``ops`` (``DenseOps`` or the banded program's),
-    each block with its replicas in ``nets``; returns the local map."""
+    each block with its replicas in ``nets``, every conv in row tiles of
+    ``ops/conv_tiles.py``'s ``ROW_TILE`` image rows; returns the local map.
+    ``after_step(step, y)``, where given, sees each block's output."""
     y = maps["x3"]
+    stride = 16  # x3's, in image rows per map row
     for step in plan:
         blocks = [getattr(n, step.name) for n in nets]
         if isinstance(step, Up):
-            y = up_conv(ops, y, blocks, step)
+            stride //= blocks[0].scale
+        tiled = RowTiles(ops, conv_tiles.ROW_TILE // stride)
+        if isinstance(step, Up):
+            y = up_conv(tiled, y, blocks, step)
         elif isinstance(step, Skip):
-            y = skip_conv(ops, y, maps[step.skip], blocks, step)
+            y = skip_conv(tiled, y, maps[step.skip], blocks, step)
         else:
-            y = conv_bn_elu(ops, y, blocks, step.conv)
+            y = conv_bn_elu(tiled, y, blocks, step.conv)
+        if after_step is not None:
+            after_step(step, y)
     return y
 
 
@@ -523,6 +552,13 @@ class ResUNet(nn.Module):
                 blocks.append(blk)
                 cin = blk.out_ch
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
+            # the encoder's 3x3 stride-1 convs in row tiles (ops/conv_tiles.py): on the
+            # card cuDNN picks another bf16 algorithm for a 12 Mpx frame's H/8
+            # map than for a band's (tools/spatial_rounding_torch.py)
+            for m in blocks:
+                for c in m.modules():
+                    if isinstance(c, Conv2d) and c.kernel_size == (3, 3) and c.stride == (1, 1):
+                        c.row_tile = conv_tiles.ROW_TILE // (4 * 2**li)
         c1 = self.layer1[-1].out_ch
         c2 = self.layer2[-1].out_ch
         c3 = self.layer3[-1].out_ch

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCES = (PKG / "csrc" / "fused_head.cu", PKG / "csrc" / "fused_head_f32.cu", PKG / "csrc" / "reinforce.cu")
+SOURCES = tuple(PKG / "csrc" / f for f in ("fused_head.cu", "fused_head_f32.cu", "reinforce.cu", "moments.cu"))
 HEADERS = (PKG / "csrc" / "hopper.cuh",)  # included by the sources; in the library's hash
 BUILD_DIR = PKG.parent / "build" / "torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -147,7 +147,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.posfeat_lse_pass.restype = i
     lib.posfeat_reward_pass.argtypes = [p] * 12 + [i] * 5 + [f] * 4 + [p]
     lib.posfeat_reward_pass.restype = i
-    for name in ("posfeat_error_string", "posfeat_reinforce_error_string"):
+    lib.posfeat_row_moments.argtypes = [p] * 3 + [i, ctypes.c_longlong, ctypes.c_longlong] + [i] * 3 + [p]
+    lib.posfeat_row_moments.restype = i
+    for name in ("posfeat_error_string", "posfeat_reinforce_error_string", "posfeat_moments_error_string"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

@@ -31,10 +31,10 @@ the first device: one channel, 1/128 of the 128-channel local map that
 banding spreads, so their slate is the unsharded one by construction;
 they take ``topk`` as their unsharded forms do.
 
-``sample_feat_by_coord`` takes the unsharded ``impl``: "corner" and
-"quad" (which sums the same four weighted corners in the same order)
-the corner formula, "pair" ``_pair_lerp``'s arithmetic, each point on
-the band that owns its upper tap row.
+``sample_feat_by_coord`` runs the unsharded sampler, with its ``impl``,
+on the local map gathered on the first device (128 channels at H/4: on
+a 3024x4032 frame 9.75e7 elements, where the head's phase-layout maps
+that stay banded hold 16 times as many).
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ from ..ops.detect import (
     softargmax3_offsets,
     top_k,
 )
-from ..ops.grid_sample import SAMPLE_IMPLS, l2_normalize
+from ..ops import grid_sample
 from ..ops.nms import nms_window
 from ..ops.pooling import avg_pool2d, max_pool2d
 from .banded_ops import Bands, global_max, global_sum
@@ -260,63 +260,8 @@ def _single(kp_map: Bands, *, num_pts: int, nms_radius: int, use_nms=True, thr=F
 
 
 def sample_feat_by_coord(x: Bands, coord_n: torch.Tensor, norm: bool = False, impl: str = "corner") -> torch.Tensor:
-    """``sample_feat_by_coord`` on bands of the map [B, h, w, C]: each
-    point's bilinear taps (align_corners=False, zeros outside the map) at
-    global coordinates, read on the band that owns its upper tap row with
-    one row below (and above, for the first band's row −1). In f32, then
-    the L2 norm where ``norm``; [B, N, C] on coord_n's device. ``impl``:
-    "corner" or "quad" sum the four weighted corners; "pair" lerps each
-    footprint row in x, then in y, as the unsharded "pair" does."""
-    if impl not in SAMPLE_IMPLS:
-        raise ValueError(f"unknown sample_impl {impl!r}; expected one of {SAMPLE_IMPLS}")
-    h, w = x.total, x.parts[0].shape[2]
-    dev0 = coord_n.device
-    c = coord_n.float()
-    ix = ((c[..., 0] + 1) * w - 1) / 2
-    iy = ((c[..., 1] + 1) * h - 1) / 2
-    x0, y0 = torch.floor(ix), torch.floor(iy)
-    if impl == "pair":
-        wx1, wy1 = ix - x0, iy - y0
-        wx0, wy0 = 1.0 - wx1, 1.0 - wy1
-    else:
-        nw = (x0 + 1 - ix) * (y0 + 1 - iy)
-        ne = (ix - x0) * (y0 + 1 - iy)
-        sw = (x0 + 1 - ix) * (iy - y0)
-        se = (ix - x0) * (iy - y0)
-    x0l, y0l = x0.long(), y0.long()
-    ext = x.halo(1, 1)
-    out = None
-    n_bands = len(x)
-    for i, (e, a, b) in enumerate(zip(ext, x.starts, x.stops)):
-        dev = e.device
-        B, rows, _, C = e.shape
-        flat = e.float().reshape(B, -1, C)
-        yb, xb = y0l.to(dev), x0l.to(dev)
-        sel = ((yb >= a) | (i == 0)) & ((yb < b) | (i == n_bands - 1))
-
-        def tap(yy, xx):
-            # the unsharded gather's clamped pixel, on this band's rows
-            li = (yy.clamp(0, h - 1) - (a - 1)).clamp(0, rows - 1) * w + xx.clamp(0, w - 1)
-            return torch.gather(flat, 1, li[..., None].expand(-1, -1, C))
-
-        if impl == "pair":
-            # ops/grid_sample.py _pair_lerp: a corner outside the map weighs 0
-            def row(yy):
-                vy = (yy >= 0) & (yy < h)
-                w0 = torch.where(vy & (xb >= 0) & (xb < w), wx0.to(dev), 0.0)[..., None]
-                w1 = torch.where(vy & (xb + 1 >= 0) & (xb + 1 < w), wx1.to(dev), 0.0)[..., None]
-                return tap(yy, xb) * w0 + tap(yy, xb + 1) * w1
-
-            acc = row(yb) * wy0.to(dev)[..., None] + row(yb + 1) * wy1.to(dev)[..., None]
-        else:
-            acc = None
-            for dy, dx, wt in ((0, 0, nw), (0, 1, ne), (1, 0, sw), (1, 1, se)):
-                yy, xx = yb + dy, xb + dx
-                ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-                v = tap(yy, xx)
-                v = torch.where(ok[..., None], v, torch.zeros_like(v)) * wt.to(dev)[..., None]
-                acc = v if acc is None else acc + v
-        acc = acc.to(dev0)
-        out = acc if out is None else torch.where(sel.to(dev0)[..., None], acc, out)
-    # the first band's result stands where no later band owns the point
-    return l2_normalize(out) if norm else out
+    """``sample_feat_by_coord`` (``impl`` "corner", "quad" or "pair") on
+    bands of the map [B, h, w, C]: the unsharded sampler on the map
+    gathered on coord_n's device, so its descriptors are the unsharded
+    ones by construction; [B, N, C] in f32, L2-normalized where ``norm``."""
+    return grid_sample.sample_feat_by_coord(x.concat(coord_n.device), coord_n, norm, impl)

@@ -60,10 +60,10 @@ class BandOps:
         return x.map(fn, *others)
 
     @staticmethod
-    def conv(x: Bands, convs, weight=lambda w: w, bias=None) -> Bands:
+    def conv(x: Bands, convs, weight=lambda w: w, bias=None, tile=None) -> Bands:
         c = convs[0]
         biases = None if bias is None else [bias(m.bias) for m in convs]
-        return bo.conv2d(x, [weight(m.weight) for m in convs], biases, c.stride, c.padding, c.dilation)
+        return bo.conv2d(x, [weight(m.weight) for m in convs], biases, c.stride, c.padding, c.dilation, tile)
 
     @staticmethod
     def add_bias(x: Bands, convs) -> Bands:

@@ -18,13 +18,15 @@ the bands' devices run without waiting for each other.
 from __future__ import annotations
 
 import bisect
+import math
 from dataclasses import dataclass
 from typing import Callable, List, Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.conv_tiles import row_tiled_conv
+from ..ops.moments import check_dims, moments, normalize, row_moments
 from ..ops.pooling import avg_pool2d, pad2d
 from ..ops.priors import ssim_from_shifts
 
@@ -177,27 +179,36 @@ def _pair(v):
 
 
 def conv2d(x: Bands, weights: Sequence[torch.Tensor], biases=None, stride=1, padding=0,
-           dilation=1) -> Bands:
-    """F.conv2d with zero padding on NHWC bands: each band takes
-    ``padding`` rows above and (k−1)·d − padding + 1 − stride below
-    (zeros only beyond the map), and its output rows are its own rows /
-    stride. ``weights[i]`` [out, in, kh, kw] lives on band i's device."""
+           dilation=1, tile=None) -> Bands:
+    """F.conv2d with zero padding on NHWC bands: band i's output rows are
+    its own rows / stride (the last band's to the map's end), run by
+    ``row_tiled_conv`` on the rows they read, gathered from the
+    neighbouring bands, one call a band or, with ``tile``, one call a
+    tile of the whole map: where the bands begin on tile boundaries,
+    every call is then the unsharded program's. ``weights[i]`` [out, in,
+    kh, kw] lives on band i's device."""
     kh = weights[0].shape[2]
-    (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
-    ext = x.halo(ph, (kh - 1) * dh - ph + 1 - sh)
+    (sh, _), (ph, _), (dh, _) = _pair(stride), _pair(padding), _pair(dilation)
+    out_total = (x.total + 2 * ph - dh * (kh - 1) - 1) // sh + 1
     parts = []
-    for i, e in enumerate(ext):
-        w = weights[i].to(e.dtype)
-        b = None if biases is None or biases[i] is None else biases[i].to(e.dtype)
-        parts.append(_nhwc(F.conv2d(_nchw(e), w, b, (sh, sw), (0, pw), (dh, dw))))
-    return x.with_parts(parts, x.total // sh)
+    for i, (a, b) in enumerate(zip(x.starts, x.stops)):
+        oa, ob = a // sh, (b // sh if b < x.total else out_total)
+        lo, hi = max(oa * sh - ph, 0), min((ob - 1) * sh - ph + (kh - 1) * dh + 1, x.total)
+        e = x.gather(i, range(lo, hi))
+        bias = None if biases is None or biases[i] is None else biases[i].to(e.dtype)
+        y = row_tiled_conv(_nchw(e), weights[i].to(e.dtype), bias, stride, padding, dilation, tile, lo, x.total,
+                           (oa, ob))
+        parts.append(_nhwc(y))
+    return x.with_parts(parts, out_total)
 
 
 def conv_module(x: Bands, convs) -> Bands:
     """Each band through its replica of one ``nn.Conv2d`` (weights cast
-    to the input's dtype, as the port's ``Conv2d`` does)."""
+    to the input's dtype, as the port's ``Conv2d`` does), in its row tiles
+    where it has them."""
     c = convs[0]
-    return conv2d(x, [m.weight for m in convs], [m.bias for m in convs], c.stride, c.padding, c.dilation)
+    return conv2d(x, [m.weight for m in convs], [m.bias for m in convs], c.stride, c.padding, c.dilation,
+                  getattr(c, "row_tile", None))
 
 
 def module_nchw(x: Bands, mods) -> Bands:
@@ -244,20 +255,20 @@ def resize(x: Bands, size, align_corners: bool) -> Bands:
 
 
 def instance_norm(x: Bands, eps: float = 1e-5, dims=(1, 2)) -> Bands:
-    """Non-affine InstanceNorm over ``dims`` (the row axis 1 among them)
-    of all bands: f32 Σx and Σx² of every band summed on the first
-    device, then the biased-variance formula of ``instance_norm``."""
-    xf = [p.float() for p in x.parts]
-    n = sum(int(np.prod([p.shape[d] for d in dims])) for p in x.parts)
-    s1 = global_sum([p.sum(dim=dims, keepdim=True) for p in xf])
-    s2 = global_sum([(p * p).sum(dim=dims, keepdim=True) for p in xf])
-    mean = s1 / n
-    var = torch.clamp(s2 / n - mean * mean, min=0.0)
-    rstd = torch.rsqrt(var + eps)
-    parts = []
-    for p, src in zip(xf, x.parts):
-        m, r = mean.to(p.device, non_blocking=True), rstd.to(p.device, non_blocking=True)
-        parts.append(((p - m) * r).to(src.dtype))
+    """Non-affine InstanceNorm over ``dims`` (every axis between the batch
+    and the channels) of all bands, bit for bit ``instance_norm``: each
+    band's f32 row partials (``ops/moments.py`` ``row_moments``, the
+    kernel on the card) concatenated in row order on the first device,
+    [B, H, C] as the unsharded map's, and the same sum over the rows."""
+    for p in x.parts:
+        check_dims(p, dims)
+    rows = [row_moments(p) for p in x.parts]
+    dev = x.parts[0].device
+    s1 = torch.cat([r[0].to(dev, non_blocking=True) for r in rows], dim=1)
+    s2 = torch.cat([r[1].to(dev, non_blocking=True) for r in rows], dim=1)
+    n = x.total * math.prod(x.parts[0].shape[2:-1])
+    mean, rstd = moments(s1, s2, n, eps)
+    parts = [normalize(p, m, r) for p, m, r in zip(x.parts, broadcast(mean, x), broadcast(rstd, x))]
     return Bands(parts, list(x.starts), x.total)
 
 

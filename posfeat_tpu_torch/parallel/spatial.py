@@ -7,10 +7,11 @@ PyTorch has no partitioner, so this module runs the banded program by
 hand, in one process over an ordered device list:
 
 - the image's rows split into bands, one per device, each a whole number
-  of 16-row blocks (ResUNet's deepest map is at H/16, so every stride-2
-  layer splits on even rows), bands differing by one block at most; an
-  image with fewer blocks than devices uses as many devices as it has
-  blocks;
+  of the 512-row conv tiles (``ops/conv_tiles.py`` ``ROW_TILE``)
+  where the image has two or more, else of 16-row blocks (ResUNet's
+  deepest map is at H/16, so every stride-2 layer splits on even rows),
+  bands differing by one unit at most; an image with fewer units than
+  devices uses as many devices as it has units;
 - each device holds a replica of the model, made once; where the list
   names one device twice, its bands share one replica;
 - every windowed op reads its halo rows from the neighbouring bands,
@@ -20,12 +21,17 @@ hand, in one process over an ordered device list:
   wait for each other.
 
 Extraction runs the model in eval mode, so the banded program computes
-the unsharded function, and differs from the unsharded run by rounding
-only: the instance-norm sums add in another order, and so do the convs
-where the library picks its algorithm by the map's height (oneDNN on the
-CPU; on the card cuDNN's TF32 convs, which the bf16 decoder's
-f32-accumulated convs take, while its other convs give the unsharded
-elements; tools/spatial_rounding_torch.py shows each). The fused head
+the unsharded function, and on an image of two or more tiles it does so
+bit for bit: the head's instance norms sum their moments row by row
+(``ops/moments.py``, the same [B, H, C] partials in both programs), and
+the convs whose algorithm the library picks by the map's height (on the
+card cuDNN's TF32 convs of the bf16 decoder and, on a 12 Mpx frame, its
+bf16 convs at H/8 and H/4; oneDNN's on the CPU) run in the same row
+tiles in both programs: every decoder conv and every 3x3 stride-1 conv
+of the encoder (``ops/conv_tiles.py`` ``row_tiled_conv``).
+tools/spatial_rounding_torch.py walks every conv on shared inputs and
+shows where the maps part. A one-tile image's bands are 16-row blocks,
+and its decoder convs then round as its bands' calls do. The fused head
 (``fused_upsample: "pallas"``) is a single-device kernel and is refused
 here: the Extractor swaps it for the ``"phase"`` dataflow, as JAX does.
 A configuration the banded program does not run raises before any work;
@@ -40,6 +46,7 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
+from ..ops import conv_tiles
 from .banded_models import posfeat_extract
 from .banded_ops import split_rows
 
@@ -61,18 +68,30 @@ class SpatialMesh:
     devices: Tuple[torch.device, ...]
 
     def plan(self, height: int) -> List[int]:
-        """First rows of the bands of an image of ``height`` rows: whole
-        16-row blocks, at most one block apart, one band per device or per
-        block, whichever is fewer."""
+        """First rows of the bands of an image of ``height`` rows, one band
+        per device or per unit, whichever is fewer, bands at most one unit
+        apart. The unit is the decoder's row tile (``ROW_TILE`` image rows;
+        the last one may be shorter) where the image has two or more, so
+        that each band's decoder convs are the unsharded program's calls;
+        else a 16-row block (a one-tile image's banded decoder then rounds
+        as its bands' calls do). Tiles cost balance: a 3024-row frame
+        over 4 devices gets bands of 512, 512, 1024 and 976 rows (16-row
+        blocks would give 752-768), and an image of T tiles uses at most
+        T devices (2048 rows: 4)."""
         if height % BLOCK or height <= 0:
             raise ValueError(f"spatial bands take whole {BLOCK}-row blocks; the image has {height} rows")
-        blocks = height // BLOCK
-        n = min(len(self.devices), blocks)
-        base, extra = divmod(blocks, n)
+        unit = conv_tiles.ROW_TILE if height > conv_tiles.ROW_TILE else BLOCK
+        units = -(-height // unit)
+        n = min(len(self.devices), units)
+        base, extra = divmod(units, n)
+        # a band more goes to the first bands, or to the last ones where the
+        # last tile may be short, so that no band is more than a unit
+        # shorter than another
+        more = range(extra) if unit == BLOCK else range(n - extra, n)
         starts, r = [], 0
         for i in range(n):
             starts.append(r)
-            r += BLOCK * (base + (i < extra))
+            r += unit * (base + (i in more))
         return starts
 
 

@@ -325,8 +325,9 @@ def test_refusals_come_before_any_work(small_variables, monkeypatch, tmp_path):
 
 
 def test_band_plan():
-    """Whole 16-row blocks, at most one block apart, no more bands than blocks."""
+    """Whole 16-row blocks, at most one block apart, no more bands than blocks;
+    above one decoder row tile (512 rows), whole tiles."""
     mesh = spatial_mesh(["cpu"] * 4)
     assert mesh.plan(160) == [0, 48, 96, 128]
     assert mesh.plan(32) == [0, 16]
-    assert spatial_mesh(["cpu"] * 3).plan(2048) == [0, 688, 1376]
+    assert spatial_mesh(["cpu"] * 3).plan(2048) == [0, 512, 1024]

@@ -5,7 +5,7 @@ so that a change is compared with its parent on the same card and under
 the same conditions, and the host-bound end-to-end numbers get enough
 turns to show their spread.
 
-    python3 tools/compare_torch_trees.py PARENT_DIR CHANGE_DIR [--rounds N]
+    python3 tools/compare_torch_trees.py PARENT_DIR CHANGE_DIR [--rounds N] [--frame]
 
 Each turn is a process of its own, started in that checkout: it builds
 the checkout's kernels and runs its chip_smoke.py phases in the order
@@ -22,7 +22,22 @@ reward passes at D = 256 and 200, f1 streamed; the D = 256 ones timed)
 and phase 17 (e) (stage 2 at ``fine_out_ch: 256``, s/step). The kernel
 phases check every kernel
 against its plain version and time it with CUDA events (ms per launch);
-the end-to-end numbers are read from the lines the phases print. Prints one JSON line per turn, then
+the end-to-end numbers are read from the lines the phases print.
+
+With ``--frame`` a turn times these instead, with nothing but what
+both trees have: the unsharded bf16 extraction program of chip_smoke.py
+phase 23 (b) (a seeded 2048x3072 frame, the flagship model, the Aachen
+detector, the card's lite gates, the "phase" head), ms/image over 5
+runs after a warm-up and its peak memory, the same for a 1200x1600
+frame (HPatches and ETH images are of this order: below
+``spatial_threshold_px``, so never banded, and three 512-row conv tiles
+tall); and the flagship bf16 head's
+device time per call on a batch of 16 480x640 images (the main path's
+fused head, the backbone's maps made once), the sum of its kernels'
+durations in a torch.profiler window of 10 calls after 3, and its CUDA
+event ms per call.
+
+Prints one JSON line per turn, then
 nvidia-smi's name and power limit, and a last JSON line
 {"results": {name: {"A": [x, x], "B": [x, x]}}}. Without a CUDA card it
 exits 2 and prints no result.
@@ -59,6 +74,54 @@ wide = chip_smoke.slice_h_reduction(torch, rng)
 chip_smoke.phase_training(torch, wide, fine_out_ch=256, tag="[17] (e)", suffix=" D=256")
 print("TURN " + json.dumps({r["name"]: r["ms"] for r in head + v1 + reduction + f32 + wide}), flush=True)
 """
+TURN_FRAME = r"""
+import json, sys, tempfile
+MID = (1200, 1600)
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, ".")
+import chip_smoke as c
+from posfeat_tpu_torch import resolve_device
+from posfeat_tpu_torch.ops import _build
+resolve_device("cuda")
+_build.build()
+card = torch.device("cuda", 0)
+rng = np.random.default_rng(c.SEED)
+frame = c._frame(rng, c.SLICE_K_H, c.SLICE_K_W)
+im_u8 = torch.from_numpy(frame)[None].to(card)
+out = {}
+with tempfile.TemporaryDirectory() as tmp:
+    ex = c._banded_extractor(torch, tmp, "frame", 2, {})
+    _, out["frame ms/image"], peak = c._timed_slate(torch, ex._learned_fn(frame.shape[:2], "detector_config"),
+                                                    im_u8, [card], reps=5)
+    out["frame peak GiB"] = peak[0] / 2**30
+    # an image below spatial_threshold_px of three row tiles (512, 512 and
+    # 176 rows), which never runs banded
+    mid = c._frame(np.random.default_rng(c.SEED + 1), *MID)
+    _, out["mid ms/image"], peak = c._timed_slate(torch, ex._learned_fn(mid.shape[:2], "detector_config"),
+                                                  torch.from_numpy(mid)[None].to(card), [card], reps=5)
+    out["mid peak GiB"] = peak[0] / 2**30
+    del ex
+    torch.cuda.empty_cache()
+    model = c.flagship_extractor(tmp, rng, output_root="head").model
+    im = torch.randn(c.BATCH, c.H, c.W, 3, device=card)
+    with torch.inference_mode():
+        fm = model.backbone(im)
+        x = torch.cat([fm[e] for e in model.local_input_elements], dim=-1)
+        head = lambda: model.localheader(x, im)
+        out["head ms/batch (events)"] = c._time_ms(head, n=10, warmup=3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                head()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(f"{tmp}/trace.json")
+    with open(f"{tmp}/trace.json") as f:
+        kernels = [e["dur"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel" and "dur" in e]
+    assert kernels, "the trace holds no device kernels"
+    out["head device ms/batch"] = sum(kernels) / 10 / 1e3
+print("TURN " + json.dumps(out), flush=True)
+"""
 # the end-to-end metrics, read from the lines that the phases print
 E2E = {
     "v3 extraction im/s": r"^\[5\] main path: .*?: ([0-9.]+) im/s",
@@ -79,16 +142,19 @@ def main() -> int:
     ap.add_argument("parent", help="root of the parent's checkout (A)")
     ap.add_argument("change", help="root of the change's checkout (B)")
     ap.add_argument("--rounds", type=int, default=1, help="rounds of turns A, B, B, A")
+    ap.add_argument("--frame", action="store_true",
+                    help="time the unsharded 2048x3072 bf16 program and the 480x640 head instead")
     args = ap.parse_args()
     trees = {"A": os.path.abspath(args.parent), "B": os.path.abspath(args.change)}
     results = {}
     for label in ("A", "B", "B", "A") * args.rounds:
-        res = subprocess.run([sys.executable, "-c", TURN], cwd=trees[label], capture_output=True, text=True)
+        res = subprocess.run([sys.executable, "-c", TURN_FRAME if args.frame else TURN], cwd=trees[label],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
             return 1
         turn = json.loads(next(x for x in res.stdout.splitlines() if x.startswith("TURN "))[5:])
-        for name, pattern in E2E.items():
+        for name, pattern in () if args.frame else E2E.items():
             turn[name] = float(re.search(pattern, res.stdout, re.M).group(1))
         print(json.dumps({"tree": label, "path": trees[label], "results": turn}), flush=True)
         for name, t in turn.items():

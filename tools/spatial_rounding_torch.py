@@ -27,15 +27,25 @@ f32 with the reference dataflow, bands on cuda:0:
   of a TF32 algorithm by map height is where the banded maps part;
 - the head's instance norms, banded on the unsharded maps against the
   unsharded head, with their moments summed in each of these orders
-  (``--in-orders``): "bands" (each band's f32 sums added on the first
-  device, as the banded program does), "gathered" (one f32 sum over the
+  (``--in-orders``): "shipped" (both programs' own: each row's f32 sums,
+  ``ops/moments.py``, the rows' partials concatenated and summed once),
+  "bands" (the unsharded norm's one f32 sum a moment, each band's such
+  sums added on the first device: the former banded order), "gathered" (one f32 sum over the
   bands concatenated there: the unsharded order), "rows" (both programs
   sum each row in f32, then the rows' sums in one f32 sum) and "f64"
   (both programs sum in f64). For each norm: whether its input is the
   unsharded one (an exact integer fingerprint of its bits) and how many
   channels' mean and rsqrt(var + eps) differ; then the score elements
   that differ and each slate's |Δvalid|, under the exact and the packed
-  top-k (``--topk``).
+  top-k (``--topk``);
+- every conv of the backbone and the head on shared inputs:
+  each ``F.conv2d`` call of the unsharded forward is run again as the
+  banded program runs it (each band of its output rows through one call
+  on the rows it reads, zero rows beyond the map's edges) on that call's
+  own input, and the elements of the output that differ are counted, so
+  each conv whose arithmetic depends on the map's height shows on equal
+  inputs; the calls are named by module (the encoder's and the decoder's
+  blocks) or by their place in the head.
 
 Prints one line per measurement, then the card's name and power limit.
 """
@@ -52,33 +62,113 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+_LABEL = {"name": "?", "n": 0}  # the block that runs, for ``_conv_walk``'s names
+
+
 @contextlib.contextmanager
 def _recording_decoder(torch, steps):
     """``run_decoder`` for the unsharded and the banded backbone, keeping
-    each block's output in ``steps`` (until it is cleared)."""
+    each block's output in ``steps`` (until it is cleared) and naming the
+    block that runs for ``_conv_walk``."""
     from posfeat_tpu_torch.models import resunet as rn
     from posfeat_tpu_torch.parallel import banded_models as bm
 
+    shipped = rn.run_decoder
+
     def run(ops, nets, maps, plan):
-        y = maps["x3"]
-        for step in plan:
-            blocks = [getattr(n, step.name) for n in nets]
-            if isinstance(step, rn.Up):
-                y = rn.up_conv(ops, y, blocks, step)
-            elif isinstance(step, rn.Skip):
-                y = rn.skip_conv(ops, y, maps[step.skip], blocks, step)
-            else:
-                y = rn.conv_bn_elu(ops, y, blocks, step.conv)
+        names = [f"decoder {step.name}" for step in plan]
+        _LABEL["name"], _LABEL["n"] = names[0], 0
+
+        def after_step(step, y):
+            i = plan.index(step)
+            _LABEL["name"], _LABEL["n"] = names[min(i + 1, len(names) - 1)], 0
             if steps:
                 steps["unsharded" if ops is rn.DenseOps else "banded"].append((step.name, y))
-        return y
 
-    shipped = rn.run_decoder, bm.run_decoder
+        return shipped(ops, nets, maps, plan, after_step)
+
     rn.run_decoder = bm.run_decoder = run
     try:
         yield
     finally:
-        rn.run_decoder, bm.run_decoder = shipped
+        rn.run_decoder = bm.run_decoder = shipped
+
+
+@contextlib.contextmanager
+def _conv_walk(torch, model, height, starts, rows):
+    """Every ``F.conv2d`` call while active is also run as the banded
+    program runs it, over the bands whose first image rows are ``starts``
+    (of ``height``), on the call's own input; appends (name, call, elements
+    that differ, elements) to ``rows``. A call that is one of several row
+    tiles (``row_tiled_conv``) is the banded program's own call where the
+    bands lie on tile boundaries; it is listed with None for the count.
+    Names come from forward pre-hooks on the backbone's blocks and the
+    head's modules."""
+    import torch.nn.functional as F
+
+    from posfeat_tpu_torch.models import resunet as rn
+    from posfeat_tpu_torch.ops import conv_tiles
+
+    shipped, shipped_tiled = F.conv2d, conv_tiles.row_tiled_conv
+    label = _LABEL
+    hooks = []
+
+    def row_tiled_conv(x, weight, bias, stride, padding, dilation, tile=None, *args):
+        label["tiles"] = tile is not None and x.shape[2] > tile
+        try:
+            return shipped_tiled(x, weight, bias, stride, padding, dilation, tile, *args)
+        finally:
+            label["tiles"] = False
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, (rn.Conv2d, rn.ConvBNElu, rn.UpConv)) or name == "localheader":
+            def pre(_m, _a, name=name):
+                label["name"], label["n"] = name, 0
+            hooks.append(mod.register_forward_pre_hook(pre))
+
+    def pair(v):
+        return (v, v) if isinstance(v, int) else tuple(v)
+
+    def conv2d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+        y = shipped(x, w, b, stride, padding, dilation, groups)
+        (sh, sw), (ph, pw), (dh, dw) = pair(stride), pair(padding), pair(dilation)
+        kh, H_in, H_out = w.shape[2], x.shape[2], y.shape[2]
+        name = f"{label['name']}#{label['n']}" if label["n"] else label["name"]
+        if label.get("tiles"):
+            label["n"] += 1
+            rows.append((name, f"{tuple(x.shape)} {str(x.dtype)[6:]} * {tuple(w.shape)}, a row tile", None,
+                         y.numel()))
+            return y
+        if x.shape[0] != 1 or height % H_out or isinstance(padding, str):
+            return y
+        f = height // H_out
+        outs = [a // f for a in starts] + [H_out]
+        parts = []
+        xh = x.permute(0, 2, 3, 1)  # the NHWC rows the banded program holds
+        for o0, o1 in zip(outs[:-1], outs[1:]):
+            lo, hi = o0 * sh - ph, (o1 - 1) * sh - ph + (kh - 1) * dh + 1
+            pieces = []
+            if lo < 0:
+                pieces.append(xh.new_zeros((1, -lo) + tuple(xh.shape[2:])))
+            pieces.append(xh[:, max(lo, 0) : min(hi, H_in)])
+            if hi > H_in:
+                pieces.append(xh.new_zeros((1, hi - H_in) + tuple(xh.shape[2:])))
+            e = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+            parts.append(shipped(e.permute(0, 3, 1, 2), w, b, (sh, sw), (0, pw), (dh, dw), groups))
+        banded = torch.cat(parts, dim=2)
+        label["n"] += 1
+        call = (f"{tuple(x.shape)} {str(x.dtype)[6:]} * {tuple(w.shape)}, stride {sh}, pad {ph}, "
+                f"TF32 {'on' if torch.backends.cudnn.allow_tf32 and x.dtype == torch.float32 else 'off'}")
+        rows.append((name, call, int((banded != y).sum()), y.numel()))
+        return y
+
+    F.conv2d, conv_tiles.row_tiled_conv = conv2d, row_tiled_conv
+    try:
+        yield
+    finally:
+        F.conv2d, conv_tiles.row_tiled_conv = shipped, shipped_tiled
+        for h in hooks:
+            h.remove()
 
 
 def _fingerprint(torch, x):
@@ -91,8 +181,15 @@ def _moments(torch, parts, dims, order):
     """Σx and Σx² over ``dims`` of the row-split ``parts`` (one part: the
     unsharded map), summed in ``order``, and the count n; f32 sums, f64 for
     "f64", on the first part's device."""
+    from posfeat_tpu_torch.ops import moments as mo
+
     dev = parts[0].device
     n = sum(int(np.prod([p.shape[d] for d in dims])) for p in parts)
+    if order == "shipped":
+        rows = [mo.row_moments(p) for p in parts]
+        shape = (parts[0].shape[0],) + (1,) * (parts[0].ndim - 2) + (parts[0].shape[-1],)
+        s1, s2 = (torch.cat([r[i].to(dev) for r in rows], dim=1).sum(dim=1).reshape(shape) for i in (0, 1))
+        return s1, s2, n
     xf = [p.float() for p in parts]
     if order == "gathered":
         x = torch.cat([p.to(dev) for p in xf], dim=1)
@@ -110,8 +207,7 @@ def _moments(torch, parts, dims, order):
 def _in_orders(torch, order, run_head, run_bhead, slate, topks, label):
     """The unsharded head (``run_head``) and the banded head on the same
     maps (``run_bhead``) with both programs' instance norms summing their
-    moments in ``order`` ("bands": the unsharded norm as shipped, the
-    banded one its bands' sums added); prints, for each norm in call
+    moments in ``order``; prints, for each norm in call
     order, whether its input is the unsharded one and how many channels'
     mean and rstd differ, then the score map's differing elements and the
     slates' |Δvalid| under each top-k."""
@@ -121,7 +217,7 @@ def _in_orders(torch, order, run_head, run_bhead, slate, topks, label):
     seen = {"unsharded": [], "banded": []}
 
     def stats(parts, dims, eps, key):
-        s1, s2, n = _moments(torch, parts, dims, order)  # one part: "bands" and "gathered" are the shipped sum
+        s1, s2, n = _moments(torch, parts, dims, order)  # one part: "bands" and "gathered" are one sum
         mean = s1 / n
         var = torch.clamp(s2 / n - mean * mean, min=0.0)
         mean, rstd = mean.float(), torch.rsqrt(var.float() + eps)
@@ -167,7 +263,7 @@ def main(argv=None) -> int:
     ap.add_argument("--decoder-tf32", choices=("on", "off"), default="on",
                     help="off: the decoder's f32-accumulated convs of bf16 values without TF32")
     ap.add_argument("--topk", default="exact,approx", help="the detector's top-k forms, comma-separated")
-    ap.add_argument("--in-orders", default="bands,gathered,rows,f64",
+    ap.add_argument("--in-orders", default="shipped,bands,gathered,rows,f64",
                     help="the instance norms' summation orders to compare, comma-separated (none: '')")
     args = ap.parse_args(argv)
 
@@ -237,6 +333,17 @@ def main(argv=None) -> int:
         for key in ("global_map", "local_map", "local_map_small"):
             diff = int((bfm[key].concat() != fm[key]).sum())
             print(f"{label}, {args.bands} bands: backbone {key}: {diff} of {fm[key].numel()} elements differ")
+        # the whole banded program: its head on its own backbone's bands
+        b_input = bfm[model.local_input_elements[0]].map(lambda *ps: torch.cat(ps, dim=-1),
+                                                        *(bfm[e] for e in model.local_input_elements[1:]))
+        whole = keypoint_det(b_input, bands, [model.localheader] * args.bands).concat()
+        n_map = int((bfm["local_map"].concat() != fm["local_map"]).sum())
+        print(f"{label}, {args.bands} bands (first rows {starts}), the whole banded program: local_map "
+              f"{'equal' if n_map == 0 else f'differs in {n_map} elements'}, score map "
+              f"{'equal' if torch.equal(whole, head) else f'differs in {int((whole != head).sum())} elements'} "
+              f"(torch.equal)")
+        against(f"the whole {args.bands}-band program", slate(whole), ref)
+        del b_input, whole
         banded_fm = {k: bfm[k].concat() for k in model.local_input_elements}
         against(f"{args.bands}-band backbone, unsharded head", slate(head_of(banded_fm, im)), ref)
         local_input = torch.cat([fm[e] for e in model.local_input_elements], dim=-1)
@@ -252,6 +359,17 @@ def main(argv=None) -> int:
         noisy = im * (1 + 1e-6 * torch.randn(im.shape, generator=g, device=card))
         against("unsharded, input x (1 + 1e-6 noise)", slate(head_of(model.backbone(noisy), noisy)), ref)
         del bfm, banded_fm, bhead, noisy
+        rows = []
+        with _conv_walk(torch, model, fh, starts, rows):
+            head_of(model.backbone(im), im)
+        differ = [r for r in rows if r[2]]
+        tiles = [r for r in rows if r[2] is None]
+        for name, call, n, total in rows:
+            print(f"{label}, {args.bands} bands, conv on shared input: {name}: {call}: "
+                  + ("the banded program's own call" if n is None else f"{n} of {total} elements differ"))
+        print(f"{label}, {args.bands} bands, convs on shared inputs: {len(differ)} of {len(rows) - len(tiles)} "
+              f"whole-map calls differ" + (f", first {differ[0][0]}" if differ else "")
+              + f"; {len(tiles)} row-tile calls")
         run_head = lambda: head_of(fm, im)  # noqa: E731
         run_bhead = lambda: keypoint_det(  # noqa: E731
             bo.split_rows(local_input, [card] * args.bands, [a // 4 for a in starts]), bands,
