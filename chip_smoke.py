@@ -318,6 +318,30 @@ def _time_ms(fn, n=20, warmup=3):
     return e0.elapsed_time(e1) / n
 
 
+def _graph_ms(fn, n=20):
+    """Device ms a call of ``fn``: n calls captured in one CUDA graph and
+    replayed after a warm-up, so that no host time lies between launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
 def _bound(ops, peak, nbytes):
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -329,10 +353,12 @@ CONV_KERNELS = ("conv_phase_kernel", "conv_phase_img_full_kernel", "conv_phase_i
 F32_CONV_KERNELS = ("conv_phase_f32_kernel<K1>", "conv_phase_f32_kernel<K3>", "conv_phase_f32_kernel<T1>",
                     "conv_phase_f32_kernel<T2>")
 F32_SPLIT_KERNELS = ("split_tiles_kernel", "split_b_kernel")
-# csrc/moments.cu's row_moments_kernel<type, vec> instances, by mangled type
+# csrc/moments.cu's instances, by mangled type: the lane plan's
+# row_moments_kernel<type> and the slot plan's row_moments_slots_kernel<type, vec>
 MOMENTS_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
-MOMENTS_KERNELS = tuple(f"row_moments_kernel<{t},{v}>" for t, vs in (("f32", (4, 1)), ("bf16", (8, 1)), ("f16", (8, 1)))
-                        for v in vs)
+MOMENTS_KERNELS = (*(f"row_moments_kernel<{t}>" for t in MOMENTS_TYPES.values()),
+                   *(f"row_moments_slots_kernel<{t},{v}>" for t, vs in (("f32", (4, 1)), ("bf16", (8, 1)),
+                                                                          ("f16", (8, 1))) for v in vs))
 # the reduction passes' instances: f1 resident (D <= 128), f1 streamed (D > 128, warp specialised)
 REDUCTION_KERNELS = ("lse_split_kernel", "lse_pass_kernel", "reward_pass_kernel", "lse_pass_streamed_kernel",
                      "reward_pass_streamed_kernel")
@@ -349,9 +375,12 @@ def _kernel_key(mangled):
     m = re.search(r"conv_phase_f32_kernelILi(\d)E", mangled)
     if m:
         return F32_CONV_KERNELS[int(m.group(1))]
-    m = re.search(r"row_moments_kernelI(f|13__nv_bfloat16|6__half)Li(\d)E", mangled)
+    m = re.search(r"row_moments_slots_kernelI(f|13__nv_bfloat16|6__half)Li(\d)E", mangled)
     if m:
-        return f"row_moments_kernel<{MOMENTS_TYPES[m.group(1)]},{m.group(2)}>"
+        return f"row_moments_slots_kernel<{MOMENTS_TYPES[m.group(1)]},{m.group(2)}>"
+    m = re.search(r"row_moments_kernelI(f|13__nv_bfloat16|6__half)E", mangled)
+    if m:
+        return f"row_moments_kernel<{MOMENTS_TYPES[m.group(1)]}>"
     return next(k for k in (*CONV_KERNELS, *F32_SPLIT_KERNELS, *REDUCTION_KERNELS, mangled) if k in mangled)
 
 
@@ -1138,6 +1167,7 @@ def phase_training(torch, records, fine_out_ch=128, tag="[7]", suffix=""):
     from posfeat_tpu_torch.data.loader import collate
     from posfeat_tpu_torch.losses import DiskLoss
     from posfeat_tpu_torch.ops import reinforce as rf
+    from posfeat_tpu_torch.ops.moments import row_moments
     from posfeat_tpu_torch.train import Trainer
 
     cfg = train_config(fine_out_ch)
@@ -1192,6 +1222,7 @@ def phase_training(torch, records, fine_out_ch=128, tag="[7]", suffix=""):
             return DiskLoss.constant_reward(loss_k, *a, **k)
 
         loss_k.constant_reward = dense_reward
+        row_moments.launches = 0
         rf.lse_pass.launches = 0
         rf.reward_pass.launches = 0
         rf._split_operands.launches = 0
@@ -1200,6 +1231,7 @@ def phase_training(torch, records, fine_out_ch=128, tag="[7]", suffix=""):
         tr.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        norms = row_moments.launches
         launches = {"K4+K5 lse_pass" + suffix: rf.lse_pass.launches, "K6 reward_pass" + suffix: rf.reward_pass.launches}
         # one split of f1 and f2 per reduction, shared by its two passes, one reduction a step
         assert rf._split_operands.launches == rf.lse_pass.launches == rf.reward_pass.launches == TRAIN_STEPS, (
@@ -1228,7 +1260,8 @@ def phase_training(torch, records, fine_out_ch=128, tag="[7]", suffix=""):
           f"{s_step:.4f} s/step over {len(timed)} steps (min {min(timed):.4f}, max {max(timed):.4f}), "
           f"{TRAIN_BATCH / s_step:.3f} pairs/s; wall {wall:.3f} s with checkpoints; peak memory "
           f"{peak / 2**30:.2f} GiB; {moved} head tensors moved, backbone unchanged; loss "
-          f"{metrics[0]['total_loss']:.5g} -> {metrics[-1]['total_loss']:.5g}; launches {launches}")
+          f"{metrics[0]['total_loss']:.5g} -> {metrics[-1]['total_loss']:.5g}; launches {launches}; row moments "
+          f"{norms} launches ({norms / TRAIN_STEPS:g} a step)")
     return s_step
 
 
@@ -1960,6 +1993,7 @@ def slice_g_training(torch, tmp, mh, s_step_main):
     spec = {"world": G_WORLD, "device": "cuda", "backend": "gloo", "timeout_s": 120, "out": out,
             "jobs": [{"kind": "step", "name": "kp", "config": kp, "train_steps": G_KP_STEPS},
                      {"kind": "step", "name": "desc", "config": desc, "train_steps": G_DESC_STEPS}]}
+    gc.collect()  # tensors of earlier phases held only by reference cycles
     torch.cuda.empty_cache()  # the ranks share the card with this process
     rcs, outs, wall = mh.launch(spec, G_TIMEOUT_S)
     _launched(spec, outs, rcs)
@@ -3346,33 +3380,65 @@ def phase_slice_n(torch, fh, rng, smi):
 
 
 SLICE_O_BUDGET_S = 60.0
+# the head's instance norms whose row moments phase 24 (a) checks and times,
+# (name, shape, dtype): the main path's trunk norm (phase 3's record); on
+# phase 18's 2048x3072 frame the bf16 "phase" head's trunk, convimg,
+# phase-layout and score norms and the f32 reference head's full-resolution
+# one; at 480x640 the shipped f32 reference head's four (an extraction batch
+# of 16) and stage 2's score norm (batch 6)
+MOMENTS_NORMS = (
+    ("main path trunk", (BATCH, H // 4, W // 4, 192), "bfloat16"),
+    ("trunk", (1, SLICE_K_H // 4, SLICE_K_W // 4, 192), "bfloat16"),
+    ("convimg", (1, SLICE_K_H, SLICE_K_W, 64), "float32"),
+    ("phase", (1, SLICE_K_H // 4, SLICE_K_W // 4, 4, 4, 128), "bfloat16"),
+    ("score", (1, SLICE_K_H // 4, 4 * SLICE_K_W, 1), "float32"),
+    ("reference conv2", (1, SLICE_K_H, SLICE_K_W, 128), "float32"),
+    ("f32 head trunk", (BATCH, H // 4, W // 4, 192), "float32"),
+    ("f32 head convimg", (BATCH, H, W, 64), "float32"),
+    ("f32 head conv2", (BATCH, H, W, 128), "float32"),
+    ("f32 head score", (BATCH, H, W, 1), "float32"),
+    ("stage-2 score", (TRAIN_BATCH, H, W, 1), "float32"),
+)
 
 
 def slice_o_norms(torch, rng):
-    """(a) The row-moments kernel at the shapes of the head's instance
-    norms on phase 18's 2048x3072 frame (the bf16 "phase" head's trunk,
-    convimg, phase-layout and score norms, and the f32 reference head's
-    full-resolution one), on maps drawn on the card from a seed: against
-    its plain version (``MOMENTS_RTOL``), each row split over 2 and 4
-    bands bit for bit the whole map's partials; ms a call beside torch's
-    per-row sum pair and the bound by bytes."""
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    H, W = SLICE_K_H, SLICE_K_W
-    h, w = H // 4, W // 4
-    norms = (("trunk", (1, h, w, 192), bf), ("convimg", (1, H, W, 64), torch.float32),
-             ("phase", (1, h, w, 4, 4, 128), bf), ("score", (1, h, 16 * w, 1), torch.float32),
-             ("reference conv2", (1, H, W, 128), torch.float32))
+    """(a) The row-moments kernel at ``MOMENTS_NORMS``' shapes, on maps
+    drawn on the card from a seed: against its plain version
+    (``MOMENTS_RTOL``), each row split over 2 and 4 bands bit for bit the
+    whole map's partials; ms a call (CUDA events over back-to-back calls,
+    host included) and a launch's device ms (a CUDA graph) beside torch's
+    per-row sum pair and the bound by bytes. Then the f32 reference head
+    on a batch of 16 at 480x640: its row-moments launches a batch."""
+    from posfeat_tpu_torch.models import KeypointDet, init_parameters
+    from posfeat_tpu_torch.ops import moments as mo
+
+    dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))  # 1.4e9 draws: on the card
-    for name, shape, dt in norms:
-        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dt)
+    for name, shape, dt in MOMENTS_NORMS:
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(getattr(torch, dt))
         err, ms, plain, lib, bound = moments_check(torch, x, bands=(2, 4))
-        print(f"[24] (a) row moments, {name} norm {shape} {str(dt)[6:]}: max |kernel - plain| {err:.3g} (limit "
-              f"{MOMENTS_RTOL:g} of each row-channel's sum of |x| or x^2: the plain version adds in a pairwise "
-              f"tree, the kernel in its own order), partials over 2 and 4 bands bit for bit; {ms:.4f} ms a call "
-              f"(bound {bound:.4f} ms by bytes, {bound / ms:.1%}), plain {plain:.4f} ms, torch's per-row sum pair "
-              f"{lib:.4f} ms")
+        device_ms = _graph_ms(lambda: mo.row_moments(x))
+        print(f"[24] (a) row moments, {name} norm {shape} {dt}, plan {tuple(mo.plan_of(x))}: max |kernel - plain| "
+              f"{err:.3g} (limit {MOMENTS_RTOL:g} of each row-channel's sum of |x| or x^2: the plain version adds "
+              f"in a pairwise tree, the kernel in its own order), partials over 2 and 4 bands bit for bit; "
+              f"{ms:.4f} ms a call, {device_ms:.4f} ms a launch on the device (bound {bound:.4f} ms by bytes, "
+              f"{bound / ms:.1%} a call, {bound / device_ms:.1%} on the device), plain {plain:.4f} ms, torch's "
+              f"per-row sum pair {lib:.4f} ms ({lib / ms:.2f}x the call)")
         del x
         torch.cuda.empty_cache()
+    head = KeypointDet(in_channels=192, out_channels=1, prior="identity", act="Softplus", fused_upsample=False)
+    init_parameters(head, torch.Generator().manual_seed(SEED))
+    head = head.to(dev)
+    fm = torch.randn((BATCH, H // 4, W // 4, 192), generator=g, device=dev)
+    img = torch.randn((BATCH, H, W, 3), generator=g, device=dev)
+    with torch.inference_mode():
+        mo.row_moments.launches = 0
+        score = head(fm, img)
+        launches = mo.row_moments.launches
+    assert torch.isfinite(score).all() and launches == 4, launches
+    print(f"[24] (a) the f32 reference head on a batch of {BATCH} at {H}x{W}: {launches} row-moments launches")
+    del head, fm, img, score
+    torch.cuda.empty_cache()
 
 
 def slice_o_maps(torch, rng):

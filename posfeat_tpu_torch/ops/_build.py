@@ -147,7 +147,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.posfeat_lse_pass.restype = i
     lib.posfeat_reward_pass.argtypes = [p] * 12 + [i] * 5 + [f] * 4 + [p]
     lib.posfeat_reward_pass.restype = i
-    lib.posfeat_row_moments.argtypes = [p] * 3 + [i, ctypes.c_longlong, ctypes.c_longlong] + [i] * 3 + [p]
+    lib.posfeat_row_moments.argtypes = [p] * 2 + [i, ctypes.c_longlong, ctypes.c_longlong] + [i] * 4 + [p]
     lib.posfeat_row_moments.restype = i
     for name in ("posfeat_error_string", "posfeat_reinforce_error_string", "posfeat_moments_error_string"):
         getattr(lib, name).argtypes = [i]

@@ -12,7 +12,9 @@ bands' partials on one device, gets the unsharded program's moments bit
 for bit.
 
 On a CUDA tensor ``row_moments`` launches ``csrc/moments.cu``
-``row_moments_kernel`` (counted in ``row_moments.launches``) or raises;
+``row_moments_kernel`` (the lane plan) or ``row_moments_slots_kernel``
+(the slot plan), as ``launch_shape`` picks from the row's length,
+channels and dtype (counted in ``row_moments.launches``), or raises;
 on a CPU tensor it runs ``row_moments_plain``, a pairwise tree of
 elementwise adds over each row's positions, whose every sum likewise
 depends on the row alone. Its gradient is the plain broadcast of 1 and
@@ -21,35 +23,75 @@ depends on the row alone. Its gradient is the plain broadcast of 1 and
 
 from __future__ import annotations
 
-import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
-THREADS = 256  # threads a block aims at; the kernel needs threads · vec to be a multiple of C
-MAX_SLOTS = 2048  # csrc/moments.cu kMaxSlots
+THREADS = 512  # slot plan: most threads a block
+MAX_SLOTS = 4096  # slot plan: csrc/moments.cu kMaxSlots
+VECTORS_A_THREAD = 32  # slot plan: a row takes about this many vectors a thread, or THREADS
+LANES = (32, 64, 128, 256, 512)  # lane plan: threads a row (csrc/moments.cu kMaxLanes)
+VECTORS_A_LANE = 16  # lane plan: a row takes about this many vectors a lane
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def _rows(x: torch.Tensor):
-    """(B, R, row elements, C) of a map [B, R, ..., C]."""
-    if x.ndim < 3:
-        raise ValueError(f"row moments take a map [B, R, ..., C], got shape {tuple(x.shape)}")
-    B, R, C = x.shape[0], x.shape[1], x.shape[-1]
-    return B, R, math.prod(x.shape[2:]), C
+class Plan(NamedTuple):
+    """How the kernel sums a row: ``vec`` elements a load (16 bytes, or 1),
+    ``lane`` 1 for the lane plan (``threads`` threads a row, several rows a
+    block) or 0 for the slot plan (``threads`` threads a block, one row)."""
+
+    vec: int
+    lane: int
+    threads: int
 
 
-def launch_shape(dtype: torch.dtype, row_elems: int, C: int):
-    """(vec, threads) of a launch over rows of ``row_elems`` elements and
-    C channels: 16-byte vectors where a row is a whole number of them,
-    threads · vec a multiple of C, about ``THREADS`` threads."""
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
+def _rows(shape):
+    """(B, R, row elements, C) of a map [B, R, ..., C] of ``shape``."""
+    if len(shape) < 3:
+        raise ValueError(f"row moments take a map [B, R, ..., C], got shape {tuple(shape)}")
+    return shape[0], shape[1], math.prod(shape[2:]), shape[-1]
+
+
+def launch_shape(dtype: torch.dtype, row_elems: int, C: int) -> Plan:
+    """The launch plan of rows of ``row_elems`` elements and C channels: a
+    function of the row alone (never of how many rows a call holds), which
+    fixes every add's order. The lane plan where a row is whole 16-byte
+    vectors and C a power of two up to 32 · vec, with threads a row from
+    the row's vectors, about ``VECTORS_A_LANE`` a lane (one warp for short
+    rows, ``LANES[-1]`` for long ones); otherwise ``slot_plan``."""
+    vec = 16 // dtype.itemsize
+    if row_elems % vec == 0 and C & (C - 1) == 0 and C <= 32 * vec:
+        lanes = LANES[0]
+        while lanes < LANES[-1] and 2 * lanes * VECTORS_A_LANE <= row_elems // vec:
+            lanes *= 2
+        return Plan(vec, 1, lanes)
+    return slot_plan(dtype, row_elems, C)
+
+
+def slot_plan(dtype: torch.dtype, row_elems: int, C: int) -> Plan:
+    """The slot plan of such rows: 16-byte vectors where a row is a whole
+    number of them and lcm(C, vec) fits the slots; threads the least count
+    whose slots (threads · vec) are a multiple of C, doubled to a warp or
+    more and while the row holds ``VECTORS_A_THREAD`` vectors a thread, up
+    to ``THREADS``: a power of two of slots a channel to fold."""
+    vec = 16 // dtype.itemsize
     if row_elems % vec or math.lcm(C, vec) > MAX_SLOTS:
         vec = 1
     base = math.lcm(C, vec) // vec
     if base * vec > MAX_SLOTS:
         raise ValueError(f"row moments take at most {MAX_SLOTS} channels, got {C}")
-    return vec, base * max(1, THREADS // base)
+    threads = base
+    while 2 * threads <= THREADS and 2 * threads * vec <= MAX_SLOTS and (
+            threads < 32 or 2 * threads * VECTORS_A_THREAD * vec <= row_elems):
+        threads *= 2
+    return Plan(vec, 0, threads)
+
+
+def plan_of(x: torch.Tensor) -> Plan:
+    """The plan a launch on the map x [B, R, ..., C] takes."""
+    _, _, E, C = _rows(x.shape)
+    return launch_shape(x.dtype, E, C)
 
 
 def _fold(t: torch.Tensor) -> torch.Tensor:
@@ -65,9 +107,9 @@ def _fold(t: torch.Tensor) -> torch.Tensor:
 
 
 def row_moments_plain(x: torch.Tensor):
-    """Plain version of ``row_moments_kernel``: (Σx, Σx²) of each row of
+    """Plain version of the row-moments kernel: (Σx, Σx²) of each row of
     x [B, R, ..., C] in f32, [B, R, C] each."""
-    B, R, E, C = _rows(x)
+    B, R, E, C = _rows(x.shape)
     xf = x.float().reshape(B, R, E // C, C)
     return _fold(xf), _fold(xf * xf)
 
@@ -77,25 +119,22 @@ def _row_moments_kernel(x: torch.Tensor):
 
     if x.dtype not in _DTYPES:
         raise TypeError(f"row moments on the card take {tuple(_DTYPES)}, got {x.dtype}")
-    B, R, E, C = _rows(x)
+    B, R, E, C = _rows(x.shape)
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
-    vec, threads = launch_shape(x.dtype, E, C)
-    s1 = torch.empty((B, R, C), dtype=torch.float32, device=x.device)
-    s2 = torch.empty_like(s1)
+    s = torch.empty((2, B, R, C), dtype=torch.float32, device=x.device)  # Σx, then Σx²
     if B * R == 0:
-        return s1, s2
+        return s[0], s[1]
     lib = load_kernels()
     # the launch goes to the current device: x's, on a band's own card
     with torch.cuda.device(x.device):
-        rc = lib.posfeat_row_moments(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(s1.data_ptr()),
-                                     ctypes.c_void_p(s2.data_ptr()), _DTYPES[x.dtype], B * R, E, C, vec, threads,
-                                     ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        rc = lib.posfeat_row_moments(x.data_ptr(), s.data_ptr(), _DTYPES[x.dtype], B * R, E, C,
+                                     *launch_shape(x.dtype, E, C), torch.cuda.current_stream(x.device).cuda_stream)
     row_moments.launches += 1
     if rc != 0:
         raise RuntimeError(f"row moments launch failed ({rc}): {lib.posfeat_moments_error_string(rc).decode()}")
-    return s1, s2
+    return s[0], s[1]
 
 
 class _RowMoments(torch.autograd.Function):

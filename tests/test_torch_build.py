@@ -54,3 +54,39 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     args = open(so).read().split("\n", 1)[0]
     assert "'-shared'" in args and "'-c'" not in args and args.count(".o'") == len(_build.SOURCES)
     assert so.with_suffix(".log").read_text() == info["log"]
+
+
+C_TYPES = {"void*": "c_void_p", "const void*": "c_void_p", "int": "c_int", "long long": "c_longlong",
+           "long": "c_long", "float": "c_float", "const char*": "c_char_p"}
+
+
+class _Entry:
+    """A stand-in for a ctypes function: keeps the argtypes and restype set on it."""
+
+
+class _Lib:
+    def __init__(self):
+        self.entries = {}
+
+    def __getattr__(self, name):
+        return self.entries.setdefault(name, _Entry())
+
+
+def test_bind_matches_the_c_declarations():
+    """Every posfeat_* entry point of the sources is bound with one ctypes
+    type per C parameter, in order, and its return type."""
+    import ctypes
+    import re
+
+    lib = _Lib()
+    _build.bind(lib)
+    declared = {}
+    for src in _build.SOURCES:
+        for ret, name, params in re.findall(r"^(int|long|const char\*) (posfeat_\w+)\(([^)]*)\)", src.read_text(), re.M):
+            types = [re.sub(r"\s+\w+$", "", p.strip()).replace(" *", "*") for p in params.split(",")]
+            declared[name] = (C_TYPES[ret], [C_TYPES[t] for t in types])
+    assert sorted(declared) == sorted(lib.entries)
+    for name, (ret, args) in declared.items():
+        entry = lib.entries[name]
+        assert entry.restype is getattr(ctypes, ret), name
+        assert list(entry.argtypes) == [getattr(ctypes, t) for t in args], name

@@ -106,12 +106,31 @@ def test_row_moments_depend_on_their_row_alone(form):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("C", [1, 2, 7, 64, 128, 192, 256, 520])
 def test_moments_launch_shape(dtype, C):
-    """threads x vec a multiple of C and within the kernel's slots; a row
-    a whole number of vectors."""
-    for row_elems in (C * 12288, C * 3):
-        vec, threads = mo.launch_shape(dtype, row_elems, C)
-        assert row_elems % vec == 0 and (threads * vec) % C == 0
-        assert threads * vec <= mo.MAX_SLOTS and 0 < threads <= 1024
+    """Each plan within what csrc/moments.cu takes, a row a whole number of
+    vectors: the lane plan's 16-byte vectors and C a power of two up to
+    32 x vec, threads from LANES and never fewer for a longer row; the slot
+    plan's threads x vec a multiple of C and within its slots, a power of
+    two of slots a channel where its vectors allow. The lane plan takes
+    every row that it can (the head's 1-, 64- and 128-channel norms), and a
+    plan is the same at any number of rows."""
+    lanes = []
+    for row_elems in (C * 3, C * 640, C * 12288):
+        vec, lane, n = mo.launch_shape(dtype, row_elems, C)
+        assert row_elems % vec == 0
+        whole = 16 // dtype.itemsize
+        assert lane == (row_elems % whole == 0 and C & (C - 1) == 0 and C <= 32 * whole)
+        if lane:
+            assert vec * dtype.itemsize == 16 and n in mo.LANES
+            assert C & (C - 1) == 0 and C <= 32 * vec
+            lanes.append(n)
+        else:
+            assert (n * vec) % C == 0 and n * vec <= mo.MAX_SLOTS and 0 < n <= 1024
+            if vec > 1:
+                assert (n * vec // C) & (n * vec // C - 1) == 0
+    assert lanes == sorted(lanes)
+    if C in (1, 64, 128):
+        assert mo.launch_shape(dtype, C * 12288, C).lane
+    assert mo.plan_of(torch.empty((1, 1, 3, C), dtype=dtype)) == mo.plan_of(torch.empty((4, 9, 3, C), dtype=dtype))
 
 
 @pytest.mark.parametrize("k", [2, 3, 4])

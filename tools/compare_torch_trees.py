@@ -5,7 +5,7 @@ so that a change is compared with its parent on the same card and under
 the same conditions, and the host-bound end-to-end numbers get enough
 turns to show their spread.
 
-    python3 tools/compare_torch_trees.py PARENT_DIR CHANGE_DIR [--rounds N] [--frame]
+    python3 tools/compare_torch_trees.py PARENT_DIR CHANGE_DIR [--rounds N] [--frame | --moments]
 
 Each turn is a process of its own, started in that checkout: it builds
 the checkout's kernels and runs its chip_smoke.py phases in the order
@@ -36,6 +36,17 @@ device time per call on a batch of 16 480x640 images (the main path's
 fused head, the backbone's maps made once), the sum of its kernels'
 durations in a torch.profiler window of 10 calls after 3, and its CUDA
 event ms per call.
+
+With ``--moments`` a turn times the row-moments kernel instead, through
+the checkout's own ``chip_smoke.moments_check``, at every shape of this
+tree's ``chip_smoke.MOMENTS_NORMS`` (the main path's trunk norm, the
+head's norms on a 2048x3072 frame, the shipped f32 head's at 480x640,
+stage 2's score norm), on maps drawn on the card from a seed: ms a call
+(CUDA events over back-to-back calls, host included), the kernel's own
+duration in a torch.profiler trace of 10 calls, torch's per-row sum pair
+and the bound by bytes; each checkout's check also holds its kernel to
+its plain version and its partials over 2 and 4 row splits to the whole
+map's.
 
 Prints one JSON line per turn, then
 nvidia-smi's name and power limit, and a last JSON line
@@ -122,6 +133,48 @@ with tempfile.TemporaryDirectory() as tmp:
     out["head device ms/batch"] = sum(kernels) / 10 / 1e3
 print("TURN " + json.dumps(out), flush=True)
 """
+TURN_MOMENTS = r"""
+import json, sys, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, ".")
+import chip_smoke as c
+from posfeat_tpu_torch import resolve_device
+from posfeat_tpu_torch.ops import _build
+from posfeat_tpu_torch.ops import moments as mo
+resolve_device("cuda")
+_build.build()
+
+
+def kernel_ms(fn, n=10):  # chip_smoke._kernel_ms, which a parent checkout may lack
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            durs = [e["dur"] for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "kernel" and "row_moments" in e.get("name", "")]
+    assert durs, "the trace holds no row-moments kernel"
+    return sum(durs) / len(durs) / 1e3  # a trace may miss the window's first launch
+
+
+g = torch.Generator(device="cuda").manual_seed(c.SEED)
+out = {}
+for name, shape, dt in json.loads(sys.argv[1]):
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(getattr(torch, dt))
+    err, ms, plain, lib, bound = c.moments_check(torch, x, bands=(2, 4))
+    out[name + " ms"] = ms
+    out[name + " kernel ms"] = kernel_ms(lambda: mo.row_moments(x))
+    out[name + " torch pair ms"] = lib
+    out[name + " bound ms"] = bound
+    del x
+    torch.cuda.empty_cache()
+print("TURN " + json.dumps(out), flush=True)
+"""
 # the end-to-end metrics, read from the lines that the phases print
 E2E = {
     "v3 extraction im/s": r"^\[5\] main path: .*?: ([0-9.]+) im/s",
@@ -142,19 +195,29 @@ def main() -> int:
     ap.add_argument("parent", help="root of the parent's checkout (A)")
     ap.add_argument("change", help="root of the change's checkout (B)")
     ap.add_argument("--rounds", type=int, default=1, help="rounds of turns A, B, B, A")
-    ap.add_argument("--frame", action="store_true",
-                    help="time the unsharded 2048x3072 bf16 program and the 480x640 head instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--frame", action="store_true",
+                      help="time the unsharded 2048x3072 bf16 program and the 480x640 head instead")
+    mode.add_argument("--moments", action="store_true",
+                      help="time the row-moments kernel at the head's norms' shapes instead")
     args = ap.parse_args()
     trees = {"A": os.path.abspath(args.parent), "B": os.path.abspath(args.change)}
+    cmd = [sys.executable, "-c", TURN]
+    if args.frame:
+        cmd = [sys.executable, "-c", TURN_FRAME]
+    elif args.moments:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        import chip_smoke as c
+
+        cmd = [sys.executable, "-c", TURN_MOMENTS, json.dumps(c.MOMENTS_NORMS)]
     results = {}
     for label in ("A", "B", "B", "A") * args.rounds:
-        res = subprocess.run([sys.executable, "-c", TURN_FRAME if args.frame else TURN], cwd=trees[label],
-                             capture_output=True, text=True)
+        res = subprocess.run(cmd, cwd=trees[label], capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
             return 1
         turn = json.loads(next(x for x in res.stdout.splitlines() if x.startswith("TURN "))[5:])
-        for name, pattern in () if args.frame else E2E.items():
+        for name, pattern in () if args.frame or args.moments else E2E.items():
             turn[name] = float(re.search(pattern, res.stdout, re.M).group(1))
         print(json.dumps({"tree": label, "path": trees[label], "results": turn}), flush=True)
         for name, t in turn.items():

@@ -29,7 +29,7 @@ CLASSES = (
     ("K1 conv_phase", ("conv_phase_kernel",)),
     ("K2 head_tail", ("head_tail_kernel",)),
     ("K3 conv_phase_img", ("conv_phase_img_full_kernel",)),
-    ("row moments (instance norms)", ("row_moments_kernel",)),
+    ("row moments (instance norms)", ("row_moments_kernel", "row_moments_slots_kernel")),
     ("conv / gemm (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "implicit")),
     ("sort / top-k", ("sort", "radix", "topk")),
     ("grid_sample", ("grid_sampler",)),
