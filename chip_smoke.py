@@ -236,6 +236,21 @@ Phases, one line each (more for the build):
      that differs printed (no limit), and the lite 2-band Extractor's npz
      equal to its program's slate.
      Budget: 60 s;
+ 24. slice O: (a) the row-moments kernel at the head's norms' shapes
+     against its plain version, over row splits bit for bit, timed; (b)
+     phase 18's frame's bf16 "phase" maps banded over 2 and 4 bands
+     ``torch.equal`` the unsharded ones. Budget: 60 s;
+ 25. slice Q: (a) a 512x8704 panorama (one 512-row tile under the former
+     tile rule, above the 4 Mpx threshold) unsharded and over 2 and 4
+     bands on cuda:0, f32 reference and bf16 "phase": the slate bit for
+     bit and the maps ``torch.equal``, the bands on its two tiles; (b)
+     tools/acceptance_torch.py on the flagship model saved as a reference
+     run dir and a 2-sequence 480x640 fixture at 8192 points: the f32 arm
+     (kernel M), a self-comparison (PASS at delta 0) and the --fast arm
+     (K1, K2), its |ΔMMA@3| over the fixture within phase 13's 0.01; (c)
+     tools/stage2_sweep_torch.py's functions on a 1 epoch x 2 step
+     constant-reward tuple from phase 13's stage-1 checkpoint (K4+K5 and
+     K6 launched), its per-seed line. Budget: 90 s.
 Phases 5, 10, 13, 15-21 pin ``fast_mode: False`` (the fused head's
 exact ring, the exact top-k, corner sampling), so that their numbers
 compare across PRs; the bf16 backbone's concat-free skip iconvs are JAX's
@@ -251,6 +266,7 @@ import contextlib
 import copy
 import gc
 import importlib.util
+import io
 import json
 import os
 import re
@@ -2793,7 +2809,7 @@ def slice_l_12mp(torch, fh, rng, smi):
         # bit for bit
         cmp = (slice_k_compare(got, ref, dtype == torch.float32, exact=True) if ref is not None
                else "no unsharded run to hold it to")
-        print(f"[19] {label}, 4 bands on cuda:0 (first rows {mesh.plan(SLICE_L_H)}): {ms:.4f} ms/image "
+        print(f"[19] {label}, 4 bands on cuda:0 (first rows {mesh.plan(SLICE_L_H, SLICE_L_W)}): {ms:.4f} ms/image "
               f"({ms / ms_ref:.3f}x unsharded), peak {peaks[0] / 2**30:.2f} GiB; {cmp}" if ref is not None else
               f"[19] {label}, 4 bands on cuda:0: {ms:.4f} ms/image, peak {peaks[0] / 2**30:.2f} GiB; {cmp}")
         slates[label] = got
@@ -3292,7 +3308,7 @@ def slice_n_maps(torch, ex, im_u8):
         feats = {impl: sample_feat_by_coord(fmap, want[0], True, impl) for impl in ("quad", "pair")}
         out = []
         for bands in (2, 4):
-            starts = spatial_mesh([dev] * bands).plan(kp.shape[1])
+            starts = spatial_mesh([dev] * bands).plan(kp.shape[1], kp.shape[2])
             got = detect(split_rows(kp, [dev] * bands, starts), topk="approx", **AACHEN_DET)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), bands
@@ -3470,7 +3486,7 @@ def slice_o_maps(torch, rng):
             assert launches == 4 * k, launches  # four norms a band
             for key in ("local_map", "local_point", "global_map"):
                 assert torch.equal(got[key].concat(), want[key]), (k, key)
-            lines.append(f"{k} bands (first rows {mesh.plan(SLICE_K_H)}): local_map, score map and global_map "
+            lines.append(f"{k} bands (first rows {mesh.plan(SLICE_K_H, SLICE_K_W)}): local_map, score map and global_map "
                          f"equal, row moments {launches} launches")
     print(f"[24] (b) {SLICE_K_H}x{SLICE_K_W} bf16 'phase' maps, banded against unsharded: " + "; ".join(lines))
     del model, want, got
@@ -3486,6 +3502,168 @@ def phase_slice_o(torch, rng, smi):
     seconds = time.perf_counter() - t_phase
     print(f"[24] slice O: {seconds:.1f} s (budget {SLICE_O_BUDGET_S:g} s); {smi}")
     assert seconds <= SLICE_O_BUDGET_S, seconds
+
+
+# slice Q: a panorama of one 512-row tile under the former tile rule, above
+# the 4 Mpx spatial_threshold_px; the acceptance chain's HPatches fixture
+# (sequences x 6 images at 480x640); the stage-2 sweep's short tuple
+# (epochs, steps, lr, decay_at, reward_thr, kp_penalty: a constant reward);
+# the budget in seconds
+SLICE_Q_H, SLICE_Q_W = 512, 8704
+SLICE_Q_SEQS = 2
+SLICE_Q_SWEEP = (1, 2, 5e-3, 1, 2, -0.001)
+SLICE_Q_BUDGET_S = 90.0
+
+
+def slice_q_panorama(torch, fh):
+    """(a) The panorama unsharded and over 2 and 4 bands on cuda:0, the f32
+    reference dataflow and the bf16 "phase" head: the banded slate bit for
+    bit the unsharded one (valid, keypoints, scores, descriptors, as phase
+    18 holds its frame), the banded maps torch.equal the unsharded ones
+    (as phase 24 (b)); the bands on the panorama's tiles, M launched on
+    the banded path and no fused-head kernel."""
+    from posfeat_tpu_torch.data.utils import IMAGENET_MEAN, IMAGENET_STD
+    from posfeat_tpu_torch.models import PoSFeat
+    from posfeat_tpu_torch.ops import conv_tiles
+    from posfeat_tpu_torch.ops.moments import row_moments
+    from posfeat_tpu_torch.parallel import spatial_extract, spatial_mesh
+
+    card = torch.device("cuda", 0)
+    frame = _frame(np.random.default_rng(SEED + 25), SLICE_Q_H, SLICE_Q_W)
+    im_u8 = torch.from_numpy(frame)[None].to(card)
+    mean, std = torch.as_tensor(IMAGENET_MEAN, device=card), torch.as_tensor(IMAGENET_STD, device=card)
+    im = (im_u8.float() / 255.0 - mean) / std
+    tile = conv_tiles.tile_rows(SLICE_Q_H, SLICE_Q_W)
+    for dtype, label, dataflow in ((torch.float32, "f32 reference", False), (torch.bfloat16, "bf16 phase", "phase")):
+        cfg = copy.deepcopy(FLAGSHIP_MODEL_CONFIG)
+        cfg["localheader_config"]["fused_upsample"] = dataflow
+        model = PoSFeat(cfg, dtype=dtype, device=card, seed=SEED)
+        ref, ms_ref, peak = _timed_slate(torch, slice_k_program(torch, model, None), im_u8, [card])
+        with torch.inference_mode():
+            want = model.extract(im)
+        lines = []
+        for k in (2, 4):
+            mesh = spatial_mesh([card] * k)
+            starts = mesh.plan(SLICE_Q_H, SLICE_Q_W)
+            assert starts == list(range(0, SLICE_Q_H, tile)) and len(starts) == 2, starts  # two tiles
+            _zero_counts(fh)
+            got, ms, _ = _timed_slate(torch, slice_k_program(torch, model, mesh), im_u8, [card])
+            launches = {**_read_counts(fh), **_read_counts(fh, " f32")}
+            assert not any(launches.values()) and row_moments.launches > 0, (launches, row_moments.launches)
+            slate = slice_k_compare(got, ref, dtype == torch.float32, exact=True)
+            with torch.inference_mode():
+                maps = spatial_extract(model, mesh)(im)
+                for key in ("local_map", "local_point", "global_map"):
+                    assert torch.equal(maps[key].concat(), want[key]), (label, k, key)
+            lines.append(f"{k} bands (first rows {starts}): {ms:.4f} ms/image ({ms / ms_ref:.3f}x), {slate}; "
+                         f"local_map, score map and global_map equal")
+            del maps
+        print(f"[25] (a) {SLICE_Q_H}x{SLICE_Q_W} {label} ({tile}-row tiles), unsharded {ms_ref:.4f} ms/image, peak "
+              f"{peak[0] / 2**30:.2f} GiB; " + "; ".join(lines))
+        del model, want
+        torch.cuda.empty_cache()
+
+
+def _fixture_mma3(hp, work):
+    """MMA@3 of an acceptance run over the fixture's own sequences (the
+    tool divides by the 116 of HPatches)."""
+    n_i = n_v = SLICE_Q_SEQS // 2
+    errors = hp.load_reference_cache(os.path.join(work, "eval_cache", "PoSFeat_tpu.npy"))
+    return float(hp.mma_at(errors, 3, n_i, n_v)[0])
+
+
+def slice_q_acceptance(torch, fh, tmp):
+    """(b) tools/acceptance_torch.py in this process on the flagship model
+    (random weights from the seed, saved as a reference run dir of .pth
+    files) and a 480x640 synthetic HPatches fixture at the shipped 8192
+    points: the f32 arm (kernel M, no fused-head kernel), a self-comparison
+    against a cache of the f32 arm's errors (PASS at delta 0), and the
+    --fast arm (K1, K2) against the same cache, its |ΔMMA@3| over the
+    fixture held to phase 13's limit."""
+    from posfeat_tpu_torch.core.config import dump_config
+    from posfeat_tpu_torch.evals import hpatches as hp
+    from posfeat_tpu_torch.models import PoSFeat
+    from posfeat_tpu_torch.ops.moments import row_moments
+
+    acceptance = _load_tool("acceptance_torch")
+    probe = _load_tool("selection_stability_torch")
+    data = f"{tmp}/hpatches"
+    probe.make_eval_fixture(data, n_seq=SLICE_Q_SEQS, h=H, w=W)
+    weights = f"{tmp}/run/001"
+    PoSFeat(copy.deepcopy(FLAGSHIP_MODEL_CONFIG), device="cuda", seed=SEED).save_checkpoint(weights)
+    dump_config({"model": "PoSFeat", "model_config": FLAGSHIP_MODEL_CONFIG}, f"{tmp}/run/config.yaml")
+    ref_cache = f"{tmp}/ref_cache.npy"
+
+    def arm(name, *extra):
+        _zero_counts(fh)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = acceptance.main(["--hpatches", data, "--weights", weights, "--work", f"{tmp}/{name}", *extra])
+        seconds = time.perf_counter() - t0
+        rec = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")][-1]
+        counts = {"M row_moments": row_moments.launches, **_read_counts(fh), **_read_counts(fh, " f32")}
+        return rc, rec, {k: v for k, v in counts.items() if v}, seconds
+
+    rc, f32, launches, s_f32 = arm("f32")
+    assert rc == 0 and f32["passed"] is None and launches.get("M row_moments", 0) > 0, (rc, f32, launches)
+    assert set(launches) == {"M row_moments"}, launches
+    mma3_f32 = _fixture_mma3(hp, f"{tmp}/f32")
+    print(f"[25] (b) acceptance, f32 arm: {json.dumps(f32)}, exit {rc}, fixture MMA@3 {mma3_f32:.6f}, "
+          f"{s_f32:.1f} s, launches {launches}")
+    shutil.copy(f"{tmp}/f32/eval_cache/PoSFeat_tpu.npy", ref_cache)
+    rc, self_cmp, _, s_self = arm("f32", "--ref_cache", ref_cache)
+    assert rc == 0 and self_cmp["passed"] is True and self_cmp["delta_mma3"] == 0.0, (rc, self_cmp)
+    print(f"[25] (b) acceptance, f32 arm against its own cache: {json.dumps(self_cmp)}, exit {rc} (PASS, delta 0; "
+          f"features resumed), {s_self:.1f} s")
+    rc, fast, launches, s_fast = arm("fast", "--fast", "--ref_cache", ref_cache)
+    assert fast["fast"] is True and launches.get("K1 conv_phase", 0) > 0 and launches.get("K2 head_tail", 0) > 0, \
+        (fast, launches)
+    mma3_fast = _fixture_mma3(hp, f"{tmp}/fast")
+    delta = mma3_fast - mma3_f32
+    print(f"[25] (b) acceptance, --fast arm against the f32 cache: {json.dumps(fast)}, exit {rc}, fixture MMA@3 "
+          f"{mma3_fast:.6f}, |ΔMMA@3| over the fixture {abs(delta):.6f} (limit {MAX_DELTA_MMA3}), {s_fast:.1f} s, "
+          f"launches {launches}")
+    assert rc in (0, 2) and abs(delta) <= MAX_DELTA_MMA3, (rc, delta)
+
+
+def slice_q_sweep(torch, probe_state):
+    """(c) tools/stage2_sweep_torch.py's functions on a constant-reward
+    tuple of 1 epoch x 2 steps, 1 seed, from phase 13's stage-1 checkpoint
+    (the head192 model, the JAX tool's default nuisances): the SIFT arm,
+    the training (K4+K5 and K6 launched), the arms and the per-seed line."""
+    from posfeat_tpu_torch.ops import reinforce as rf
+
+    sweep = _load_tool("stage2_sweep_torch")
+    recipe = {**sweep.RECIPE, "model": "head192"}
+    ck1 = f"{probe_state['work']}/ckpts/conv_desc/001"
+    work = f"{probe_state['work']}/sweep"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        sift3 = sweep.sift_arm(work, ck1, recipe, "cuda")
+        rf.lse_pass.launches = rf.reward_pass.launches = 0
+        rec = sweep.run_variant(work, "short", SLICE_Q_SWEEP, ck1, sift3, recipe=recipe, device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = {"K4+K5 lse_pass": rf.lse_pass.launches, "K6 reward_pass": rf.reward_pass.launches}
+    assert all(v > 0 for v in launches.values()), launches
+    line = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith('{"variant": "short", "seed"')][-1]
+    assert set(line) == {"variant", "seed", "secs", *sweep.PER_SEED} and rec["steps"] == SLICE_Q_SWEEP[1], line
+    print(f"[25] (c) stage-2 sweep, tuple {SLICE_Q_SWEEP} (1 seed): SIFT arm MMA@3 {sift3:.4f}; per-seed line "
+          f"{json.dumps(line)}; launches {launches}; {seconds:.1f} s")
+
+
+def phase_slice_q(torch, fh, smi, probe_state):
+    """Phase 25: slice Q, the one-tile panorama banded, the acceptance chain
+    and the stage-2 sweep."""
+    t_phase = time.perf_counter()
+    slice_q_panorama(torch, fh)
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_q_acceptance(torch, fh, tmp)
+    slice_q_sweep(torch, probe_state)
+    seconds = time.perf_counter() - t_phase
+    print(f"[25] slice Q: {seconds:.1f} s (budget {SLICE_Q_BUDGET_S:g} s); {smi}")
+    assert seconds <= SLICE_Q_BUDGET_S, seconds
 
 
 def main() -> int:
@@ -3578,6 +3756,7 @@ def main() -> int:
         phase_slice_m(torch, fh, rng, smi, probe_state, ims_main)
         phase_slice_n(torch, fh, rng, smi)
         phase_slice_o(torch, rng, smi)
+        phase_slice_q(torch, fh, smi, probe_state)
     finally:
         shutil.rmtree(probe_state["work"], ignore_errors=True)
     records += v1 + reduction + slice_h

@@ -77,17 +77,18 @@ _ENCODERS = {
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs at its input's dtype: the f32 weight and
-    bias are cast to it for the call; in row tiles of ``row_tile`` output
-    rows where that is set (``row_tiled_conv``)."""
+    bias are cast to it for the call; where ``row_stride`` (image rows a
+    row of its input) is set, in the row tiles of its input's map
+    (``conv_tiles.map_tile``, ``row_tiled_conv``)."""
 
-    row_tile = None
+    row_stride = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        if self.row_tile is None:
+        if self.row_stride is None:
             return self._conv_forward(x, self.weight.to(x.dtype), bias)
         return conv_tiles.row_tiled_conv(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
-                                         self.dilation, self.row_tile)
+                                         self.dilation, conv_tiles.map_tile(*x.shape[2:], self.row_stride))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -357,6 +358,10 @@ class DenseOps:
         return fn(x, *others)
 
     @staticmethod
+    def size(x):
+        return tuple(x.shape[2:])
+
+    @staticmethod
     def conv(x, convs, weight=lambda w: w, bias=None, tile=None):
         m = convs[0]
         b = None if bias is None else bias(m.bias)
@@ -476,23 +481,24 @@ def skip_conv(ops, y, skip, blocks, step: Skip):
 
 @dataclass(frozen=True)
 class RowTiles:
-    """``ops`` whose convs run in row tiles of ``rows`` output rows."""
+    """``ops`` whose convs run in the row tiles of their input's map, at
+    ``stride`` image rows a map row (``conv_tiles.map_tile``)."""
 
     ops: object
-    rows: int
+    stride: int
 
     def __getattr__(self, name):
         return getattr(self.ops, name)
 
     def conv(self, x, convs, weight=lambda w: w, bias=None):
-        return self.ops.conv(x, convs, weight, bias, tile=self.rows)
+        return self.ops.conv(x, convs, weight, bias, tile=conv_tiles.map_tile(*self.ops.size(x), self.stride))
 
 
 def run_decoder(ops, nets, maps, plan, after_step=None):
     """The decoder of ``plan`` from the encoder's ``maps`` ('x1', 'x2',
     'x3', 'x_first1') through ``ops`` (``DenseOps`` or the banded program's),
     each block with its replicas in ``nets``, every conv in row tiles of
-    ``ops/conv_tiles.py``'s ``ROW_TILE`` image rows; returns the local map.
+    ``ops/conv_tiles.py``'s ``tile_rows`` image rows; returns the local map.
     ``after_step(step, y)``, where given, sees each block's output."""
     y = maps["x3"]
     stride = 16  # x3's, in image rows per map row
@@ -500,7 +506,7 @@ def run_decoder(ops, nets, maps, plan, after_step=None):
         blocks = [getattr(n, step.name) for n in nets]
         if isinstance(step, Up):
             stride //= blocks[0].scale
-        tiled = RowTiles(ops, conv_tiles.ROW_TILE // stride)
+        tiled = RowTiles(ops, stride)
         if isinstance(step, Up):
             y = up_conv(tiled, y, blocks, step)
         elif isinstance(step, Skip):
@@ -558,7 +564,7 @@ class ResUNet(nn.Module):
             for m in blocks:
                 for c in m.modules():
                     if isinstance(c, Conv2d) and c.kernel_size == (3, 3) and c.stride == (1, 1):
-                        c.row_tile = conv_tiles.ROW_TILE // (4 * 2**li)
+                        c.row_stride = 4 * 2**li
         c1 = self.layer1[-1].out_ch
         c2 = self.layer2[-1].out_ch
         c3 = self.layer3[-1].out_ch

@@ -5,8 +5,16 @@ The library picks a conv's algorithm by its input's shape (on the card
 cuDNN's TF32 convs by the map's height, and on a 12 Mpx frame some bf16
 ones; oneDNN's by any), so the two programs run the convs where that
 shows over the same row tiles, one call a tile with its halo rows, and
-get the same elements. ``ROW_TILE`` is a tile's height in image rows:
-256 rows at H/2, 128 at H/4, 64 at H/8, 32 at H/16. 480x640 maps (the
+get the same elements. ``tile_rows(height, width)`` is a tile's height in
+image rows: ``ROW_TILE`` (256 rows at H/2, 128 at H/4, 64 at H/8, 32 at
+H/16) for an image of at most ``WIDE`` columns. A wider image's rows
+split evenly into the fewest tiles of at most ROW_TILE x WIDE pixels, so
+that every image above that many pixels (the default
+``spatial_threshold_px``), a panorama of at most ROW_TILE rows too, has
+two or more tiles, and its bands (one a tile) are alike: the head's convs
+run one call a band, and on the card a 32-row band beside a 480-row one
+moved one bf16 element of a 512x8704 score map. A map
+derives its tile from its own shape (``map_tile``). 480x640 maps (the
 batched extraction and training sizes) are one tile at every level, so
 their convs stay one call. models/resunet.py tiles every decoder conv
 and every 3x3 stride-1 encoder conv; parallel/spatial.py lays band
@@ -19,6 +27,26 @@ import torch
 import torch.nn.functional as F
 
 ROW_TILE = 512
+WIDE = 8192  # the widest image whose tiles hold ROW_TILE rows
+BLOCK = 16  # ResUNet's stride to its deepest map: a tile holds whole rows of every map
+
+
+def tile_rows(height: int, width: int) -> int:
+    """A row tile's height in image rows for an image of ``height`` x
+    ``width``: ``ROW_TILE`` up to ``WIDE`` columns, else the image's rows
+    split evenly, in whole ``BLOCK``s, into the fewest tiles of at most
+    ROW_TILE x WIDE pixels: 256 rows for 512 x 8704 (a tile at most 480)."""
+    if width <= WIDE:
+        return ROW_TILE
+    most = max(BLOCK, ROW_TILE * WIDE // width // BLOCK * BLOCK)
+    tiles = -(-height // most)
+    return -(-height // (tiles * BLOCK)) * BLOCK
+
+
+def map_tile(height: int, width: int, stride: int) -> int:
+    """The row tile, in map rows, of a ``height`` x ``width`` map at
+    ``stride`` image rows a map row."""
+    return tile_rows(height * stride, width * stride) // stride
 
 
 def _pair(v):

@@ -60,6 +60,10 @@ class BandOps:
         return x.map(fn, *others)
 
     @staticmethod
+    def size(x: Bands):
+        return x.total, x.parts[0].shape[2]
+
+    @staticmethod
     def conv(x: Bands, convs, weight=lambda w: w, bias=None, tile=None) -> Bands:
         c = convs[0]
         biases = None if bias is None else [bias(m.bias) for m in convs]

@@ -25,7 +25,7 @@ from typing import Callable, List, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv_tiles import row_tiled_conv
+from ..ops.conv_tiles import map_tile, row_tiled_conv
 from ..ops.moments import check_dims, moments, normalize, row_moments
 from ..ops.pooling import avg_pool2d, pad2d
 from ..ops.priors import ssim_from_shifts
@@ -204,11 +204,12 @@ def conv2d(x: Bands, weights: Sequence[torch.Tensor], biases=None, stride=1, pad
 
 def conv_module(x: Bands, convs) -> Bands:
     """Each band through its replica of one ``nn.Conv2d`` (weights cast
-    to the input's dtype, as the port's ``Conv2d`` does), in its row tiles
-    where it has them."""
+    to the input's dtype, as the port's ``Conv2d`` does), in its map's row
+    tiles where it has them."""
     c = convs[0]
-    return conv2d(x, [m.weight for m in convs], [m.bias for m in convs], c.stride, c.padding, c.dilation,
-                  getattr(c, "row_tile", None))
+    stride = getattr(c, "row_stride", None)
+    tile = None if stride is None else map_tile(x.total, x.parts[0].shape[2], stride)
+    return conv2d(x, [m.weight for m in convs], [m.bias for m in convs], c.stride, c.padding, c.dilation, tile)
 
 
 def module_nchw(x: Bands, mods) -> Bands:

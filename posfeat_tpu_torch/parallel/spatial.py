@@ -7,11 +7,12 @@ PyTorch has no partitioner, so this module runs the banded program by
 hand, in one process over an ordered device list:
 
 - the image's rows split into bands, one per device, each a whole number
-  of the 512-row conv tiles (``ops/conv_tiles.py`` ``ROW_TILE``)
-  where the image has two or more, else of 16-row blocks (ResUNet's
-  deepest map is at H/16, so every stride-2 layer splits on even rows),
-  bands differing by one unit at most; an image with fewer units than
-  devices uses as many devices as it has units;
+  of the conv tiles (``ops/conv_tiles.py`` ``tile_rows``: 512 rows up to
+  8192 columns, even tiles of fewer beyond) where the image has two or
+  more, else of 16-row blocks (ResUNet's deepest map is at H/16, so
+  every stride-2 layer splits on even rows), bands differing by one unit
+  at most; an image with fewer units than devices uses as many devices
+  as it has units;
 - each device holds a replica of the model, made once; where the list
   names one device twice, its bands share one replica;
 - every windowed op reads its halo rows from the neighbouring bands,
@@ -30,8 +31,11 @@ bf16 convs at H/8 and H/4; oneDNN's on the CPU) run in the same row
 tiles in both programs: every decoder conv and every 3x3 stride-1 conv
 of the encoder (``ops/conv_tiles.py`` ``row_tiled_conv``).
 tools/spatial_rounding_torch.py walks every conv on shared inputs and
-shows where the maps part. A one-tile image's bands are 16-row blocks,
-and its decoder convs then round as its bands' calls do. The fused head
+shows where the maps part. Every image above 4 Mpx (the default
+``spatial_threshold_px``) has two or more tiles, a panorama of at most
+512 rows too (two 256-row tiles at 8704 columns). A one-tile image, banded
+only under a lower threshold, gets 16-row blocks, and its tiled convs
+then round as its bands' calls do. The fused head
 (``fused_upsample: "pallas"``) is a single-device kernel and is refused
 here: the Extractor swaps it for the ``"phase"`` dataflow, as JAX does.
 A configuration the banded program does not run raises before any work;
@@ -50,7 +54,7 @@ from ..ops import conv_tiles
 from .banded_models import posfeat_extract
 from .banded_ops import split_rows
 
-BLOCK = 16  # rows of one band block: ResUNet's stride to its deepest map
+BLOCK = conv_tiles.BLOCK  # rows of one band block: ResUNet's stride to its deepest map
 
 
 def _normalize(d) -> torch.device:
@@ -67,20 +71,22 @@ class SpatialMesh:
 
     devices: Tuple[torch.device, ...]
 
-    def plan(self, height: int) -> List[int]:
-        """First rows of the bands of an image of ``height`` rows, one band
-        per device or per unit, whichever is fewer, bands at most one unit
-        apart. The unit is the decoder's row tile (``ROW_TILE`` image rows;
-        the last one may be shorter) where the image has two or more, so
-        that each band's decoder convs are the unsharded program's calls;
-        else a 16-row block (a one-tile image's banded decoder then rounds
-        as its bands' calls do). Tiles cost balance: a 3024-row frame
-        over 4 devices gets bands of 512, 512, 1024 and 976 rows (16-row
-        blocks would give 752-768), and an image of T tiles uses at most
-        T devices (2048 rows: 4)."""
+    def plan(self, height: int, width: int = conv_tiles.WIDE) -> List[int]:
+        """First rows of the bands of an image of ``height`` x ``width``
+        (at most 8192 columns where not given), one band per device or per
+        unit, whichever is fewer, bands at most one unit apart. The unit
+        is the row tile (``conv_tiles.tile_rows``; the last one may be
+        shorter) where the image has two or more, so that each band's
+        tiled convs are the unsharded program's calls; else a 16-row block
+        (a one-tile image's banded convs then round as its bands' calls
+        do). Tiles cost balance: a 3024-row frame over 4 devices gets
+        bands of 512, 512, 1024 and 976 rows (16-row blocks would give
+        752-768), and an image of T tiles uses at most T devices (2048
+        rows: 4; a 512x8704 panorama: 2, of 256 rows)."""
         if height % BLOCK or height <= 0:
             raise ValueError(f"spatial bands take whole {BLOCK}-row blocks; the image has {height} rows")
-        unit = conv_tiles.ROW_TILE if height > conv_tiles.ROW_TILE else BLOCK
+        tile = conv_tiles.tile_rows(height, width)
+        unit = tile if height > tile else BLOCK
         units = -(-height // unit)
         n = min(len(self.devices), units)
         base, extra = divmod(units, n)
@@ -144,7 +150,7 @@ def spatial_extract(model, mesh: SpatialMesh, postprocess: Callable = None) -> C
             raise ValueError(f"spatial_extract: a {H}x{W} image is not a multiple of {BLOCK}, so "
                              "ResUNet's _skipconnect would pad its maps; crop it to %16 as the "
                              "extraction datasets do")
-        starts = mesh.plan(H)
+        starts = mesh.plan(H, W)
         devs = mesh.devices[: len(starts)]
         outputs = posfeat_extract(split_rows(im, devs, starts), [replicas[d] for d in devs])
         return outputs if postprocess is None else postprocess(outputs)

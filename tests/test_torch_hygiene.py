@@ -18,7 +18,7 @@ SCRIPTS = [ROOT / "chip_smoke.py"] + [
                  "profile_torch_conv_stages", "profile_torch_lse_stages", "compare_torch_trees",
                  "selection_stability_torch", "convergence_experiment_torch", "make_megadepth_fixture",
                  "budget_matched_eval_torch", "multihost_torch", "spatial_rounding_torch",
-                 "spatial_bands_torch", "profile_torch_moments")
+                 "spatial_bands_torch", "profile_torch_moments", "acceptance_torch", "stage2_sweep_torch")
 ]
 
 

@@ -5,10 +5,12 @@ validation configs: stage 1's ``detector: 'sift'`` (configs/train_desc.yaml,
 its own ``data_config_val``) and stage 2's ``generate_kpts_single``
 (configs/train_kp.yaml, samples from the train set).
 
-JAX's ``tensor2array`` colours through matplotlib, which neither this
-machine nor the card's has; a stub ``matplotlib`` whose
-``colormaps[name]`` is the port's lookup table is put into
-``sys.modules`` inside these tests only, so the JAX dumps get written.
+JAX's ``tensor2array`` colours through matplotlib, which the card's
+machine lacks and a CPU test machine may lack; a stub ``matplotlib``
+whose ``colormaps[name]`` is the port's lookup table is put into
+``sys.modules`` inside these tests only, so the JAX dumps get written
+wherever they run (tests/test_torch_colormaps.py holds the tables
+against matplotlib itself where it is installed).
 Both packages' detector and matcher calls are recorded.
 
 Measured agreement, both configs: descriptors within 1.9e-6 of JAX's

@@ -170,9 +170,11 @@ def sift_mma(tag, data_root, work, load_path, device=None, seed=0):
     return _score(ex.desc_root, data_root, device)
 
 
-def learned_mma(tag, data_root, work, load_path, device=None, num_pts=512):
+def learned_mma(tag, data_root, work, load_path, device=None, num_pts=512, detector_extra=None):
     """MMA@3 of the learned detector through the port's Extractor
-    (tools/convergence_experiment.py:235-289 without ``use_sift``)."""
+    (tools/convergence_experiment.py:235-289 without ``use_sift``);
+    ``detector_extra`` merges detector_config keys (e.g. ``{"refine":
+    "quad"}``)."""
     from posfeat_tpu_torch.extract import Extractor
 
     cfg = {
@@ -189,7 +191,8 @@ def learned_mma(tag, data_root, work, load_path, device=None, num_pts=512):
         "local_thr": 0.99,
         "use_sift": False,
         "detector": "generate_kpts_single",
-        "detector_config": {"num_pts": num_pts, "stable": True, "use_nms": True, "nms_radius": 1, "thr": False},
+        "detector_config": {"num_pts": num_pts, "stable": True, "use_nms": True, "nms_radius": 1, "thr": False,
+                            **(detector_extra or {})},
     }
     ex = Extractor(cfg, ckpt_root=os.path.join(work, "ckpts"), device=device)
     ex.extract()

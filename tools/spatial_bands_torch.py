@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """What the band plan costs: each device's peak memory and the time of
-the banded extraction program, for the port's plan (bands on the 512-row
-conv tiles of ``ops/conv_tiles.py``) and for even 16-row-block bands.
+the banded extraction program, for the port's plan (bands on the conv
+tiles of ``ops/conv_tiles.py`` ``tile_rows``: 512 rows up to 8192 columns)
+and for even 16-row-block bands.
 
     python3 tools/spatial_bands_torch.py [--height 3024 --width 4032] [--bands 4] [--dtypes bfloat16,float32]
 
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
     class BlockMesh(SpatialMesh):
         """Bands of whole 16-row blocks, at most one block apart."""
 
-        def plan(self, height):
+        def plan(self, height, width=None):
             blocks = height // BLOCK
             n = min(len(self.devices), blocks)
             base, extra = divmod(blocks, n)
@@ -83,7 +84,7 @@ def main(argv=None) -> int:
         ref, ms_ref, peak = c._timed_slate(torch, c.slice_k_program(torch, model, None), im_u8, [card], args.reps)
         print(f"{label}, unsharded on cuda:0: {ms_ref:.4f} ms/image, peak {gib(peak[0])} GiB", flush=True)
         for name, mesh in (("tile plan", spatial_mesh(devices)), ("16-row-block plan", BlockMesh(tuple(devices)))):
-            starts = mesh.plan(args.height)
+            starts = mesh.plan(args.height, args.width)
             rows = np.diff(starts + [args.height]).tolist()
             used = sorted(set(devices[: len(starts)]), key=str)
             torch.cuda.empty_cache()
@@ -96,7 +97,7 @@ def main(argv=None) -> int:
             print(f"{label}, {name}, {len(starts)} bands {where}: first rows {starts}, rows {rows}; "
                   f"{ms:.4f} ms/image ({ms / ms_ref:.3f}x unsharded); peak GiB "
                   + ", ".join(f"{d}: {gib(p)}" for d, p in zip(used, peaks)) + cmp, flush=True)
-        starts = spatial_mesh(devices).plan(args.height)
+        starts = spatial_mesh(devices).plan(args.height, args.width)
         for i, (a, b) in enumerate(zip(starts, starts[1:] + [args.height])):
             torch.cuda.empty_cache()
             _, ms, peak = c._timed_slate(torch, c.slice_k_program(torch, model, None), im_u8[:, a:b].contiguous(),

@@ -323,7 +323,7 @@ def main(argv=None) -> int:
         fm = model.backbone(im)
         head = head_of(fm, im)
         ref = slate(head)
-        starts = spatial_mesh([card] * args.bands).plan(fh)
+        starts = spatial_mesh([card] * args.bands).plan(fh, fw)
         bands = bo.split_rows(im, [card] * args.bands, starts)
         bfm = resunet(bands, [model.backbone] * args.bands)
         for (name, dense), (_, banded) in zip(steps["unsharded"], steps["banded"]):
