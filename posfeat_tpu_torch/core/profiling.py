@@ -1,60 +1,106 @@
-"""Device traces and wall-clock statistics (posfeat_tpu/core/profiling.py).
+"""Device traces, host spans and wall-clock statistics
+(posfeat_tpu/core/profiling.py).
 
-  * ``trace(logdir, device)``: a ``torch.profiler`` trace (host activity,
-    and the card's kernels on CUDA) written for TensorBoard into
-    ``logdir`` when the context closes;
+  * ``trace(logdir, device)``: a ``torch.profiler`` trace (host activity
+    with the inputs' shapes, and the card's kernels on CUDA) written for
+    TensorBoard into ``logdir`` when the context closes;
+  * ``span(name, seq=None)``: a named host range at a layer boundary of
+    the program (the Extractor's batch loop, the Trainer's step, the
+    model's backbone and head). Tracing is on exactly while a
+    ``torch.profiler`` session records on the calling thread: this
+    module's ``trace()``, the Trainer's ``profile_trace_dir``, or any
+    other session, such as the benchmark's traced run. There is no
+    switch of its own. While it is on, a span opens a profiler range of
+    its name (a host op of the trace's ``cpu_op`` category, on the
+    profiler's clock beside the card's kernels; ``seq``, a batch or step
+    number, goes in the range's args where the session records inputs,
+    as ``trace()`` does) and adds its host seconds and a count of one to
+    an in-memory table, ``span_totals()``, under a lock; it closes and
+    counts when its body raises. While it is off, a span is one check of
+    torch's profiler flag: no clock, no allocation, no lock;
   * ``StepTimer``: rolling step times appended to a jsonl sink. Given a
     CUDA device it synchronizes the device before it reads the clock, so
-    a step's time covers the work the step queued, not only its launches;
-  * ``device_time(fn, *args)``: the best wall time of a few calls, each
-    synchronized with the card.
+    a step's time covers the work the step queued, not only its launches.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 
 @contextlib.contextmanager
 def trace(logdir: str, device=None):
     """Trace the body into ``logdir`` (``*.pt.trace.json``, which
     TensorBoard's profiler plugin and chrome://tracing read): CPU activity
-    always, CUDA activity when ``device`` is a card."""
+    always, with the inputs' shapes (which carry the spans' ``seq``), CUDA
+    activity when ``device`` is a card."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if device is not None and torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+    with profile(activities=activities, record_shapes=True, on_trace_ready=tensorboard_trace_handler(logdir)):
         yield
 
 
-def device_time(fn: Callable, *args, iters: int = 3) -> float:
-    """The best of ``iters`` wall times (seconds) of ``fn(*args)`` after one
-    warm-up call; where a CUDA tensor is among ``args``, each call is
-    closed by ``torch.cuda.synchronize`` on its card
-    (posfeat_tpu/core/profiling.py:73-93)."""
-    device = next((a.device for a in args if isinstance(a, torch.Tensor) and a.is_cuda), None)
+_OFF = contextlib.nullcontext()  # every span while tracing is off
+_totals_lock = threading.Lock()
+_totals: Dict[str, List] = {}  # name -> [count, seconds]
 
-    def sync():
-        if device is not None:
-            torch.cuda.synchronize(device)
 
-    fn(*args)
-    sync()
-    best = float("inf")
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args)
-        sync()
-        best = min(best, time.perf_counter() - t0)
-    return best
+class _Span:
+    """A span while tracing is on: its profiler range and its host time."""
+
+    __slots__ = ("name", "seq", "_range", "_t0")
+
+    def __init__(self, name: str, seq: Optional[int]):
+        self.name, self.seq = name, seq
+
+    def __enter__(self):
+        self._range = (_RecordFunctionFast(self.name) if self.seq is None
+                       else _RecordFunctionFast(self.name, (), {"seq": int(self.seq)}))
+        self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self._t0
+        self._range.__exit__(*exc)
+        with _totals_lock:
+            entry = _totals.setdefault(self.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += seconds
+        return False
+
+
+def span(name: str, seq: Optional[int] = None):
+    """A context manager over one layer's work: a profiler range named
+    ``name`` and a count in ``span_totals()`` while tracing is on (see the
+    module docstring), nothing beyond the flag's check while it is off."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, seq)
+
+
+def span_totals() -> Dict[str, Tuple[int, float]]:
+    """{name: (count, host seconds)} of the spans closed while tracing was
+    on, since the process started or ``reset_span_totals()``."""
+    with _totals_lock:
+        return {name: (count, seconds) for name, (count, seconds) in _totals.items()}
+
+
+def reset_span_totals() -> None:
+    with _totals_lock:
+        _totals.clear()
 
 
 class StepTimer:

@@ -76,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import fcntl
+import itertools
 import logging
 import os
 import time
@@ -89,6 +90,7 @@ import torch
 
 from ..core.config import dump_config, load_config, merge_from_checkpoint
 from ..core.device import resolve_device
+from ..core.profiling import span
 from ..data import DATASETS
 from ..data.utils import IMAGENET_MEAN, IMAGENET_STD
 from ..models import MODELS
@@ -169,7 +171,19 @@ class Extractor:
     ``__len__`` and ``__getitem__`` yielding the datasets' sample dicts
     ('im1_ori' uint8 HWC, 'name1', ...), used instead of the configured
     dataset. ``seed``: the random init's seed where no checkpoint is
-    loaded."""
+    loaded.
+
+    Any ``torch.profiler`` trace of an extraction holds these named host
+    ranges on the main thread (``core/profiling.span``), on the clock of
+    the card's kernels, and their totals in ``profiling.span_totals()``:
+    ``extract.feed_wait`` (waiting for the decode prefetcher's next
+    image), ``extract.dispatch`` (a batch from its bucket to the fetch
+    thread: stacking, the pinned upload, the device program's enqueue,
+    the device-to-host copies; ``seq`` is the batch number),
+    ``extract.card_wait`` (waiting for the fetch thread, which waits for
+    the card: the bound of two batches in flight, the last drain, the
+    pools' shutdown), and inside a batch ``model.backbone`` and
+    ``model.head``."""
 
     def __init__(self, config, ckpt_root: str = "./ckpts", device=None, dataset=None, seed: int = 0):
         if isinstance(config, str):
@@ -494,7 +508,9 @@ class Extractor:
             nxt = len(futs)
             while futs:
                 i, f = futs.popleft()
-                yield i, f.result()
+                with span("extract.feed_wait"):
+                    sample = f.result()
+                yield i, sample
                 if nxt < n:
                     futs.append((nxt, pool.submit(self.dataset.__getitem__, nxt)))
                     nxt += 1
@@ -514,6 +530,7 @@ class Extractor:
         write_futs: deque = deque()
         write_cap = 4 * bs  # pending per-image writes before fetches wait
         pending_cap = max(4 * bs, 32)  # decoded images held before a partial flush
+        batch_no = itertools.count()
 
         def finish(key, items, host, done):
             if done is not None:
@@ -538,23 +555,25 @@ class Extractor:
             return 1 if self._use_spatial(key[0]) else bs
 
         def dispatch(key):
-            items = buckets.pop(key)
-            ims = [np.asarray(it["im1_ori"], np.uint8) for it in items]
-            ims += [ims[-1]] * (bucket_cap(key) - len(ims))  # pad a partial bucket
-            batch = torch.from_numpy(np.stack(ims))
-            if cuda:
-                batch = batch.pin_memory().to(self.device, non_blocking=True)
-            program = self._spatial_fn if self._use_spatial(key[0]) else self._learned_fn
-            out = program(key[0], key[1])(batch)
-            # device -> pinned host copies, waited for on the fetch thread
-            host = [t.to("cpu", non_blocking=True) for t in out]
-            done = None
-            if cuda:
-                done = torch.cuda.Event()
-                done.record()
-            fetch_futs.append(fetch_pool.submit(finish, key, items, host, done))
-            while len(fetch_futs) > 2:  # bound the live result buffers
-                fetch_futs.popleft().result()
+            with span("extract.dispatch", seq=next(batch_no)):
+                items = buckets.pop(key)
+                ims = [np.asarray(it["im1_ori"], np.uint8) for it in items]
+                ims += [ims[-1]] * (bucket_cap(key) - len(ims))  # pad a partial bucket
+                batch = torch.from_numpy(np.stack(ims))
+                if cuda:
+                    batch = batch.pin_memory().to(self.device, non_blocking=True)
+                program = self._spatial_fn if self._use_spatial(key[0]) else self._learned_fn
+                out = program(key[0], key[1])(batch)
+                # device -> pinned host copies, waited for on the fetch thread
+                host = [t.to("cpu", non_blocking=True) for t in out]
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record()
+                fetch_futs.append(fetch_pool.submit(finish, key, items, host, done))
+            with span("extract.card_wait"):
+                while len(fetch_futs) > 2:  # bound the live result buffers
+                    fetch_futs.popleft().result()
 
         n_images = 0
         try:
@@ -570,13 +589,16 @@ class Extractor:
                     dispatch(max(buckets, key=lambda k: len(buckets[k])))
             for key in list(buckets):
                 dispatch(key)
-            while fetch_futs:  # surface fetch errors
-                fetch_futs.popleft().result()
+            with span("extract.card_wait"):
+                while fetch_futs:  # surface fetch errors
+                    fetch_futs.popleft().result()
             while write_futs:  # surface write errors
                 write_futs.popleft().result()
         finally:
-            fetch_pool.shutdown(wait=True)
-            write_pool.shutdown(wait=True)
+            # on an error from the dataset, up to two batches are still in flight
+            with span("extract.card_wait"):
+                fetch_pool.shutdown(wait=True)
+                write_pool.shutdown(wait=True)
         return n_images
 
     def _extract_sift(self, names: Dict[int, str]) -> int:

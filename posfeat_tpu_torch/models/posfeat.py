@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from ..core.device import resolve_device
+from ..core.profiling import span
 from .keypoint_det import KeypointDet
 from .resunet import ResUNet, ResUNetHR
 
@@ -104,7 +105,8 @@ class PoSFeat(nn.Module):
         local_input = torch.cat([feat_maps[n] for n in self.local_input_elements], dim=-1)
         if detach_local_input:
             local_input = local_input.detach()
-        l_map = self.localheader(local_input, tensor)
+        with span("model.head"):
+            l_map = self.localheader(local_input, tensor)
         if l_map.shape[-1] == 1:
             local_thr = torch.zeros_like(l_map)
         else:
@@ -126,7 +128,9 @@ class PoSFeat(nn.Module):
         """Single-image feature extraction in eval mode, without a graph:
         NHWC image [B, H, W, 3] -> the reference output dict."""
         self.eval()
-        return self._outputs(self.backbone(tensor), tensor)
+        with span("model.backbone"):
+            feat_maps = self.backbone(tensor)
+        return self._outputs(feat_maps, tensor)
 
     def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False):
         """Two-view forward (PoSFeat_model.py:136-147) with autograd, the
@@ -155,7 +159,7 @@ class PoSFeat(nn.Module):
         )
         out = {}
         for key, im in (("preds1", inputs["im1"]), ("preds2", inputs["im2"])):
-            with torch.set_grad_enabled(backbone_grad):
+            with torch.set_grad_enabled(backbone_grad), span("model.backbone"):
                 feat_maps = self.backbone(im)
             out[key] = self._outputs(feat_maps, im, detach_local_input=not self.align_local_grad)
         return out

@@ -69,7 +69,7 @@ from ..core import distributed
 from ..core.config import dump_config, load_config, merge_from_checkpoint
 from ..core.device import resolve_device
 from ..core.logging_utils import make_logger
-from ..core.profiling import StepTimer, trace
+from ..core.profiling import StepTimer, span, trace
 from ..data import DATASETS
 from ..data.loader import PrefetchLoader
 from ..losses import LOSSES, PREPROCESSES
@@ -133,7 +133,17 @@ class Trainer:
     rank's rows of the launcher's global batches, ``train/launch.py``).
     ``multihost``: a ``multihost:`` block used as the config's would be
     and kept out of the ``config.yaml`` the run writes (the launcher's
-    localhost group)."""
+    localhost group).
+
+    Any ``torch.profiler`` trace of training (``profile_trace_dir``
+    among them) holds these named host ranges of each ``train_step``
+    (``core/profiling.span``), on the clock of the card's kernels, and
+    their totals in ``profiling.span_totals()``: ``train.forward`` (the
+    model, the preprocess and the losses; ``seq`` is the step number),
+    ``train.backward``, ``train.guard`` (the non-finite check, where the
+    host waits for the card; under ``multihost:`` also the gradients'
+    all-reduce), and inside the forward ``model.backbone`` and
+    ``model.head``, once a view."""
 
     def __init__(self, config, ckpt_root: str = "./ckpts", overwrite: bool = False,
                  device=None, dataset=None, batches=None, multihost=None):
@@ -249,6 +259,7 @@ class Trainer:
                        else distributed.RowShard(self.generator, self.process_id, self.num_processes))
         self._val_samples = None
         self._ckpt_thread = None
+        self._steps = 0  # train_step calls: the spans' step numbers
         self._tb = self._try_tensorboard() if self.process_id == 0 else None
 
     # ------------------------------------------------------------ helpers
@@ -341,30 +352,37 @@ class Trainer:
         """One update. Returns (total, components, grad_norms, finite).
         Under ``multihost:`` ``batch`` and given ``draws`` are this rank's
         rows of the global batch's, and the returned values are the global
-        batch's."""
+        batch's. Its spans: ``train.forward``, ``train.backward`` and
+        ``train.guard``, from the finite flags to the host's read of the
+        decision (the wait for the card), under ``multihost:`` with the
+        gradients' all-reduce and the components' reduction inside."""
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=True)
-        total, components = self.loss(batch, epoch, draws, preprocess_draws)
-        total.backward()
+        with span("train.forward", seq=self._steps):
+            total, components = self.loss(batch, epoch, draws, preprocess_draws)
+        self._steps += 1
+        with span("train.backward"):
+            total.backward()
         grads = {}
         for mod, params in self.params.items():
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads[mod] = [p.grad for p in params]
-        flags = [torch.isfinite(total.detach()).reshape(1)]
-        flags += [torch.isfinite(g).all().reshape(1) for gs in grads.values() for g in gs]
-        finite = torch.cat(flags).all()
-        total = total.detach()
-        if self.num_processes > 1:
-            # the global gradient is the sum of the ranks' shares'; the skip
-            # decision is global, so no rank steps while another skips
-            for gs in grads.values():
-                distributed.all_reduce_sum_(gs)
-            components = distributed.reduce_components(
-                {**components, "total": total, "finite": finite.float()}, self._reductions)
-            total, finite = components.pop("total"), components.pop("finite") > 0.5
-        finite = bool(finite)
+        with span("train.guard"):
+            flags = [torch.isfinite(total.detach()).reshape(1)]
+            flags += [torch.isfinite(g).all().reshape(1) for gs in grads.values() for g in gs]
+            finite = torch.cat(flags).all()
+            total = total.detach()
+            if self.num_processes > 1:
+                # the global gradient is the sum of the ranks' shares'; the skip
+                # decision is global, so no rank steps while another skips
+                for gs in grads.values():
+                    distributed.all_reduce_sum_(gs)
+                components = distributed.reduce_components(
+                    {**components, "total": total, "finite": finite.float()}, self._reductions)
+                total, finite = components.pop("total"), components.pop("finite") > 0.5
+            finite = bool(finite)
         with torch.no_grad():
             if not finite:
                 for gs in grads.values():
