@@ -67,7 +67,7 @@ import torch
 
 from ..core import distributed
 from ..core.config import dump_config, load_config, merge_from_checkpoint
-from ..core.device import resolve_device
+from ..core.device import cudnn_autotune, resolve_device
 from ..core.logging_utils import make_logger
 from ..core.profiling import StepTimer, span, trace
 from ..data import DATASETS
@@ -355,14 +355,19 @@ class Trainer:
         batch's. Its spans: ``train.forward``, ``train.backward`` and
         ``train.guard``, from the finite flags to the host's read of the
         decision (the wait for the card), under ``multihost:`` with the
-        gradients' all-reduce and the components' reduction inside."""
+        gradients' all-reduce and the components' reduction inside.
+        The forward and the backward run their convs on the algorithms
+        cuDNN's autotune measures fastest (``cudnn_autotune``): the first
+        step of each conv shape in the process pays for the timing, and
+        outside them cuDNN's flags are as the caller set them."""
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=True)
-        with span("train.forward", seq=self._steps):
-            total, components = self.loss(batch, epoch, draws, preprocess_draws)
-        self._steps += 1
-        with span("train.backward"):
-            total.backward()
+        with cudnn_autotune():
+            with span("train.forward", seq=self._steps):
+                total, components = self.loss(batch, epoch, draws, preprocess_draws)
+            self._steps += 1
+            with span("train.backward"):
+                total.backward()
         grads = {}
         for mod, params in self.params.items():
             for p in params:
